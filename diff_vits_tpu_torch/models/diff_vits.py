@@ -1,0 +1,98 @@
+"""Zero-shot TTS model (VITS prior + conditional diffusion decoder) and its
+sampling entry point.
+
+Port of ``DiffVits`` and ``synthesize`` of
+``diff_vits_tpu/models/diff_vits.py`` for inference: text + prompt mel ->
+content (VITS.infer) -> 30-step UniPC over the UNet denoiser -> mel. The
+prompt is encoded once, and every step's time + text embedding is computed
+in one batched call before the loop (``emb_all``, diff_vits.py:197-222).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from diff_vits_tpu_torch.core.config import Config
+from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
+from diff_vits_tpu_torch.diffusion.dpm_solver import time_steps_uniform
+from diff_vits_tpu_torch.diffusion.noise_schedule import NoiseScheduleVP
+from diff_vits_tpu_torch.diffusion.schedule import linear_beta_schedule
+from diff_vits_tpu_torch.diffusion.uni_pc import sample_unipc
+from diff_vits_tpu_torch.models.diffusion_encoder import DiffusionEncoder
+from diff_vits_tpu_torch.models.vits import VITS
+
+
+class DiffVits(nn.Module):
+    """VITS prior (``vits``) + diffusion decoder (``diff_model``)."""
+
+    def __init__(self, cfg: Config, n_vocab: int, *,
+                 device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.vits = VITS(n_vocab, cfg.vits, device=device, dtype=dtype)
+        self.diff_model = DiffusionEncoder(cfg.diffusion_encoder,
+                                           device=device, dtype=dtype)
+
+
+def _model_device(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+@torch.inference_mode()
+def synthesize(model: DiffVits, text, text_lengths, refer, refer_lengths,
+               tone, language, *, generator: Optional[torch.Generator] = None,
+               sampling_steps: int = 30, sample_method: str = "unipc",
+               max_len: Optional[int] = None, noise_scale: float = 0.667,
+               length_scale: float = 1.0,
+               init_noise: Optional[torch.Tensor] = None,
+               device: DeviceLike = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """text [B, Tx] + prompt mel [B, S, 100] -> (mel [B, Ty, 100] float32,
+    out_lengths [B]). ``init_noise`` injects x_T; ``generator`` draws the
+    prior and initial noise otherwise. Runs on ``device`` (the card unless
+    given), which must hold the model."""
+    if sample_method != "unipc":
+        raise NotImplementedError(
+            f"sample_method {sample_method!r} is not ported (unipc only)")
+    device = resolve_device(device)
+    if _model_device(model).type != device.type:
+        raise ValueError(f"model is on {_model_device(model)}, "
+                         f"synthesize asked for {device}")
+
+    def dev(t):
+        return torch.as_tensor(t).to(_model_device(model))
+
+    text, text_lengths, refer, refer_lengths, tone, language = map(
+        dev, (text, text_lengths, refer, refer_lengths, tone, language))
+    content, out_lengths = model.vits.infer(
+        text, text_lengths, refer, refer_lengths, tone, language,
+        noise_scale=noise_scale, length_scale=length_scale, max_len=max_len,
+        generator=generator)
+
+    ns = NoiseScheduleVP(linear_beta_schedule(model.cfg.train.timesteps))
+    b, t_y = content.shape[0], content.shape[1]
+    c_mel = model.cfg.diffusion_encoder.out_channels
+    if init_noise is not None:
+        x = dev(init_noise).float()
+    else:
+        gen_dev = generator.device if generator is not None else "cpu"
+        x = dev(torch.randn((b, t_y, c_mel), generator=generator,
+                            device=gen_dev, dtype=torch.float32))
+
+    dm = model.diff_model
+    prompt_h, prompt_keep = dm.encode_prompt(refer, refer_lengths)
+    td_grid = time_steps_uniform(ns, sampling_steps) * ns.total_N - 1.0
+    time_embs = dm.embed_time(dev(td_grid))
+    aug = dm.embed_text(prompt_h)
+    emb_all = time_embs[:, None, :].float() + aug[None, :, :].float()
+
+    def x0_fn(x, t_discrete, step_index):
+        return dm.denoise(x, t_discrete, content, prompt_h, prompt_keep,
+                          emb=emb_all[step_index])
+
+    mel = sample_unipc(x0_fn, ns, x, steps=sampling_steps)
+    return mel, out_lengths

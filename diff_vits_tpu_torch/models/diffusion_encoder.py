@@ -1,0 +1,61 @@
+"""Conditional diffusion denoiser: prompt encoder + UNet1D.
+
+Port of ``diff_vits_tpu/models/diffusion_encoder.py``: the prompt mel is
+encoded once per utterance into cross-attention keys; each denoiser call
+runs the UNet on [noisy mel, content] with those keys.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from diff_vits_tpu_torch.core import masking
+from diff_vits_tpu_torch.core.config import DiffusionEncoderConfig
+from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
+from diff_vits_tpu_torch.models.encoders import PromptEncoder
+from diff_vits_tpu_torch.nn.unet1d import UNet1DConditionModel
+
+
+class DiffusionEncoder(nn.Module):
+
+    def __init__(self, cfg: DiffusionEncoderConfig, *,
+                 device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if cfg.moe_experts:
+            raise NotImplementedError("MoE feed-forward is not ported")
+        device = resolve_device(device)
+        c = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.prompt_encoder = PromptEncoder(
+            c.in_channels, c.hidden_channels, c.hidden_channels,
+            c.n_prompt_layers, **kw)
+        self.unet = UNet1DConditionModel(
+            in_channels=c.in_channels + c.hidden_channels,
+            out_channels=c.out_channels,
+            block_out_channels=c.block_out_channels, norm_num_groups=8,
+            cross_attention_dim=c.hidden_channels,
+            attention_head_dim=c.n_heads, addition_embed_type="text", **kw)
+        self.to(**kw)
+
+    def encode_prompt(self, prompt, prompt_lengths):
+        """Prompt mel -> cross-attention keys [B, S, C] and keep mask."""
+        prompt = prompt.to(self.unet.conv_in.weight.dtype)
+        prompt_keep = masking.sequence_mask(prompt_lengths, prompt.shape[1])
+        prompt_h = self.prompt_encoder(prompt, prompt_lengths)
+        prompt_h = prompt_h * prompt_keep.to(prompt_h.dtype)[..., None]
+        return prompt_h, prompt_keep
+
+    def denoise(self, x, t, cond, prompt_h, prompt_keep, *, emb=None):
+        """One UNet x0 prediction given pre-encoded prompt keys."""
+        h = torch.cat([x, cond.to(x.dtype)], dim=-1)
+        return self.unet(h, t, prompt_h, encoder_attention_mask=prompt_keep,
+                         emb=emb)
+
+    def embed_time(self, timesteps):
+        """Timestep-MLP embeddings [N, 4*ch0] for the solver's times."""
+        return self.unet(None, timesteps, None, embedding_request="time")
+
+    def embed_text(self, prompt_h):
+        """Pooled 'text' additive embedding [B, 4*ch0]."""
+        return self.unet(None, None, prompt_h, embedding_request="text")

@@ -1,0 +1,80 @@
+"""Text prior encoder and prompt refiner, channel-last [B, T, C].
+
+Port of ``TextEncoder`` and ``PromptEncoder`` of
+``diff_vits_tpu/models/encoders.py``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from diff_vits_tpu_torch.core import masking
+from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
+from diff_vits_tpu_torch.nn.fairseq import ConvLayer, EncSALayer
+from diff_vits_tpu_torch.nn.layers import Encoder
+
+
+class TextEncoder(nn.Module):
+    """phoneme + tone + language embeddings -> rel-pos transformer ->
+    (x, m, logs, x_mask)."""
+
+    def __init__(self, n_vocab: int, out_channels: int, hidden_channels: int,
+                 filter_channels: int, n_heads: int, n_layers: int,
+                 kernel_size: int, gin_channels: int = 0, num_tones: int = 11,
+                 num_languages: int = 3, *, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        h = hidden_channels
+        self.hidden_channels = h
+        self.emb = nn.Embedding(n_vocab, h)
+        self.tone_emb = nn.Embedding(num_tones, h)
+        self.language_emb = nn.Embedding(num_languages, h)
+        self.encoder = Encoder(h, filter_channels, n_heads, n_layers,
+                               kernel_size, gin_channels=gin_channels)
+        self.proj = nn.Linear(h, 2 * out_channels)
+        self.to(device=resolve_device(device), dtype=dtype)
+
+    def forward(self, x, x_lengths, tone, language, g=None):
+        xh = (self.emb(x) + self.tone_emb(tone) + self.language_emb(language)
+              ) * math.sqrt(self.hidden_channels)
+        x_mask = masking.sequence_mask(x_lengths, xh.shape[1]).to(
+            xh.dtype)[..., None]
+        xh = self.encoder(xh * x_mask, x_mask, g=g)
+        m, logs = (self.proj(xh) * x_mask).chunk(2, dim=-1)
+        return xh, m, logs, x_mask
+
+
+class PromptEncoder(nn.Module):
+    """pre conv -> N x EncSALayer -> out conv (+ LN), masked."""
+
+    def __init__(self, in_channels: int = 128, hidden_channels: int = 512,
+                 out_channels: int = 128, n_layers: int = 6,
+                 last_ln: bool = True, gin_channels: Optional[int] = None,
+                 *, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_layers = n_layers
+        self.g_proj = (nn.Linear(gin_channels, in_channels)
+                       if gin_channels is not None else None)
+        self.pre = ConvLayer(in_channels, hidden_channels, 1)
+        for i in range(n_layers):
+            self.add_module(f"layer_{i}", EncSALayer(hidden_channels, 8, 9))
+        self.out_proj = ConvLayer(hidden_channels, out_channels, 1)
+        self.layer_norm = (nn.LayerNorm(out_channels, eps=1e-5)
+                           if last_ln else None)
+        self.to(device=resolve_device(device), dtype=dtype)
+
+    def forward(self, x, lengths, g=None):
+        if g is not None and self.g_proj is not None:
+            x = x + self.g_proj(g)
+        keep = masking.sequence_mask(lengths, x.shape[1]).to(x.dtype)[..., None]
+        x = self.pre(x, keep) * keep
+        for i in range(self.n_layers):
+            x = getattr(self, f"layer_{i}")(x, keep)
+        x = self.out_proj(x) * keep
+        if self.layer_norm is not None:
+            x = self.layer_norm(x) * keep
+        return x

@@ -1,0 +1,535 @@
+"""Conditional 1-D UNet denoiser, channel-last [B, T, C].
+
+Port of the main-path parts of ``diff_vits_tpu/nn/unet1d.py``: the
+attention and feed-forward blocks, ``ResnetBlock1D`` (scale_shift FiLM),
+down/up sampling, the five block types the model uses and
+``UNet1DConditionModel`` with its ``emb=`` and ``embedding_request`` paths
+(:700-849). Submodules carry the flax names (``down_0.resnet_1``,
+``attn_0.block_0.attn2``, ...) so ``utils/convert.py`` maps the JAX
+package's parameters mechanically.
+
+Routing: ``ResnetBlock1D`` and ``BasicTransformerBlock`` send every call
+that passes the JAX package's shape gates (:157-168, :397-406) through the
+fused ops of ``diff_vits_tpu_torch.ops``, which run their CUDA kernels on
+the card and their plain PyTorch versions on the CPU; there is no batch
+cut-off. ``use_fused=False`` selects the unfused PyTorch formulation (the
+JAX package's XLA path), which is also what a call failing the gate takes.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
+from diff_vits_tpu_torch.nn.embeddings import (
+    TextTimeEmbedding, TimestepEmbedding, Timesteps)
+from diff_vits_tpu_torch.nn.layers import Conv1d
+from diff_vits_tpu_torch.ops import (
+    fused_cross_attention, fused_geglu_ff, fused_resnet_block,
+    fused_self_attention)
+
+
+def _group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    return norm(x.transpose(1, 2)).transpose(1, 2)
+
+
+def _dense_w(linear: nn.Linear) -> torch.Tensor:
+    """An ``nn.Linear`` weight as the fused ops take it: a [in, out] view."""
+    return linear.weight.t()
+
+
+def _conv_w(conv: nn.Conv1d) -> torch.Tensor:
+    """An ``nn.Conv1d`` weight as a [k, in, out] view."""
+    return conv.weight.permute(2, 1, 0)
+
+
+class CrossAttention(nn.Module):
+    """SDPA attention: q from x, k/v from ``context`` (or x); additive key
+    bias [B, 1, S] (unet1d.py:34)."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 cross_attention_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        ctx_dim = cross_attention_dim or query_dim
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(ctx_dim, inner, bias=False)
+        self.to_v = nn.Linear(ctx_dim, inner, bias=False)
+        self.to_out = nn.Linear(inner, query_dim)
+
+    def forward(self, x, context=None, attention_bias=None):
+        ctx = x if context is None else context
+        b, t, _ = x.shape
+
+        def split(a):
+            return a.reshape(b, -1, self.heads, self.dim_head).transpose(1, 2)
+
+        q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), \
+            split(self.to_v(ctx))
+        scores = torch.matmul(q, k.transpose(-1, -2)) * self.dim_head ** -0.5
+        if attention_bias is not None:
+            scores = scores + attention_bias[:, None].to(scores.dtype)
+        out = torch.matmul(torch.softmax(scores, dim=-1), v)
+        return self.to_out(out.transpose(1, 2).reshape(b, t, -1))
+
+
+class GEGLUFeedForward(nn.Module):
+    """GEGLU feed-forward, mult 4, exact-erf GELU."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.proj = nn.Linear(dim, 2 * dim * mult)
+        self.out = nn.Linear(dim * mult, dim)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return self.out(h * F.gelu(gate))
+
+
+class BasicTransformerBlock(nn.Module):
+    """LN -> self-attn, LN -> cross-attn, LN -> GEGLU FF (unet1d.py:135)."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int,
+                 cross_attention_dim: Optional[int] = None,
+                 use_fused: bool = True):
+        super().__init__()
+        self.dim, self.num_heads, self.head_dim = dim, num_heads, head_dim
+        self.use_fused = use_fused
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = CrossAttention(dim, num_heads, head_dim)
+        self.has_cross = cross_attention_dim is not None
+        if self.has_cross:
+            self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+            self.attn2 = CrossAttention(dim, num_heads, head_dim,
+                                        cross_attention_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = GEGLUFeedForward(dim)
+
+    def _fused_enabled(self, attention_bias) -> bool:
+        return (self.use_fused and attention_bias is None
+                and self.num_heads * self.head_dim == self.dim)
+
+    def forward(self, x, context=None, attention_bias=None,
+                context_bias=None):
+        if self._fused_enabled(attention_bias):
+            cdt = self.norm1.weight.dtype
+
+            def attn(norm: nn.LayerNorm, a: CrossAttention):
+                return (norm.weight, norm.bias, _dense_w(a.to_q),
+                        _dense_w(a.to_k), _dense_w(a.to_v),
+                        _dense_w(a.to_out), a.to_out.bias)
+            x = fused_self_attention(x, *attn(self.norm1, self.attn1),
+                                     heads=self.num_heads, compute_dtype=cdt)
+            if self.has_cross:
+                x = fused_cross_attention(
+                    x, context, context_bias, *attn(self.norm2, self.attn2),
+                    heads=self.num_heads, compute_dtype=cdt)
+            return fused_geglu_ff(
+                x, self.norm3.weight, self.norm3.bias,
+                _dense_w(self.ff.proj), self.ff.proj.bias,
+                _dense_w(self.ff.out), self.ff.out.bias, compute_dtype=cdt)
+        x = x + self.attn1(self.norm1(x), None, attention_bias)
+        if self.has_cross:
+            x = x + self.attn2(self.norm2(x), context, context_bias)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer1D(nn.Module):
+    """GroupNorm (eps 1e-6) -> proj_in -> blocks -> proj_out + residual."""
+
+    def __init__(self, in_channels: int, num_heads: int, head_dim: int,
+                 num_layers: int = 1,
+                 cross_attention_dim: Optional[int] = None,
+                 norm_num_groups: int = 32):
+        super().__init__()
+        inner = num_heads * head_dim
+        self.num_layers = num_layers
+        self.norm = nn.GroupNorm(norm_num_groups, in_channels, eps=1e-6)
+        self.proj_in = nn.Linear(in_channels, inner)
+        for i in range(num_layers):
+            self.add_module(f"block_{i}", BasicTransformerBlock(
+                inner, num_heads, head_dim,
+                cross_attention_dim=cross_attention_dim))
+        self.proj_out = nn.Linear(inner, in_channels)
+
+    def forward(self, x, context=None, attention_bias=None,
+                context_bias=None):
+        h = self.proj_in(_group_norm(self.norm, x))
+        for i in range(self.num_layers):
+            h = getattr(self, f"block_{i}")(h, context, attention_bias,
+                                            context_bias)
+        return self.proj_out(h) + x
+
+
+class ResnetBlock1D(nn.Module):
+    """GN -> SiLU -> conv, FiLM (scale_shift) after GN2, SiLU -> conv,
+    + 1x1 or identity shortcut (unet1d.py:376)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 temb_channels: int, groups: int = 32, eps: float = 1e-5,
+                 use_fused: bool = True):
+        super().__init__()
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.groups, self.eps, self.use_fused = groups, eps, use_fused
+        self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
+        self.conv1 = Conv1d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = nn.Linear(temb_channels, 2 * out_channels)
+        self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
+        self.conv2 = Conv1d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (nn.Linear(in_channels, out_channels)
+                              if in_channels != out_channels else None)
+
+    def _fused_enabled(self) -> bool:
+        return (self.use_fused and self.in_channels % self.groups == 0
+                and self.out_channels % self.groups == 0)
+
+    def forward(self, x, temb):
+        if self._fused_enabled():
+            # film = silu(temb) @ wt + bt in float32, outside the kernel
+            # (unet1d.py:426)
+            film = F.linear(F.silu(temb.float()),
+                            self.time_emb_proj.weight.float(),
+                            self.time_emb_proj.bias.float())
+            sc = self.conv_shortcut
+            return fused_resnet_block(
+                x, film, self.norm1.weight, self.norm1.bias,
+                _conv_w(self.conv1), self.conv1.bias, self.norm2.weight,
+                self.norm2.bias, _conv_w(self.conv2), self.conv2.bias,
+                None if sc is None else _dense_w(sc),
+                None if sc is None else sc.bias, groups=self.groups,
+                eps=self.eps, compute_dtype=self.conv1.weight.dtype)
+        h = self.conv1(F.silu(_group_norm(self.norm1, x)))
+        scale, shift = self.time_emb_proj(F.silu(temb))[:, None].chunk(
+            2, dim=-1)
+        h = _group_norm(self.norm2, h) * (1 + scale) + shift
+        h = self.conv2(F.silu(h))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class Downsample1D(nn.Module):
+    """k3 stride-2 conv, padding 1 (unet1d.py:465)."""
+
+    def __init__(self, channels: int, out_channels: int):
+        super().__init__()
+        self.conv = Conv1d(channels, out_channels, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample1D(nn.Module):
+    """Nearest upsample to ``output_size`` (default 2T) + k3 conv
+    (unet1d.py:479)."""
+
+    def __init__(self, channels: int, out_channels: int):
+        super().__init__()
+        self.conv = Conv1d(channels, out_channels, 3, padding=1)
+
+    def forward(self, x, output_size: Optional[int] = None):
+        t = x.shape[1]
+        if output_size is None or output_size == 2 * t:
+            x = torch.repeat_interleave(x, 2, dim=1)
+        else:
+            idx = (torch.arange(output_size, device=x.device) * t) \
+                // output_size
+            x = x[:, idx]
+        return self.conv(x)
+
+
+class CrossAttnDownBlock1D(nn.Module):
+    """(Resnet -> Transformer) x N + optional downsample."""
+
+    def __init__(self, in_channels, out_channels, temb_channels,
+                 num_layers=2, num_heads=8, cross_attention_dim=128,
+                 groups=8, add_downsample=True):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            in_ch = in_channels if i == 0 else out_channels
+            self.add_module(f"resnet_{i}", ResnetBlock1D(
+                in_ch, out_channels, temb_channels, groups=groups))
+            self.add_module(f"attn_{i}", Transformer1D(
+                out_channels, num_heads, out_channels // num_heads,
+                cross_attention_dim=cross_attention_dim,
+                norm_num_groups=groups))
+        self.downsample = (Downsample1D(out_channels, out_channels)
+                           if add_downsample else None)
+
+    def forward(self, x, temb, context, context_bias=None,
+                attention_bias=None):
+        outputs = []
+        for i in range(self.num_layers):
+            x = getattr(self, f"resnet_{i}")(x, temb)
+            x = getattr(self, f"attn_{i}")(x, context, attention_bias,
+                                           context_bias)
+            outputs.append(x)
+        if self.downsample is not None:
+            x = self.downsample(x)
+            outputs.append(x)
+        return x, outputs
+
+
+class DownBlock1D(nn.Module):
+    """Resnet x N + optional downsample."""
+
+    def __init__(self, in_channels, out_channels, temb_channels,
+                 num_layers=2, groups=8, add_downsample=True):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            in_ch = in_channels if i == 0 else out_channels
+            self.add_module(f"resnet_{i}", ResnetBlock1D(
+                in_ch, out_channels, temb_channels, groups=groups))
+        self.downsample = (Downsample1D(out_channels, out_channels)
+                           if add_downsample else None)
+
+    def forward(self, x, temb):
+        outputs = []
+        for i in range(self.num_layers):
+            x = getattr(self, f"resnet_{i}")(x, temb)
+            outputs.append(x)
+        if self.downsample is not None:
+            x = self.downsample(x)
+            outputs.append(x)
+        return x, outputs
+
+
+class MidBlock1DCrossAttn(nn.Module):
+    """Resnet + (Transformer + Resnet) x N."""
+
+    def __init__(self, in_channels, temb_channels, num_layers=1,
+                 num_heads=8, cross_attention_dim=128, groups=8):
+        super().__init__()
+        self.num_layers = num_layers
+        self.resnet_0 = ResnetBlock1D(in_channels, in_channels,
+                                      temb_channels, groups=groups)
+        for i in range(num_layers):
+            self.add_module(f"attn_{i}", Transformer1D(
+                in_channels, num_heads, in_channels // num_heads,
+                cross_attention_dim=cross_attention_dim,
+                norm_num_groups=groups))
+            self.add_module(f"resnet_{i + 1}", ResnetBlock1D(
+                in_channels, in_channels, temb_channels, groups=groups))
+
+    def forward(self, x, temb, context, context_bias=None,
+                attention_bias=None):
+        x = self.resnet_0(x, temb)
+        for i in range(self.num_layers):
+            x = getattr(self, f"attn_{i}")(x, context, attention_bias,
+                                           context_bias)
+            x = getattr(self, f"resnet_{i + 1}")(x, temb)
+        return x
+
+
+def _up_resnet_channels(in_channels, out_channels, prev_output_channel,
+                        num_layers, i):
+    res_skip = in_channels if i == num_layers - 1 else out_channels
+    resnet_in = prev_output_channel if i == 0 else out_channels
+    return resnet_in + res_skip
+
+
+class CrossAttnUpBlock1D(nn.Module):
+    """(concat skip -> Resnet -> Transformer) x N + optional upsample."""
+
+    def __init__(self, in_channels, out_channels, prev_output_channel,
+                 temb_channels, num_layers=3, num_heads=8,
+                 cross_attention_dim=128, groups=8, add_upsample=True):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"resnet_{i}", ResnetBlock1D(
+                _up_resnet_channels(in_channels, out_channels,
+                                    prev_output_channel, num_layers, i),
+                out_channels, temb_channels, groups=groups))
+            self.add_module(f"attn_{i}", Transformer1D(
+                out_channels, num_heads, out_channels // num_heads,
+                cross_attention_dim=cross_attention_dim,
+                norm_num_groups=groups))
+        self.upsample = (Upsample1D(out_channels, out_channels)
+                         if add_upsample else None)
+
+    def forward(self, x, res_stack: List[torch.Tensor], temb, context,
+                context_bias=None, attention_bias=None, upsample_size=None):
+        for i in range(self.num_layers):
+            x = torch.cat([x, res_stack.pop()], dim=-1)
+            x = getattr(self, f"resnet_{i}")(x, temb)
+            x = getattr(self, f"attn_{i}")(x, context, attention_bias,
+                                           context_bias)
+        if self.upsample is not None:
+            x = self.upsample(x, upsample_size)
+        return x
+
+
+class UpBlock1D(nn.Module):
+    """(concat skip -> Resnet) x N + optional upsample."""
+
+    def __init__(self, in_channels, out_channels, prev_output_channel,
+                 temb_channels, num_layers=3, groups=8, add_upsample=True):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"resnet_{i}", ResnetBlock1D(
+                _up_resnet_channels(in_channels, out_channels,
+                                    prev_output_channel, num_layers, i),
+                out_channels, temb_channels, groups=groups))
+        self.upsample = (Upsample1D(out_channels, out_channels)
+                         if add_upsample else None)
+
+    def forward(self, x, res_stack: List[torch.Tensor], temb,
+                upsample_size=None):
+        for i in range(self.num_layers):
+            x = torch.cat([x, res_stack.pop()], dim=-1)
+            x = getattr(self, f"resnet_{i}")(x, temb)
+        if self.upsample is not None:
+            x = self.upsample(x, upsample_size)
+        return x
+
+
+class UNet1DConditionModel(nn.Module):
+    """The conditional UNet (unet1d.py:676): down = CrossAttn x 3 + Down,
+    mid = CrossAttn, up = Up + CrossAttn x 3, scale_shift resnets, 'text'
+    additive embedding by attention pooling over the cross-attention keys.
+
+    ``in_channels`` is the width of ``sample`` (flax infers conv_in's input
+    width from the data; the port needs it up front).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 block_out_channels: Sequence[int] = (128, 256, 384, 512),
+                 layers_per_block: int = 2, norm_num_groups: int = 8,
+                 cross_attention_dim: int = 128, attention_head_dim: int = 8,
+                 addition_embed_type: Optional[str] = "text",
+                 addition_embed_type_num_heads: int = 64,
+                 flip_sin_to_cos: bool = True, freq_shift: float = 0.0,
+                 *, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        ch = tuple(block_out_channels)
+        n = len(ch)
+        heads, groups = attention_head_dim, norm_num_groups
+        temb = ch[0] * 4
+        self.block_out_channels = ch
+        self.layers_per_block = layers_per_block
+        self.addition_embed_type = addition_embed_type
+        self.time_proj = Timesteps(ch[0], flip_sin_to_cos, freq_shift)
+        self.time_embedding = TimestepEmbedding(ch[0], temb)
+        if addition_embed_type == "text":
+            # clamp pooling heads so dim_per_head >= 1 on small configs
+            self.add_embedding = TextTimeEmbedding(
+                cross_attention_dim, temb,
+                num_heads=min(addition_embed_type_num_heads,
+                              cross_attention_dim))
+        elif addition_embed_type is not None:
+            raise NotImplementedError(
+                f"addition_embed_type {addition_embed_type!r}")
+        self.conv_in = Conv1d(in_channels, ch[0], 3, padding=1)
+        for i in range(n):
+            in_ch = ch[max(i - 1, 0)]
+            if i < n - 1:
+                blk = CrossAttnDownBlock1D(
+                    in_ch, ch[i], temb, num_layers=layers_per_block,
+                    num_heads=heads, cross_attention_dim=cross_attention_dim,
+                    groups=groups, add_downsample=True)
+            else:
+                blk = DownBlock1D(in_ch, ch[i], temb,
+                                  num_layers=layers_per_block, groups=groups,
+                                  add_downsample=False)
+            self.add_module(f"down_{i}", blk)
+        self.mid = MidBlock1DCrossAttn(
+            ch[-1], temb, num_heads=heads,
+            cross_attention_dim=cross_attention_dim, groups=groups)
+        rev = list(reversed(ch))
+        prev_out = rev[0]
+        for i in range(n):
+            out_ch, in_ch = rev[i], rev[min(i + 1, n - 1)]
+            final = i == n - 1
+            if i == 0:
+                blk = UpBlock1D(in_ch, out_ch, prev_out, temb,
+                                num_layers=layers_per_block + 1,
+                                groups=groups, add_upsample=not final)
+            else:
+                blk = CrossAttnUpBlock1D(
+                    in_ch, out_ch, prev_out, temb,
+                    num_layers=layers_per_block + 1, num_heads=heads,
+                    cross_attention_dim=cross_attention_dim, groups=groups,
+                    add_upsample=not final)
+            self.add_module(f"up_{i}", blk)
+            prev_out = out_ch
+        self.conv_norm_out = nn.GroupNorm(groups, ch[0], eps=1e-5)
+        self.conv_out = Conv1d(ch[0], out_channels, 3, padding=1)
+        self.to(device=resolve_device(device), dtype=dtype)
+
+    def forward(self, sample, timestep, encoder_hidden_states,
+                encoder_attention_mask=None, attention_mask=None, *,
+                emb=None, embedding_request=None):
+        """sample [B, T, C_in]; timestep scalar or [B]; encoder_hidden_states
+        [B, S, cross_attention_dim]; masks [B, S] / [B, T] keep (1) or None;
+        ``emb`` an injected [B, 4*ch0] time+text embedding;
+        ``embedding_request`` 'time' or 'text' returns only that part."""
+        dtype = self.conv_in.weight.dtype
+        dev = self.conv_in.weight.device
+        if encoder_hidden_states is not None:
+            encoder_hidden_states = encoder_hidden_states.to(dtype)
+        if embedding_request == "text":
+            return self.add_embedding(encoder_hidden_states)
+        if emb is None or embedding_request == "time":
+            timesteps = torch.atleast_1d(torch.as_tensor(timestep,
+                                                         device=dev))
+            if embedding_request != "time" and \
+                    timesteps.shape[0] != sample.shape[0]:
+                timesteps = timesteps.expand(sample.shape[0])
+            emb = self.time_embedding(self.time_proj(timesteps).to(dtype))
+            if embedding_request == "time":
+                return emb
+            if self.addition_embed_type == "text":
+                emb = emb + self.add_embedding(encoder_hidden_states)
+        else:
+            emb = emb.to(dtype)
+
+        def to_bias(m):
+            if m is None:
+                return None
+            return ((1 - m.float()) * -10000.0)[:, None, :].contiguous()
+
+        attn_bias = to_bias(attention_mask)
+        ctx_bias = to_bias(encoder_attention_mask)
+        ctx = encoder_hidden_states
+
+        sample = self.conv_in(sample.to(dtype))
+        res_stack = [sample]
+        n = len(self.block_out_channels)
+        for i in range(n):
+            blk = getattr(self, f"down_{i}")
+            if i < n - 1:
+                sample, outs = blk(sample, emb, ctx, ctx_bias, attn_bias)
+            else:
+                sample, outs = blk(sample, emb)
+            res_stack.extend(outs)
+        sample = self.mid(sample, emb, ctx, ctx_bias, attn_bias)
+        n_res = self.layers_per_block + 1
+        for i in range(n):
+            # force the upsample size to the next skip's length
+            upsample_size = (None if i == n - 1
+                             else res_stack[-(n_res + 1)].shape[1])
+            blk = getattr(self, f"up_{i}")
+            if i == 0:
+                sample = blk(sample, res_stack, emb, upsample_size)
+            else:
+                sample = blk(sample, res_stack, emb, ctx, ctx_bias,
+                             attn_bias, upsample_size)
+        sample = F.silu(_group_norm(self.conv_norm_out, sample))
+        return self.conv_out(sample)
+
+
+def set_use_fused(module: nn.Module, flag: bool) -> None:
+    """Route every resnet and transformer block under ``module`` through
+    the fused ops (True, the default) or the unfused formulation."""
+    for m in module.modules():
+        if isinstance(m, (ResnetBlock1D, BasicTransformerBlock)):
+            m.use_fused = flag

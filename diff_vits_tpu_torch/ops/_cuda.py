@@ -1,0 +1,247 @@
+"""Build and bind the port's CUDA kernels (``diff_vits_tpu_torch/csrc``).
+
+Each ``.cu`` source compiles with nvcc for ``sm_90a`` into its own shared
+library with a plain C interface under ``build/kernels/`` of the checkout
+(of an installed package: under ``$XDG_CACHE_HOME`` or ``~/.cache``),
+named by a hash of the sources and flags so an edit rebuilds. All sources
+build at once, one nvcc process each, at the first launch of any kernel
+(or through :func:`build`). Nothing here runs at import: the CPU tests
+import every module, and this machine may have no nvcc.
+
+The C functions take tensors as raw pointers (``data_ptr()``), dtype flags
+and PyTorch's current stream, launch without synchronising, and return the
+launch's ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_CHECKOUT = Path(__file__).resolve().parents[2]
+SOURCES = ("norm_stats.cu", "gemm.cu", "attention.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+F32, BF16 = 0, 1
+_DTYPE_FLAG = {torch.float32: F32, torch.bfloat16: BF16}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "dvt_norm_stats": (_P, _I, _P, _P, _I, _I, _I, _I, _F, _P),
+    "dvt_gemm": (_P, _P),
+    "dvt_gemm_args_size": (),
+    "dvt_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+}
+
+
+class GemmArgs(ctypes.Structure):
+    """Mirror of ``dvt::GemmArgs`` in csrc/gemm.cu (field for field)."""
+    _fields_ = [
+        ("a", _P), ("b", _P * 3), ("out", _P * 3), ("bias", _P * 3),
+        ("res", _P), ("stat_mean", _P), ("stat_rstd", _P), ("norm_w", _P),
+        ("norm_b", _P), ("film", _P),
+        ("M", _I), ("N", _I), ("K", _I),
+        ("sb_k", _I), ("sb_n", _I),
+        ("T", _I), ("Ci", _I), ("G", _I), ("taps", _I), ("tap_minor", _I),
+        ("norm", _I), ("silu", _I), ("geglu", _I), ("problems", _I),
+        ("a_dtype", _I), ("b_dtype", _I), ("out_dtype", _I),
+        ("res_dtype", _I), ("norm_dtype", _I), ("bias_dtype", _I),
+    ]
+
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_build_log: Optional[str] = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    path = home / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (nvcc on PATH or under CUDA_HOME)")
+    return str(path)
+
+
+def build_dir() -> Path:
+    """``build/kernels`` of the checkout this package lies in; a per-user
+    cache directory for an installed package."""
+    if (_CHECKOUT / "pyproject.toml").is_file():
+        return _CHECKOUT / "build" / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "diff_vits_tpu_torch" / "kernels"
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def build() -> str:
+    """Compile every source (in parallel) unless already built; load them.
+    Returns nvcc's output (the ``-Xptxas -v`` register/shared-memory
+    summary), empty when the libraries were already there."""
+    global _build_log
+    if _libs:
+        return _build_log or ""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = _digest()
+    targets = {src: out_dir / f"{Path(src).stem}-{tag}.so"
+               for src in SOURCES}
+    procs = {}
+    for src, so in targets.items():
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        procs[src] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, so)
+    logs = []
+    failed = []
+    for src, (proc, tmp, so) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(f"== nvcc {src} (rc {proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(src)
+        else:
+            os.replace(tmp, so)
+    _build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{_build_log}")
+    for src, so in targets.items():
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+        _libs[src] = lib
+    size = _libs["gemm.cu"].dvt_gemm_args_size()
+    if size != ctypes.sizeof(GemmArgs):
+        raise RuntimeError(f"GemmArgs layout mismatch: C {size} bytes, "
+                           f"ctypes {ctypes.sizeof(GemmArgs)}")
+    return _build_log
+
+
+def fn(src: str, name: str):
+    """The C entry point ``name`` of ``src``, building on first use."""
+    if not _libs:
+        build()
+    return getattr(_libs[src], name)
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a C entry point's return code: -1 means it refused its
+    arguments, any other non-zero value is the launch's cudaError_t."""
+    if rc == -1:
+        raise ValueError(f"{what}: arguments refused by the kernel")
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError_t {rc})")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_flag(t: torch.Tensor) -> int:
+    try:
+        return _DTYPE_FLAG[t.dtype]
+    except KeyError:
+        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+# -- launchers shared by the fused ops (callers have checked their inputs) --
+
+NO_NORM, LAYER_NORM, GROUP_NORM = 0, 1, 2
+
+
+def norm_stats(x: torch.Tensor, b: int, t: int, c: int, groups: int,
+               eps: float):
+    """Mean and rstd [b * groups] float32 of ``x`` viewed as [b, t, c]."""
+    mean = torch.empty(b * groups, device=x.device, dtype=torch.float32)
+    rstd = torch.empty_like(mean)
+    check(fn("norm_stats.cu", "dvt_norm_stats")(
+        x.data_ptr(), dtype_flag(x), mean.data_ptr(), rstd.data_ptr(),
+        b, t, c, groups, float(eps), stream_ptr(x)), "norm_stats")
+    return mean, rstd
+
+
+def gemm(a: torch.Tensor, bmats, outs, biases, *, M: int, N: int, T: int,
+         Ci: int, taps: int = 1, norm: int = NO_NORM, stats=None,
+         norm_w=None, norm_b=None, groups: int = 1, film=None,
+         silu: bool = False, geglu: bool = False,
+         res: Optional[torch.Tensor] = None) -> None:
+    """One launch of csrc/gemm.cu over ``len(bmats)`` problems sharing A.
+    Each weight is a [Ci, N'] (``taps`` 1) or [3, Ci, N'] (``taps`` 3) view,
+    N' = 2N for GEGLU, whose (tap, ci) index one stride spans; all share
+    their strides."""
+    n = len(bmats)
+    tap_minor = False
+    if taps == 3:
+        # a k=3 conv sums over (tap, ci) in the weight's storage order
+        s_tap, s_ci, sb_n = bmats[0].stride()
+        tap_minor = abs(s_tap) < abs(s_ci)
+        sb_k = s_tap if tap_minor else s_ci
+    else:
+        sb_k, sb_n = bmats[0].stride()
+    args = GemmArgs()
+    args.a = a.data_ptr()
+    for i in range(n):
+        args.b[i] = bmats[i].data_ptr()
+        args.out[i] = outs[i].data_ptr()
+        args.bias[i] = ptr(biases[i])
+    args.res = ptr(res)
+    if stats is not None:
+        args.stat_mean = stats[0].data_ptr()
+        args.stat_rstd = stats[1].data_ptr()
+    args.norm_w, args.norm_b = ptr(norm_w), ptr(norm_b)
+    args.film = ptr(film)
+    args.M, args.N, args.K = M, N, taps * Ci
+    args.sb_k, args.sb_n = sb_k, sb_n
+    args.T, args.Ci, args.G, args.taps = T, Ci, groups, taps
+    args.tap_minor = int(tap_minor)
+    args.norm, args.silu, args.geglu, args.problems = norm, int(silu), \
+        int(geglu), n
+    args.a_dtype, args.b_dtype = dtype_flag(a), dtype_flag(bmats[0])
+    args.out_dtype = dtype_flag(outs[0])
+    args.res_dtype = dtype_flag(res) if res is not None else F32
+    # the callers pass a norm's scale and bias, and a launch's biases, in
+    # one dtype
+    args.norm_dtype = dtype_flag(norm_w) if norm_w is not None else F32
+    bias = next((t for t in biases if t is not None), None)
+    args.bias_dtype = dtype_flag(bias) if bias is not None else F32
+    check(fn("gemm.cu", "dvt_gemm")(ctypes.byref(args), stream_ptr(a)),
+          "gemm")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor], heads: int) -> torch.Tensor:
+    """csrc/attention.cu on q [B, T, H*D], k/v [B, S, H*D] (one dtype),
+    bias [B, S] float32 or None; returns o like q."""
+    b, t, c = q.shape
+    s = k.shape[1]
+    o = torch.empty_like(q)
+    check(fn("attention.cu", "dvt_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias), o.data_ptr(),
+        b, t, s, heads, c // heads, dtype_flag(q), (c // heads) ** -0.5,
+        stream_ptr(q)), "attention")
+    return o

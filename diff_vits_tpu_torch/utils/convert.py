@@ -1,0 +1,74 @@
+"""Carry the JAX package's parameters into the port's modules.
+
+The port names its submodules after the flax tree (``vits.enc_p.emb``,
+``diff_model.unet.down_0.attn_0.block_0.attn2.to_q``, ...), so the walk is
+mechanical:
+
+  Dense kernel [in, out]       -> Linear weight [out, in]
+  Conv kernel [k, in, out]     -> Conv1d weight [out, in, k]
+  LayerNorm/GroupNorm scale    -> weight
+  Embed embedding              -> weight
+  bias and named parameters    -> unchanged (positional_embedding,
+                                  emb_rel_k, emb_rel_v)
+
+Every leaf is converted except the subtrees in :data:`SKIPPED`, which
+belong to training.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from diff_vits_tpu_torch.core.config import Config
+from diff_vits_tpu_torch.models.vits import check_supported
+
+# flax subtrees the port's inference modules have no place for
+SKIPPED: Tuple[str, ...] = ("vits.enc_q",)
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = ""):
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, Mapping):
+            yield from _flatten(v, path)
+        else:
+            yield path, np.asarray(v)
+
+
+def _convert(path: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
+    parent, leaf = path.rsplit(".", 1)
+    if leaf == "kernel":
+        if a.ndim == 2:
+            return f"{parent}.weight", a.T
+        if a.ndim == 3:
+            return f"{parent}.weight", a.transpose(2, 1, 0)
+        raise ValueError(f"{path}: kernel of rank {a.ndim}")
+    if leaf in ("scale", "embedding"):
+        return f"{parent}.weight", a
+    return path, a
+
+
+def convert_tree(flax_params: Mapping[str, Any], skip: Tuple[str, ...] = ()
+                 ) -> Dict[str, torch.Tensor]:
+    """Any flax params tree of a module the port mirrors (numpy leaves)
+    -> that module's ``state_dict``, leaving out the subtrees in ``skip``."""
+    if set(flax_params) == {"params"}:
+        flax_params = flax_params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, a in _flatten(flax_params):
+        if any(path == s or path.startswith(s + ".") for s in skip):
+            continue
+        name, v = _convert(path, a)
+        out[name] = torch.tensor(np.ascontiguousarray(v, np.float32))
+    return out
+
+
+def from_flax_params(flax_params: Mapping[str, Any], cfg: Config
+                     ) -> Dict[str, torch.Tensor]:
+    """flax ``params`` tree of ``DiffVits`` (numpy leaves; with or without
+    the outer ``{"params": ...}``) -> ``state_dict`` of the port's
+    ``DiffVits``. Load it with ``load_state_dict(..., strict=True)``."""
+    check_supported(cfg.vits)
+    return convert_tree(flax_params, SKIPPED)

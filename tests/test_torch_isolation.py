@@ -1,0 +1,120 @@
+"""The port stands alone: no JAX import anywhere in it or in
+chip_smoke.py, no silent CPU path at its entry points, the same configs,
+and a parameter conversion that consumes every leaf of the JAX model it
+mirrors except the named training-only subtrees."""
+import ast
+import dataclasses
+import json
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diff_vits_tpu.core import config as jconfig
+from diff_vits_tpu.models.diff_vits import DiffVits as JDiffVits
+from diff_vits_tpu_torch.core import config as tconfig
+from diff_vits_tpu_torch.models.diff_vits import DiffVits
+from diff_vits_tpu_torch.text.symbols import symbols
+from diff_vits_tpu_torch.utils.convert import SKIPPED, from_flax_params
+from test_torch_common import flax_shapes, tiny_configs
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diff_vits_tpu")
+
+
+def _port_files():
+    return sorted((ROOT / "diff_vits_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    files = _port_files()
+    assert len(files) > 20
+    bad = [(f.relative_to(ROOT), m) for f in files for m in _imported(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
+    from diff_vits_tpu_torch.models.diff_vits import synthesize
+    from diff_vits_tpu_torch.nn.unet1d import UNet1DConditionModel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, cfg = tiny_configs()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DiffVits(cfg, len(symbols))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        UNet1DConditionModel(8, 4, (16, 16, 32, 32), cross_attention_dim=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchSynthesizer(cfg, {})
+    model = DiffVits(cfg, len(symbols), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthesize(model, *([None] * 6))
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "configs").glob("*.json")),
+                         ids=lambda p: p.name)
+def test_configs_load_equal_in_both_packages(path):
+    theirs = jconfig.load_config(str(path))
+    ours = tconfig.load_config(str(path))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert json.loads(json.dumps(ours.to_dict())) == json.loads(
+        json.dumps(theirs.to_dict()))
+
+
+def test_from_flax_params_consumes_every_leaf_but_the_skip_list():
+    """Against the whole JAX model tree, training parts included (the tree
+    of the training forward, read with eval_shape)."""
+    jcfg, pcfg = tiny_configs()
+    jm = JDiffVits(jcfg, n_vocab=len(symbols))
+    b, tx, ty, s = 2, 7, 20, 11
+    shapes = flax_shapes(
+        jm, jnp.ones((b, tx), jnp.int32), jnp.array([7, 5]),
+        jnp.zeros((b, ty, 100)), jnp.array([20, 15]),
+        jnp.zeros((b, s, 100)), jnp.array([11, 9]),
+        jnp.zeros((b, tx), jnp.int32), jnp.zeros((b, tx), jnp.int32),
+        rng=jax.random.PRNGKey(2))
+    rng = np.random.default_rng(0)
+    tree = jax.tree_util.tree_map(
+        lambda sd: rng.normal(size=sd.shape).astype(np.float32), shapes)
+    assert set(tree) == {"vits", "diff_model"}
+    assert "enc_q" in tree["vits"]
+    assert SKIPPED == ("vits.enc_q",)
+    sd = from_flax_params(tree, pcfg)
+    want = DiffVits(pcfg, len(symbols), device="cpu").state_dict()
+    assert set(sd) == set(want)
+    for k, v in want.items():
+        assert sd[k].shape == v.shape, k
+    n_leaves = len(jax.tree_util.tree_leaves(tree))
+    n_skipped = len(jax.tree_util.tree_leaves(tree["vits"]["enc_q"]))
+    assert len(sd) == n_leaves - n_skipped
+    # Dense [in, out] -> Linear [out, in]; Conv [k, in, out] -> [out, in, k]
+    dense = tree["vits"]["dp"]["pre"]["kernel"]
+    np.testing.assert_array_equal(sd["vits.dp.pre.weight"].numpy(), dense.T)
+    conv = tree["diff_model"]["unet"]["conv_in"]["kernel"]
+    np.testing.assert_array_equal(sd["diff_model.unet.conv_in.weight"].numpy(),
+                                  conv.transpose(2, 1, 0))
+
+
+def test_from_flax_params_rejects_unported_variants():
+    _, pcfg = tiny_configs()
+    for change in (dict(use_flow=True), dict(duration_predictor="sdp"),
+                   dict(use_phoneme_vae=True)):
+        cfg = dataclasses.replace(
+            pcfg, vits=dataclasses.replace(pcfg.vits, **change))
+        with pytest.raises(NotImplementedError):
+            from_flax_params({}, cfg)

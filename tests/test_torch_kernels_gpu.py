@@ -1,0 +1,238 @@
+"""K1-K4 CUDA kernels on the card against their plain PyTorch versions, at
+the ragged shapes that the main path's tile-aligned ones do not reach:
+rows and columns that fill no whole 64-wide tile, reductions shorter than
+one 16-deep step, T = 1 and 2 (both conv taps at the sequence edge),
+every head dim the attention kernel takes, one kept key, no key bias.
+Each also takes its weights in the layout the UNet modules hand over
+(strided views of nn.Linear [out, in] and nn.Conv1d [out, in, k]
+parameters, norm parameters and biases in the compute dtype) as well as in
+the JAX layout with float32 vectors. Also the wrappers' refusals and launch counts, and a tiny UNet on the
+kernels against its unfused formulation.
+
+Needs a CUDA device and nvcc; skips otherwise. On the card, from the
+repository root (the JAX conftest is not needed there):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerance: max |kernel - plain| / max |plain| <= 1e-3 in float32 (sums in
+another order), 3e-2 in bfloat16 (the plain version rounds the attention
+probabilities to bf16 before PV, the kernel keeps them in float32).
+"""
+import pytest
+import torch
+
+from diff_vits_tpu_torch import ops
+from diff_vits_tpu_torch.nn.unet1d import (
+    UNet1DConditionModel, set_use_fused)
+from diff_vits_tpu_torch.ops import fused_resnet as FR
+from diff_vits_tpu_torch.ops import fused_transformer as FT
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(gen, dev, *shape, scale=1.0, dtype=torch.float32):
+    return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+def _module_layout(args, dtype):
+    """The same values as the UNet modules pass them: a weight [.., in, out]
+    as a view of [out, in, ..] storage, vectors in the compute dtype."""
+    def conv(t):
+        if t.dim() == 3:
+            return t.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+        if t.dim() == 2:
+            return t.t().contiguous().t()
+        if t.dim() == 1:
+            return t.to(dtype)
+        return t
+    return tuple(None if t is None else conv(t) for t in args)
+
+
+LAYOUTS = pytest.mark.parametrize("module_layout", [False, True],
+                                  ids=["jax_layout", "module_layout"])
+
+
+def _assert_close(out, ref, dtype):
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert bool(torch.isfinite(out.float()).all())
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype] * ref.float().abs().max().item(), err
+
+
+@LAYOUTS
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,t,ci,co,groups", [
+    (3, 37, 24, 40, 8),     # 1x1 shortcut; M, N, K fill no whole tile
+    (2, 37, 32, 32, 8),     # identity shortcut
+    (2, 1, 16, 24, 8),      # T = 1: both conv taps outside the sequence
+    (3, 2, 64, 64, 8),
+])
+def test_resnet_block_kernel_matches_plain(dev, dtype, b, t, ci, co,
+                                           groups, module_layout):
+    gen = torch.Generator(device=dev).manual_seed(t * 31 + ci)
+    r = lambda *s, **k: _rand(gen, dev, *s, **k)  # noqa: E731
+    args = (r(b, t, ci, dtype=dtype), r(b, 2 * co, scale=0.3),
+            1 + r(ci, scale=0.1), r(ci, scale=0.1),
+            r(3, ci, co, scale=(3 * ci) ** -0.5, dtype=dtype),
+            r(co, scale=0.1), 1 + r(co, scale=0.1), r(co, scale=0.1),
+            r(3, co, co, scale=(3 * co) ** -0.5, dtype=dtype),
+            r(co, scale=0.1))
+    sc = ((r(ci, co, scale=ci ** -0.5, dtype=dtype), r(co, scale=0.1))
+          if ci != co else (None, None))
+    if module_layout:
+        args = (args[0], args[1], *_module_layout(args[2:], dtype))
+        sc = _module_layout(sc, dtype)
+    kw = dict(groups=groups, eps=1e-5, compute_dtype=dtype)
+    before = FR.fused_resnet_block.launches
+    out = FR.fused_resnet_block(*args, *sc, **kw)
+    torch.cuda.synchronize()
+    assert FR.fused_resnet_block.launches == before + 1
+    _assert_close(out, FR.fused_resnet_block_plain(*args, *sc, **kw), dtype)
+
+
+def _attn_weights(gen, dev, c, ck, dtype):
+    r = lambda *s, **k: _rand(gen, dev, *s, **k)  # noqa: E731
+    return (1 + r(c, scale=0.1), r(c, scale=0.1),
+            r(c, c, scale=c ** -0.5, dtype=dtype),
+            r(ck, c, scale=ck ** -0.5, dtype=dtype),
+            r(ck, c, scale=ck ** -0.5, dtype=dtype),
+            r(c, c, scale=c ** -0.5, dtype=dtype), r(c, scale=0.1))
+
+
+@LAYOUTS
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,t,heads,d", [
+    (3, 37, 8, 8), (2, 65, 8, 16), (1, 1, 4, 32), (2, 70, 8, 48),
+    (3, 5, 2, 64),
+])
+def test_self_attention_kernel_matches_plain(dev, dtype, b, t, heads, d,
+                                            module_layout):
+    gen = torch.Generator(device=dev).manual_seed(t * 7 + d)
+    c = heads * d
+    x = _rand(gen, dev, b, t, c, dtype=dtype)
+    w = _attn_weights(gen, dev, c, c, dtype)
+    args = (x, *(_module_layout(w, dtype) if module_layout else w))
+    before = FT.fused_self_attention.launches
+    out = FT.fused_self_attention(*args, heads=heads, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert FT.fused_self_attention.launches == before + 1
+    _assert_close(out, FT.fused_self_attention_plain(
+        *args, heads=heads, compute_dtype=dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,t,s,ck,heads,d,masked", [
+    (3, 37, 70, 24, 8, 8, True),    # row 2 keeps one key
+    (2, 20, 1, 16, 4, 48, False),   # one key, no bias
+    (2, 9, 267, 128, 8, 64, True),
+])
+def test_cross_attention_kernel_matches_plain(dev, dtype, b, t, s, ck, heads,
+                                              d, masked):
+    gen = torch.Generator(device=dev).manual_seed(s * 3 + d)
+    c = heads * d
+    x = _rand(gen, dev, b, t, c, dtype=dtype)
+    ctx = _rand(gen, dev, b, s, ck, dtype=dtype)
+    bias = None
+    if masked:
+        keep = torch.ones(b, s, device=dev)
+        keep[1, s // 2:] = 0.0
+        keep[-1, 1:] = 0.0
+        bias = ((1 - keep) * -10000.0)[:, None, :].contiguous()
+    ln_s, ln_b, wq, wk, wv, wo, bo = _attn_weights(gen, dev, c, ck, dtype)
+    args = (x, ctx, bias, ln_s, ln_b, wq, wk, wv, wo, bo)
+    before = FT.fused_cross_attention.launches
+    out = FT.fused_cross_attention(*args, heads=heads, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert FT.fused_cross_attention.launches == before + 1
+    _assert_close(out, FT.fused_cross_attention_plain(
+        *args, heads=heads, compute_dtype=dtype), dtype)
+
+
+@LAYOUTS
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,t,c", [(2, 130, 24), (1, 1, 8), (3, 601, 64)])
+def test_geglu_ff_kernel_matches_plain(dev, dtype, b, t, c, module_layout):
+    gen = torch.Generator(device=dev).manual_seed(t + c)
+    r = lambda *s, **k: _rand(gen, dev, *s, **k)  # noqa: E731
+    args = (r(b, t, c, dtype=dtype), 1 + r(c, scale=0.1), r(c, scale=0.1),
+            r(c, 8 * c, scale=c ** -0.5, dtype=dtype), r(8 * c, scale=0.1),
+            r(4 * c, c, scale=(4 * c) ** -0.5, dtype=dtype),
+            r(c, scale=0.1))
+    if module_layout:
+        args = (args[0], *_module_layout(args[1:], dtype))
+    before = FT.fused_geglu_ff.launches
+    out = FT.fused_geglu_ff(*args, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert FT.fused_geglu_ff.launches == before + 1
+    _assert_close(out, FT.fused_geglu_ff_plain(*args, compute_dtype=dtype),
+                  dtype)
+
+
+def test_kernel_routes_refuse_what_they_do_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, t, c, heads = 2, 9, 40, 4          # head dim 10: no kernel
+    x = _rand(gen, dev, b, t, c)
+    w = _attn_weights(gen, dev, c, c, torch.float32)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="head dims"):
+        FT.fused_self_attention(x, *w, heads=heads,
+                                compute_dtype=torch.float32)
+    w = _attn_weights(gen, dev, 32, 32, torch.float32)
+    x = _rand(gen, dev, b, t, 32)
+    with pytest.raises(TypeError):       # weights not in compute dtype
+        FT.fused_self_attention(x, *w, heads=4, compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        FT.fused_self_attention(x.transpose(0, 1).contiguous().transpose(
+            0, 1), *w, heads=4, compute_dtype=torch.float32)
+    ci = co = 16
+    rargs = [_rand(gen, dev, b, t, ci), _rand(gen, dev, b, 2 * co)]
+    vec = _rand(gen, dev, co)
+    w_ok = _rand(gen, dev, 3, ci, co)
+    w_gap = _rand(gen, dev, 3, ci + 1, co)[:, :ci]    # no one (tap, ci) stride
+    with pytest.raises(ValueError, match="strides"):
+        FR.fused_resnet_block(*rargs, vec, vec, w_gap, vec, vec, vec, w_ok,
+                              vec, groups=8, compute_dtype=torch.float32)
+    with pytest.raises(TypeError):       # float16 activations
+        FT.fused_geglu_ff(x.half(), w[0], w[1], _rand(gen, dev, 32, 256),
+                          _rand(gen, dev, 256), _rand(gen, dev, 128, 32),
+                          w[1], compute_dtype=torch.float32)
+    assert ops.launch_counts() == before
+
+
+def test_tiny_unet_on_kernels_matches_unfused(dev):
+    torch.manual_seed(0)
+    model = UNet1DConditionModel(8, 4, (16, 16, 32, 32),   # head dims 8, 16
+                                 cross_attention_dim=16,
+                                 attention_head_dim=2, device=dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, t, s = 3, 37, 11
+    x = _rand(gen, dev, b, t, 8)
+    ts = torch.tensor([999.0, 420.0, 3.0], device=dev)
+    ctx = _rand(gen, dev, b, s, 16)
+    keep = (torch.arange(s, device=dev)[None]
+            < torch.tensor([[s], [5], [1]], device=dev)).float()
+    ops.reset_launches()
+    with torch.no_grad():
+        out = model(x, ts, ctx, encoder_attention_mask=keep)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == {
+            "fused_resnet_block": 22, "fused_self_attention": 16,
+            "fused_cross_attention": 16, "fused_geglu_ff": 16}
+        set_use_fused(model, False)
+        ref = model(x, ts, ctx, encoder_attention_mask=keep)
+    assert out.shape == (b, t, 4)
+    _assert_close(out, ref, torch.float32)
