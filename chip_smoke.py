@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--out DIR]
 
-``--out DIR`` also writes the kernel rows and the path phase's numbers as
-``DIR/kernels.json`` and ``DIR/path.json``.
+``--out DIR`` also writes the kernel rows, the serving numbers and the
+training numbers as ``DIR/kernels.json``, ``DIR/path.json`` and
+``DIR/train.json``.
 
 Phases, each of which fails the run:
 
@@ -19,25 +20,48 @@ Phases, each of which fails the run:
    events, warmed, mean of many back-to-back calls, the wrapper's host work
    included), the kernel route's device time (torch.profiler, summed
    device activity per call) and the roofline bound are printed;
-4. path: ``BatchSynthesizer`` (bf16 weights, batch 8, mel buckets 400 and
-   800, 30-step UniPC) answers 10 requests at the widths of
-   ``configs/reference_parity.json`` with random weights from a seed; every
-   kernel counter must rise by exactly 22/16/16/16 per UNet call;
-5. parity: one fixed batch in float32 through the kernels and through the
+4. mas: K6 (MAS) against its plain version at the training shape (B=32,
+   Ty=400, Tx=601; ragged lengths, t_x == t_y, t_x == 1) on random and on
+   tied integer scores: identical paths (0 mismatched cells); its times,
+   device time and bound;
+5. grad: gradients of sum(out * r) through each of K1-K4's kernel route
+   (the autograd Function) at denoiser level 0, B=8, float32, against
+   plain autograd, for x and every weight and vector passed as the UNet
+   passes them: every leaf gets one, max rel error <= 1e-3;
+6. path (serving): ``BatchSynthesizer`` (bf16 weights, batch 8, mel
+   buckets 400 and 800, 30-step UniPC) answers 10 requests at the widths
+   of ``configs/reference_parity.json`` with random weights from a seed;
+   every kernel counter must rise by exactly 22/16/16/16 per UNet call, and
+   MAS's by 0;
+7. parity: one fixed batch in float32 through the kernels and through the
    plain path on the card (same weights, injected initial noise, zero prior
    noise), max |mel difference| <= 5e-3;
-6. serving numbers: per-request latency at batch 1 and 8, real-time factor,
+8. serving numbers: per-request latency at batch 1 and 8, real-time factor,
    peak device memory; then one more warmed ``synthesize`` at each batch
    under torch.profiler: the device's busy share and device time by
-   kernel (informational; in ``path.json`` with ``--out``).
+   kernel (informational);
+9. train (the training path): ``Trainer`` at ``reference_parity`` widths
+   (EMA on, random weights from seed 0, bf16 autocast) takes 2 warm-up
+   and 5 timed steps on batches of 32 shaped like the loader's (text 601,
+   mel 400, prompts 267 cut by ``random_slice``): finite losses, every
+   parameter and the EMA changed, the EMA no alias of the parameters, one
+   K6 launch and no K1-K4 launch a step; median step time, steps/s, peak
+   memory, and under torch.profiler (the second warm-up step) K6's device
+   time and share of the step, the busy share and the top kernels;
+10. eval parity: ``Trainer.eval_fixed_t_loss`` (eval mode, float32, TF32
+   off) through the kernels and through the plain route on the card:
+   every value within rel 1e-4, the MAS paths equal, the counters
+   22/16/16/16 per UNet call and 1 per MAS call.
 
-The last line of standard output is one JSON object with the device; the
+The launch counts in the kernel table are those of each kernel's own path:
+serving for K1-K4, training for K6. The last line of standard output is one JSON object with the device; the
 line before it the kernel table. Exits non-zero, printing no result, when
 there is no CUDA device or the port's package is not beside this script.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -53,12 +77,14 @@ REPLACES = {
     "fused_self_attention": "diff_vits_tpu/ops/fused_transformer.py:139",
     "fused_cross_attention": "diff_vits_tpu/ops/fused_transformer.py:173",
     "fused_geglu_ff": "diff_vits_tpu/ops/fused_transformer.py:246",
+    "maximum_path": "diff_vits_tpu/ops/mas_pallas.py:89",
 }
 SOURCE = {
     "fused_resnet_block": "diff_vits_tpu_torch/csrc/gemm.cu",
     "fused_self_attention": "diff_vits_tpu_torch/csrc/attention.cu",
     "fused_cross_attention": "diff_vits_tpu_torch/csrc/attention.cu",
     "fused_geglu_ff": "diff_vits_tpu_torch/csrc/gemm.cu",
+    "maximum_path": "diff_vits_tpu_torch/csrc/mas.cu",
 }
 # per UNet call (nn/unet1d.py: 22 resnets, 16 transformer blocks)
 PER_UNET = {"fused_resnet_block": 22, "fused_self_attention": 16,
@@ -91,12 +117,26 @@ def cuda_time(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_by_name(prof):
+    """{kernel name: (activities, device us)} of a torch.profiler run: the
+    device's own activities (kernels, copies, sets), not the user
+    annotations (``record_function`` ranges such as ``Optimizer.step``)
+    that the profiler also lists on the device."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return by_name
+
+
 def device_time(fn, iters: int = 10):
     """Mean device milliseconds per ``fn()``: the summed duration of the
     device activities torch.profiler records over ``iters`` warmed calls.
     None when three windows in a row record no device activity."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -106,8 +146,7 @@ def device_time(fn, iters: int = 10):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
+        us = sum(us for _, us in device_by_name(prof).values())
         if us > 0:
             return us / 1e3 / iters
     return None
@@ -126,16 +165,22 @@ def _module_layout(torch, t, dtype):
     return t.to(dtype)
 
 
+def _ops(name):
+    """(kernel route, plain version) of the fused op ``name``."""
+    from diff_vits_tpu_torch.ops import fused_resnet as FR
+    from diff_vits_tpu_torch.ops import fused_transformer as FT
+    mod = FR if name == "fused_resnet_block" else FT
+    return getattr(mod, name), getattr(mod, name + "_plain")
+
+
 def _kernel_cases(torch, dtype, gen, dev):
-    """(kernel name, site, kernel fn, plain fn, library fn, flops, bytes)
-    at the main path's shapes: denoiser UNet levels 0/2/3 at B=8 (T 400,
+    """(kernel name, site, positional args, keyword args, library fn,
+    flops, bytes) at the main path's shapes: denoiser UNet levels 0/2/3 at B=8 (T 400,
     100, 50; C 128, 384, 512; head dims 16, 48, 64), its widest up-block
     resnet (Ci=1024), and the duration-predictor UNet at T=601 (C=64,
     head dim 8, cross-attention keys of width 256). Cross-attention keys:
     S=267 prompt frames with a ragged mask."""
     import torch.nn.functional as F
-    from diff_vits_tpu_torch.ops import fused_resnet as FR
-    from diff_vits_tpu_torch.ops import fused_transformer as FT
 
     f32 = torch.float32
     esz = torch.finfo(dtype).bits // 8
@@ -192,11 +237,7 @@ def _kernel_cases(torch, dtype, gen, dev):
                         + (ci * co if sc[0] is not None else 0)) \
             + 4 * b * 2 * co + esz * (2 * ci + 6 * co)
         cases.append(("fused_resnet_block", f"{site} B={b} T={t} Ci={ci} "
-                      f"Co={co}",
-                      lambda a=args, s=sc, k=kw: FR.fused_resnet_block(
-                          *a, *s, **k),
-                      lambda a=args, s=sc, k=kw: FR.fused_resnet_block_plain(
-                          *a, *s, **k), lib, flops, nbytes))
+                      f"Co={co}", args + sc, kw, lib, flops, nbytes))
 
     for site, t, c, ck in [("denoiser L0", 400, 128, 128),
                            ("denoiser L2", 100, 384, 128),
@@ -221,12 +262,10 @@ def _kernel_cases(torch, dtype, gen, dev):
                 sp(h @ wq), sp(h @ wk), sp(h @ wv))
             return x + o.transpose(1, 2).flatten(2) @ wo + bo.to(x.dtype)
 
+        akw = dict(heads=heads, compute_dtype=dtype)
         cases.append(("fused_self_attention",
-                      f"{site} B={b} T={t} C={c} d={c // heads}",
-                      lambda a=sargs, h=heads: FT.fused_self_attention(
-                          *a, heads=h, compute_dtype=dtype),
-                      lambda a=sargs, h=heads: FT.fused_self_attention_plain(
-                          *a, heads=h, compute_dtype=dtype), lib_self,
+                      f"{site} B={b} T={t} C={c} d={c // heads}", sargs, akw,
+                      lib_self,
                       2 * m * c * 3 * c + 4 * b * t * t * c + 2 * m * c * c,
                       esz * (2 * m * c + 4 * c * c + 3 * c)))
 
@@ -252,11 +291,7 @@ def _kernel_cases(torch, dtype, gen, dev):
 
         cases.append(("fused_cross_attention",
                       f"{site} B={b} T={t} C={c} d={c // heads} S={s} "
-                      f"Ck={ck}",
-                      lambda a=cargs, h=heads: FT.fused_cross_attention(
-                          *a, heads=h, compute_dtype=dtype),
-                      lambda a=cargs, h=heads: FT.fused_cross_attention_plain(
-                          *a, heads=h, compute_dtype=dtype), lib_cross,
+                      f"Ck={ck}", cargs, akw, lib_cross,
                       2 * m * c * c + 4 * b * s * ck * c + 4 * b * t * s * c
                       + 2 * m * c * c,
                       esz * (2 * m * c + b * s * ck + 2 * c * c + 2 * ck * c
@@ -272,11 +307,8 @@ def _kernel_cases(torch, dtype, gen, dev):
             v, g = (h @ w1 + bb1.to(x.dtype)).chunk(2, dim=-1)
             return x + (v * F.gelu(g)) @ w2 + bb2.to(x.dtype)
 
-        cases.append(("fused_geglu_ff", f"{site} B={b} T={t} C={c}",
-                      lambda a=fargs: FT.fused_geglu_ff(
-                          *a, compute_dtype=dtype),
-                      lambda a=fargs: FT.fused_geglu_ff_plain(
-                          *a, compute_dtype=dtype), lib_ff,
+        cases.append(("fused_geglu_ff", f"{site} B={b} T={t} C={c}", fargs,
+                      dict(compute_dtype=dtype), lib_ff,
                       2 * m * c * 8 * c + 2 * m * 4 * c * c,
                       esz * (2 * m * c + 12 * c * c + 11 * c)))
     return cases
@@ -291,8 +323,11 @@ def kernel_phase(torch, dev, headline_dtype="bfloat16"):
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         gen = torch.Generator(device=dev).manual_seed(1234)
-        for name, site, kfn, pfn, lfn, flops, nbytes in _kernel_cases(
+        for name, site, args, kw, lfn, flops, nbytes in _kernel_cases(
                 torch, dtype, gen, dev):
+            op, plain = _ops(name)
+            kfn = functools.partial(op, *args, **kw)
+            pfn = functools.partial(plain, *args, **kw)
             out = kfn()
             torch.cuda.synchronize()
             ref = pfn()
@@ -368,14 +403,28 @@ def main(argv=None) -> int:
     phases = {}
     k_ok, rows, summary = kernel_phase(torch, dev)
     phases["kernels"] = k_ok
+    phases["mas"], summary["maximum_path"] = mas_phase(torch, dev, card)
+    summary["maximum_path"]["library_ms"] = None   # no one PyTorch call
+    phases["grad"] = grad_phase(torch, dev)
 
+    # each path's counts are read from its own run: serving for K1-K4,
+    # training for K6
     p_ok, counts, details = path_phase(torch, dev, card)
     phases.update(p_ok)
+    phases["train"], train_counts, train_numbers, trainer, eval_batch = \
+        train_phase(torch, dev, card)
+    counts["maximum_path"] = train_counts["maximum_path"]
+    phases["eval_parity"], train_numbers["eval"] = eval_phase(
+        torch, trainer, eval_batch)
+    del trainer
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "kernels.json").write_text(json.dumps(
-            dict(card=card, rows=rows), indent=1))
+            dict(card=card, rows=rows, mas=summary["maximum_path"]),
+            indent=1))
         (out_dir / "path.json").write_text(json.dumps(details, indent=1))
+        (out_dir / "train.json").write_text(json.dumps(
+            dict(card=card, **train_numbers), indent=1))
 
     table = {"kernels": [dict(
         name=name, route="cuda", source=SOURCE[name],
@@ -460,6 +509,7 @@ def path_phase(torch, dev, card):
     for h in handles:
         h.remove()
     want = {name: n * calls[0] for name, n in PER_UNET.items()}
+    want["maximum_path"] = 0
     order_ok = [r[0] for r in results] == [r[0] for r in reqs]
     finite = all(np.isfinite(m).all() and m.ndim == 2 and m.shape[1] == 100
                  and m.shape[0] >= 1 for _, m in results)
@@ -531,7 +581,6 @@ def profile_synthesize(torch, syn, requests, card):
     bucket 400) under torch.profiler: wall time, the device's busy share
     (summed device activity over wall time; one stream, so nothing
     overlaps), device time by kernel name, and kernels launched."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from diff_vits_tpu_torch.models.diff_vits import synthesize
 
@@ -546,30 +595,326 @@ def profile_synthesize(torch, syn, requests, card):
                    device=syn.device)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return profile_summary(prof, wall_us, card,
+                           f"synthesize b={len(requests)}")
+
+
+def profile_summary(prof, wall_us, card, what):
+    """The device's busy share of a profiled region (summed device activity
+    over wall time; one stream, so nothing overlaps), the port's kernels
+    and K6 among them, and the top kernels by device time."""
+    by_name = device_by_name(prof)
     busy_us = sum(us for _, us in by_name.values())
     ours = {k: v for k, v in by_name.items() if "dvt::" in k}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    mas_us = sum(us for k, (_, us) in ours.items() if "mas_kernel" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     res = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                device_busy_share=busy_us / wall_us,
                device_launches=sum(n for n, _ in by_name.values()),
                port_kernels_ms=sum(us for _, us in ours.values()) / 1e3,
                port_kernel_launches=sum(n for n, _ in ours.values()),
+               mas_device_ms=mas_us / 1e3, mas_share_of_wall=mas_us / wall_us,
                top=[dict(name=k[:90], launches=n, ms=us / 1e3)
                     for k, (n, us) in top])
-    log(f"profile b={len(requests)}: wall {res['wall_ms']:.1f} ms, device "
-        f"busy {res['device_busy_ms']:.1f} ms "
+    log(f"profile {what}: wall {res['wall_ms']:.1f} ms, device busy "
+        f"{res['device_busy_ms']:.1f} ms "
         f"({100 * res['device_busy_share']:.1f}%), "
         f"{res['device_launches']} device activities, of which the port's "
         f"kernels {res['port_kernel_launches']} taking "
-        f"{res['port_kernels_ms']:.1f} ms; card {card}")
+        f"{res['port_kernels_ms']:.1f} ms (K6 {res['mas_device_ms']:.3f} ms, "
+        f"{100 * res['mas_share_of_wall']:.2f}% of the wall); card {card}")
     for row in res["top"]:
         log(f"  {row['ms']:9.2f} ms {row['launches']:6d}x {row['name']}")
     return res
+
+
+# -- training slice: K6, gradients through K1-K4, the training step ------
+
+MAS_SHAPE = (32, 400, 601)   # train_batch_size, max_mel_len, text buffer
+
+
+def _mas_inputs(torch, gen, dev, integer: bool):
+    """neg_cent [B, Ty, Tx] float32 and the outer-product mask at the
+    training shape, with ragged lengths t_x <= t_y (item 0: t_x = t_y = Ty;
+    item 1: t_x = t_y; item 2: t_x = 1). ``integer`` makes the scores small
+    integers, so that ties occur in the DP."""
+    b, ty, tx = MAS_SHAPE
+    t_y = torch.randint(ty * 3 // 10, ty + 1, (b,), generator=gen)
+    t_y[0] = ty
+    t_x = (t_y * torch.rand(b, generator=gen)).long().clamp(min=1)
+    t_x[0], t_x[1], t_x[2] = ty, t_y[1], 1
+    if integer:
+        neg = torch.randint(-3, 1, (b, ty, tx), generator=gen).float()
+    else:
+        neg = torch.randn(b, ty, tx, generator=gen) * 20.0 - 300.0
+    y_keep = torch.arange(ty)[None] < t_y[:, None]
+    x_keep = torch.arange(tx)[None] < t_x[:, None]
+    mask = (y_keep[:, :, None] & x_keep[:, None, :]).float()
+    return neg.to(dev), mask.to(dev), t_y
+
+
+def mas_phase(torch, dev, card):
+    """K6 against its plain version at the training shape, on random and
+    on tied scores: the paths must be identical. Returns (ok, row)."""
+    from diff_vits_tpu_torch.ops import mas
+    gen = torch.Generator().manual_seed(5)
+    ok, worst, timed = True, 0.0, None
+    for integer in (False, True):
+        nc, mask, t_y = _mas_inputs(torch, gen, dev, integer)
+        out = mas.maximum_path(nc, mask)
+        torch.cuda.synchronize()
+        ref = mas.maximum_path_plain(nc, mask)
+        mismatched = int((out != ref).sum())
+        # a path has one cell in each of an item's t_y rows (t_x <= t_y)
+        rows_ok = bool(torch.equal(ref.sum(dim=2), mask[:, :, 0]))
+        worst = max(worst, (out - ref).abs().max().item())
+        good = mismatched == 0 and rows_ok and out.dtype == nc.dtype
+        ok &= good
+        log(f"mas {'tied' if integer else 'random'} scores B,Ty,Tx="
+            f"{tuple(nc.shape)}: {mismatched} mismatched cells, one cell "
+            f"per kept row {rows_ok}: {'ok' if good else 'FAIL'}")
+        if timed is None:
+            timed = (nc, mask, t_y)
+    nc, mask, t_y = timed
+    b, ty, tx = MAS_SHAPE
+    ms = cuda_time(lambda: mas.maximum_path(nc, mask))
+    device_ms = device_time(lambda: mas.maximum_path(nc, mask))
+    plain_ms = cuda_time(lambda: mas.maximum_path_plain(nc, mask), iters=3,
+                         warmup=1)
+    # the DP reads the scores of each item's t_y rows, the mask's first row
+    # and column (the lengths) and its cells on the path; the path is
+    # written in full; ~4 operations a DP cell
+    kept = int(t_y.sum())
+    nbytes = 4 * (kept * tx + b * ty * tx + b * (ty + tx) + kept)
+    flops = 4 * kept * tx
+    bound_ms = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS["float32"])
+    bound_by = ("bytes" if nbytes / PEAK_BYTES_S
+                >= flops / PEAK_FLOPS["float32"] else "operations")
+    row = dict(max_abs_err=worst, ms=ms, device_ms=device_ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               serial_row_steps=2 * ty, bytes=nbytes, flops=flops)
+    log(f"mas timing: ms={ms:.4f} device_ms={device_ms} plain_ms="
+        f"{plain_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}; serial depth "
+        f"{2 * ty} dependent row steps); card {card}")
+    return ok, row
+
+
+def _grad_leaves(name, args):
+    """Leaf tensors that need a gradient, and the arguments made of them as
+    the UNet passes its parameters: a weight as a permuted view of its
+    nn.Linear [out, in] / nn.Conv1d [out, in, k] storage."""
+    leaves, call = [], []
+    for i, t in enumerate(args):
+        if t is None or (name == "fused_cross_attention" and i == 2):
+            call.append(t)      # absent, or the attention bias (a constant)
+            continue
+        perm = None if t.is_contiguous() else tuple(range(t.dim()))[::-1]
+        leaf = (t if perm is None else t.permute(perm)).detach().clone()
+        leaf.requires_grad_(True)
+        leaves.append(leaf)
+        call.append(leaf if perm is None else leaf.permute(perm))
+    return leaves, call
+
+
+def grad_phase(torch, dev):
+    """Gradients of sum(out * r) through each of K1-K4 (the kernel route's
+    autograd Function) against plain autograd, at denoiser level 0, B=8,
+    float32, with respect to x and every weight and vector: every leaf
+    gets one, max rel error <= 1e-3."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ok = True
+    for name, site, args, kw, *_ in _kernel_cases(torch, torch.float32, gen,
+                                                  dev):
+        if not site.startswith("denoiser L0"):
+            continue
+        op, plain = _ops(name)
+        grads, launched = {}, {}
+        for route, fn in (("kernel", op), ("plain", plain)):
+            leaves, call = _grad_leaves(name, args)
+            before = op.launches
+            out = fn(*call, **kw)
+            r = torch.randn(out.shape, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(7))
+            (out.float() * r).sum().backward()
+            torch.cuda.synchronize()
+            launched[route] = op.launches - before
+            grads[route] = [leaf.grad for leaf in leaves]
+        missing = sum(g is None for g in grads["kernel"])
+        rel = max(((k - p).abs().max() / p.abs().max().clamp(min=1e-30)).item()
+                  for k, p in zip(grads["kernel"], grads["plain"])
+                  if k is not None)
+        good = (missing == 0 and launched == {"kernel": 1, "plain": 0}
+                and rel <= 1e-3)
+        ok &= good
+        log(f"grad {name:22s} {site}: {len(grads['kernel'])} leaves, "
+            f"{missing} without a gradient, launches {launched}, max rel err "
+            f"{rel:.2e} (gate 1e-3): {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def _train_batches(np, b, t_x, t_y, s_max, n_symbols, seed):
+    """Endless batches shaped like the loader's (text [B, t_x], mel
+    [B, t_y, 100], prompts [B, s_max, 100]): random mels of 0.3 t_y to
+    2 t_y frames cut by ``random_slice`` (crop to t_y, prompt split), texts of 20 to
+    t_y tokens (item 0: as many tokens as frames)."""
+    import random
+    from diff_vits_tpu_torch.data.batch import Batch, pad_to, random_slice
+    rng, py_rng = np.random.default_rng(seed), random.Random(seed)
+    while True:
+        n_mel = rng.integers(max(30, t_y * 3 // 10), 2 * t_y, b)
+        cut = [random_slice(rng.normal(size=(int(n), 100)).astype(np.float32),
+                            py_rng, t_y, 30) for n in n_mel]
+        spec_len = np.array([len(c[0]) for c in cut])
+        text_len = np.array([spec_len[0]] + [
+            int(rng.integers(20, min(n, t_x) + 1)) for n in spec_len[1:]])
+        keep = np.arange(t_x)[None] < text_len[:, None]
+
+        def ids(hi, lo=0):
+            return rng.integers(lo, hi, (b, t_x)) * keep
+
+        def mels(k, n):
+            return np.stack([pad_to(c[k], n) for c in cut])
+        yield Batch(text=ids(n_symbols, 1), tone=ids(11), language=ids(3),
+                    spec=mels(0, t_y), refer1=mels(1, s_max),
+                    refer2=mels(2, s_max), text_lengths=text_len,
+                    spec_lengths=spec_len,
+                    refer1_lengths=np.array([len(c[1]) for c in cut]),
+                    refer2_lengths=np.array([len(c[2]) for c in cut]))
+
+
+def train_phase(torch, dev, card):
+    """``Trainer`` at the widths of configs/reference_parity.json (EMA on),
+    random weights from seed 0 (``train.seed``), bf16 autocast, batches of
+    32 shaped like the loader's: 2 warm-up steps (the second profiled) and
+    5 timed ones. Returns (ok, counts over the 7 steps, numbers, trainer,
+    a batch for the eval phase)."""
+    import dataclasses
+    import math
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.core.config import load_config
+    from diff_vits_tpu_torch.text.symbols import symbols
+    from diff_vits_tpu_torch.train.trainer import Trainer
+
+    cfg = load_config(str(ROOT / "configs" / "reference_parity.json"))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, use_ema=True, seed=0))
+    b, t_y = cfg.train.train_batch_size, cfg.data.max_mel_len
+    t_x = cfg.data.max_text_len * 2 + 1
+    batches = _train_batches(np, b, t_x, t_y, t_y * 2 // 3 + 1, len(symbols),
+                             seed=8)
+    trainer = Trainer(cfg, batches, device=dev)
+    n_params = sum(p.numel() for p in trainer.params)
+    log(f"train: reference_parity widths, {n_params} parameters, B={b}, "
+        f"text {t_x}, mel {t_y}, compute {cfg.train.compute_dtype}")
+    params0 = [p.detach().clone() for p in trainer.params]
+    ema0 = [e.clone() for e in trainer.ema]
+    it = iter(batches)
+    total = {}
+    times, losses, per_step, profiled = [], [], [], None
+    for i in range(7):
+        batch = next(it)
+        if i == 2:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 1:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                metrics = trainer.train_step(batch)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            profiled = profile_summary(prof, wall_us, card,
+                                       "one training step (warm-up 2)")
+        else:
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        per_step.append(counts)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        losses.append({k: float(v) for k, v in metrics.items()})
+        log(f"train step {i + 1}: "
+            + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses[-1].items()))
+            + f"; launches {counts}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = sorted(times)[len(times) // 2]
+    finite = all(math.isfinite(v) for m in losses for v in m.values())
+    moved = sum(not torch.equal(p, p0)
+                for p, p0 in zip(trainer.params, params0))
+    ema_moved = sum(not torch.equal(e, e0)
+                    for e, e0 in zip(trainer.ema, ema0))
+    aliased = sum(e.untyped_storage().data_ptr()
+                  == p.untyped_storage().data_ptr()
+                  for e, p in zip(trainer.ema, trainer.params))
+    counters = all(c["maximum_path"] == 1 and all(
+        c[k] == 0 for k in PER_UNET) for c in per_step)
+    ok = (finite and moved == len(params0) and ema_moved > 0
+          and aliased == 0 and counters)
+    log(f"train: 7 steps, losses finite {finite}; parameters changed "
+        f"{moved}/{len(params0)}, EMA tensors changed {ema_moved}/"
+        f"{len(ema0)}, EMA aliasing parameters {aliased}; one K6 launch and "
+        f"no K1-K4 launch per step {counters}: {'ok' if ok else 'FAIL'}")
+    log(f"train numbers: median step {step_s * 1e3:.1f} ms of "
+        f"{[round(t * 1e3, 1) for t in times]} ms, {1 / step_s:.3f} steps/s, "
+        f"peak device memory {peak:.2f} GB; card {card}")
+    numbers = dict(step_s=step_s, steps_s=times, steps_per_s=1 / step_s,
+                   max_memory_allocated_GB=peak, losses=losses,
+                   profile=profiled, n_params=n_params)
+    return ok, total, numbers, trainer, next(it)
+
+
+def eval_phase(torch, trainer, batch):
+    """``eval_fixed_t_loss`` (float32, TF32 off, eval mode) through the
+    kernels against the plain route on the card: every value within rel
+    1e-4, the MAS paths equal, the counters 22/16/16/16 per UNet call and
+    1 per MAS call on the kernel route and 0 on the plain one."""
+    import diff_vits_tpu_torch.models.vits as V
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.nn.unet1d import set_use_fused
+    from diff_vits_tpu_torch.ops.mas import maximum_path_plain
+
+    orig = V.maximum_path
+    mas_of = {True: orig, False: maximum_path_plain}
+    paths = {True: [], False: []}
+    calls, handles = _count_unet_calls(trainer.model)
+    res, counts, n_calls = {}, {}, {}
+    try:
+        for route in (True, False):
+            def recording(nc, mask, route=route):
+                paths[route].append(mas_of[route](nc, mask))
+                return paths[route][-1]
+            V.maximum_path = recording
+            set_use_fused(trainer.model, route)
+            ops.reset_launches()
+            calls[0] = 0
+            res[route] = trainer.eval_fixed_t_loss(batch)
+            counts[route], n_calls[route] = ops.launch_counts(), calls[0]
+    finally:
+        V.maximum_path = orig
+        set_use_fused(trainer.model, True)
+        for h in handles:
+            h.remove()
+    rel = max(abs(res[True][k] - res[False][k])
+              / max(abs(res[False][k]), 1e-30) for k in res[False])
+    same_paths = (len(paths[True]) == len(paths[False]) > 0 and all(
+        torch.equal(a, b) for a, b in zip(paths[True], paths[False])))
+    want = {k: n * n_calls[True] for k, n in PER_UNET.items()}
+    want["maximum_path"] = len(paths[True])
+    ok = (rel <= 1e-4 and same_paths and counts[True] == want
+          and all(v == 0 for v in counts[False].values()))
+    log(f"eval loss parity (fp32, kernels vs plain): "
+        + " ".join(f"{k}={res[True][k]:.6g}/{res[False][k]:.6g}"
+                   for k in sorted(res[True]))
+        + f"; max rel diff {rel:.2e} (gate 1e-4); MAS paths equal "
+        f"{same_paths} ({len(paths[True])} calls); UNet calls "
+        f"{n_calls[True]}, launches {counts[True]} (want {want}), plain "
+        f"route {counts[False]}: {'ok' if ok else 'FAIL'}")
+    return ok, dict(kernel=res[True], plain=res[False], max_rel=rel)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Mask and alignment-path utilities, channel-last [B, T, C].
 
-Port of ``diff_vits_tpu/core/masking.py:18-50`` (the inference subset).
+Port of ``diff_vits_tpu/core/masking.py:18-85``: the masks and paths of
+inference and the KL terms of the training loss.
 """
 from __future__ import annotations
 
@@ -28,3 +29,21 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     below_prev = F.pad(below[:, :, :-1], (1, 0))
     path = below & ~below_prev
     return path.to(mask.dtype) * mask
+
+
+def kl_divergence(m_p, logs_p, m_q, logs_q):
+    """KL(P || Q) between diagonal Gaussians, elementwise."""
+    kl = (logs_q - logs_p) - 0.5
+    return kl + 0.5 * (torch.exp(2.0 * logs_p) + (m_p - m_q) ** 2) \
+        * torch.exp(-2.0 * logs_q)
+
+
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask):
+    """Masked mean KL of the VITS prior loss in float32: the sum over the
+    mask divided by the sum of the mask. z_p, logs_q, m_p, logs_p:
+    [B, T, C]; z_mask: [B, T, 1] (so the divisor counts frames)."""
+    z_p, logs_q, m_p, logs_p, z_mask = (
+        a.float() for a in (z_p, logs_q, m_p, logs_p, z_mask))
+    kl = logs_p - logs_q - 0.5
+    kl = kl + 0.5 * (z_p - m_p) ** 2 * torch.exp(-2.0 * logs_p)
+    return torch.sum(kl * z_mask) / torch.sum(z_mask)

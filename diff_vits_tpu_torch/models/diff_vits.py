@@ -1,24 +1,31 @@
-"""Zero-shot TTS model (VITS prior + conditional diffusion decoder) and its
-sampling entry point.
+"""Zero-shot TTS model (VITS prior + conditional diffusion decoder): its
+training loss and its sampling entry point.
 
 Port of ``DiffVits`` and ``synthesize`` of
-``diff_vits_tpu/models/diff_vits.py`` for inference: text + prompt mel ->
-content (VITS.infer) -> 30-step UniPC over the UNet denoiser -> mel. The
-prompt is encoded once, and every step's time + text embedding is computed
-in one batched call before the loop (``emb_all``, diff_vits.py:197-222).
+``diff_vits_tpu/models/diff_vits.py``. Training (``DiffVits.forward``,
+diff_vits.py:88-151): the VITS forward gives content and the duration and
+KL losses; the target mel is noised to a random step and the UNet predicts
+it back (x0 objective, SNR-weighted); loss = 40 diff + len + kl + kl_ph.
+Inference: text + prompt mel -> content (VITS.infer) -> 30-step UniPC over
+the UNet denoiser -> mel. The prompt is encoded once, and every step's time
++ text embedding is computed in one batched call before the loop
+(``emb_all``, diff_vits.py:197-222).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from diff_vits_tpu_torch.core import masking
 from diff_vits_tpu_torch.core.config import Config
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
 from diff_vits_tpu_torch.diffusion.dpm_solver import time_steps_uniform
 from diff_vits_tpu_torch.diffusion.noise_schedule import NoiseScheduleVP
-from diff_vits_tpu_torch.diffusion.schedule import linear_beta_schedule
+from diff_vits_tpu_torch.diffusion.schedule import (
+    GaussianDiffusion, linear_beta_schedule)
 from diff_vits_tpu_torch.diffusion.uni_pc import sample_unipc
 from diff_vits_tpu_torch.models.diffusion_encoder import DiffusionEncoder
 from diff_vits_tpu_torch.models.vits import VITS
@@ -36,10 +43,75 @@ class DiffVits(nn.Module):
         self.vits = VITS(n_vocab, cfg.vits, device=device, dtype=dtype)
         self.diff_model = DiffusionEncoder(cfg.diffusion_encoder,
                                            device=device, dtype=dtype)
+        self._gd: Optional[GaussianDiffusion] = None
+
+    def diffusion(self, device: torch.device) -> GaussianDiffusion:
+        """The DDPM buffers of ``cfg.train.timesteps`` on ``device``."""
+        if self._gd is None or self._gd.loss_weight.device != device:
+            self._gd = GaussianDiffusion.create(self.cfg.train.timesteps,
+                                                device)
+        return self._gd
+
+    def forward(self, text, text_lengths, spec, spec_lengths, refer,
+                refer_lengths, tone, language, *,
+                generator: Optional[torch.Generator] = None,
+                mas_noise_scale: float = 0.0,
+                t: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Tuple[Dict[str, torch.Tensor],
+                                               torch.Tensor, torch.Tensor]]:
+        """Training loss. text/tone/language [B, Tx]; spec [B, Ty, 100] the
+        target mel; refer [B, S, 100] the prompt (the caller picks refer1 or
+        refer2). ``generator`` (on the model's device) draws the posterior
+        and MAS noise, t, the diffusion noise and every dropout mask. With
+        ``generator=None``, ``t`` [B] and ``noise`` [B, Ty, 100] must be
+        given and the posterior and MAS noise are zero: the parity mode.
+        Returns (loss, (metrics, model_out, target))."""
+        if generator is None and (t is None or noise is None):
+            raise ValueError("generator=None needs injected t and noise")
+        gd = self.diffusion(spec.device)
+        content, lengths, (l_length, loss_kl, loss_kl_ph) = self.vits(
+            text, text_lengths, spec, spec_lengths, tone, language,
+            mas_noise_scale=mas_noise_scale, generator=generator)
+
+        b = spec.shape[0]
+        if t is None:
+            t = torch.randint(0, gd.num_timesteps, (b,), generator=generator,
+                              device=spec.device)
+        x_mask = masking.sequence_mask(lengths, content.shape[1]).to(
+            spec.dtype)[..., None]
+        x_start = spec * x_mask
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator,
+                                device=spec.device)
+        x = gd.q_sample(x_start, t, noise * x_mask)
+
+        model_out = self.diff_model(x, t, content, refer, lengths,
+                                    refer_lengths, generator=generator)
+        target = x_start
+        mse = (model_out.float() - target.float()) ** 2
+        loss_diff = (mse.reshape(b, -1).mean(dim=-1)
+                     * gd.loss_weight[t]).mean()
+        loss = 40.0 * loss_diff + l_length + loss_kl + loss_kl_ph
+        metrics = {"loss/diff": loss_diff, "loss/len": l_length,
+                   "loss/kl": loss_kl, "loss/kl_ph": loss_kl_ph,
+                   "loss/all": loss}
+        return loss, (metrics, model_out, target)
 
 
 def _model_device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
+
+
+@contextlib.contextmanager
+def eval_mode(model: nn.Module):
+    """``model`` in eval mode for the block, its own mode restored after."""
+    was_training = model.training
+    model.eval()
+    try:
+        yield model
+    finally:
+        model.train(was_training)
 
 
 @torch.inference_mode()
@@ -54,45 +126,48 @@ def synthesize(model: DiffVits, text, text_lengths, refer, refer_lengths,
     """text [B, Tx] + prompt mel [B, S, 100] -> (mel [B, Ty, 100] float32,
     out_lengths [B]). ``init_noise`` injects x_T; ``generator`` draws the
     prior and initial noise otherwise. Runs on ``device`` (the card unless
-    given), which must hold the model."""
-    if sample_method != "unipc":
-        raise NotImplementedError(
-            f"sample_method {sample_method!r} is not ported (unipc only)")
-    device = resolve_device(device)
-    if _model_device(model).type != device.type:
-        raise ValueError(f"model is on {_model_device(model)}, "
-                         f"synthesize asked for {device}")
+    given), which must hold the model, in eval mode whatever the model's
+    mode (no dropout, the kernel routes), as JAX samples deterministically;
+    the model's mode is restored after."""
+    with eval_mode(model):
+        if sample_method != "unipc":
+            raise NotImplementedError(
+                f"sample_method {sample_method!r} is not ported (unipc only)")
+        device = resolve_device(device)
+        if _model_device(model).type != device.type:
+            raise ValueError(f"model is on {_model_device(model)}, "
+                             f"synthesize asked for {device}")
 
-    def dev(t):
-        return torch.as_tensor(t).to(_model_device(model))
+        def dev(t):
+            return torch.as_tensor(t).to(_model_device(model))
 
-    text, text_lengths, refer, refer_lengths, tone, language = map(
-        dev, (text, text_lengths, refer, refer_lengths, tone, language))
-    content, out_lengths = model.vits.infer(
-        text, text_lengths, refer, refer_lengths, tone, language,
-        noise_scale=noise_scale, length_scale=length_scale, max_len=max_len,
-        generator=generator)
+        text, text_lengths, refer, refer_lengths, tone, language = map(
+            dev, (text, text_lengths, refer, refer_lengths, tone, language))
+        content, out_lengths = model.vits.infer(
+            text, text_lengths, refer, refer_lengths, tone, language,
+            noise_scale=noise_scale, length_scale=length_scale, max_len=max_len,
+            generator=generator)
 
-    ns = NoiseScheduleVP(linear_beta_schedule(model.cfg.train.timesteps))
-    b, t_y = content.shape[0], content.shape[1]
-    c_mel = model.cfg.diffusion_encoder.out_channels
-    if init_noise is not None:
-        x = dev(init_noise).float()
-    else:
-        gen_dev = generator.device if generator is not None else "cpu"
-        x = dev(torch.randn((b, t_y, c_mel), generator=generator,
-                            device=gen_dev, dtype=torch.float32))
+        ns = NoiseScheduleVP(linear_beta_schedule(model.cfg.train.timesteps))
+        b, t_y = content.shape[0], content.shape[1]
+        c_mel = model.cfg.diffusion_encoder.out_channels
+        if init_noise is not None:
+            x = dev(init_noise).float()
+        else:
+            gen_dev = generator.device if generator is not None else "cpu"
+            x = dev(torch.randn((b, t_y, c_mel), generator=generator,
+                                device=gen_dev, dtype=torch.float32))
 
-    dm = model.diff_model
-    prompt_h, prompt_keep = dm.encode_prompt(refer, refer_lengths)
-    td_grid = time_steps_uniform(ns, sampling_steps) * ns.total_N - 1.0
-    time_embs = dm.embed_time(dev(td_grid))
-    aug = dm.embed_text(prompt_h)
-    emb_all = time_embs[:, None, :].float() + aug[None, :, :].float()
+        dm = model.diff_model
+        prompt_h, prompt_keep = dm.encode_prompt(refer, refer_lengths)
+        td_grid = time_steps_uniform(ns, sampling_steps) * ns.total_N - 1.0
+        time_embs = dm.embed_time(dev(td_grid))
+        aug = dm.embed_text(prompt_h)
+        emb_all = time_embs[:, None, :].float() + aug[None, :, :].float()
 
-    def x0_fn(x, t_discrete, step_index):
-        return dm.denoise(x, t_discrete, content, prompt_h, prompt_keep,
-                          emb=emb_all[step_index])
+        def x0_fn(x, t_discrete, step_index):
+            return dm.denoise(x, t_discrete, content, prompt_h, prompt_keep,
+                              emb=emb_all[step_index])
 
-    mel = sample_unipc(x0_fn, ns, x, steps=sampling_steps)
-    return mel, out_lengths
+        mel = sample_unipc(x0_fn, ns, x, steps=sampling_steps)
+        return mel, out_lengths

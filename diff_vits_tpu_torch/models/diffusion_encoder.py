@@ -2,9 +2,12 @@
 
 Port of ``diff_vits_tpu/models/diffusion_encoder.py``: the prompt mel is
 encoded once per utterance into cross-attention keys; each denoiser call
-runs the UNet on [noisy mel, content] with those keys.
+runs the UNet on [noisy mel, content] with those keys. ``forward`` is the
+training call: both, with the UNet embedding its own timesteps.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -38,11 +41,22 @@ class DiffusionEncoder(nn.Module):
             attention_head_dim=c.n_heads, addition_embed_type="text", **kw)
         self.to(**kw)
 
-    def encode_prompt(self, prompt, prompt_lengths):
+    def forward(self, x, t, cond, prompt, cond_lengths, prompt_lengths, *,
+                generator: Optional[torch.Generator] = None):
+        """x [B, T, C_mel] noisy mel, t [B] steps, cond [B, T, C] content,
+        prompt [B, S, C_mel] -> x0 prediction [B, T, C_mel]
+        (diffusion_encoder.py:72-86; ``cond_lengths`` unused there too)."""
+        prompt_h, prompt_keep = self.encode_prompt(prompt, prompt_lengths,
+                                                   generator=generator)
+        return self.denoise(x, t, cond, prompt_h, prompt_keep)
+
+    def encode_prompt(self, prompt, prompt_lengths, *,
+                      generator: Optional[torch.Generator] = None):
         """Prompt mel -> cross-attention keys [B, S, C] and keep mask."""
         prompt = prompt.to(self.unet.conv_in.weight.dtype)
         prompt_keep = masking.sequence_mask(prompt_lengths, prompt.shape[1])
-        prompt_h = self.prompt_encoder(prompt, prompt_lengths)
+        prompt_h = self.prompt_encoder(prompt, prompt_lengths,
+                                       generator=generator)
         prompt_h = prompt_h * prompt_keep.to(prompt_h.dtype)[..., None]
         return prompt_h, prompt_keep
 

@@ -2,6 +2,8 @@
 
 Port of ``DurationPredictorUNet`` of ``diff_vits_tpu/models/duration.py:22-59``:
 text hidden + prompt mel -> UNet1D (timestep fixed to 1) -> log durations.
+Its inputs are detached, as the JAX module stops their gradients
+(duration.py:41-42): the duration loss trains the predictor alone.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ class DurationPredictorUNet(nn.Module):
         self.to(device=device, dtype=dtype)
 
     def forward(self, x, x_lengths, prompt, prompt_lengths):
+        x, prompt = x.detach(), prompt.detach()
         prompt = self.prompt_proj(prompt)
         x_mask = masking.sequence_mask(x_lengths, x.shape[1]).to(
             x.dtype)[..., None]

@@ -1,12 +1,13 @@
-"""VITS prior, inference path: text -> durations -> expanded content.
+"""VITS prior: the training forward (posterior, MAS, duration and KL
+losses) and the inference path (text -> durations -> expanded content).
 
-Port of ``VITS._predict_durations``, ``predict_lengths`` and ``infer`` of
-``diff_vits_tpu/models/vits.py`` for the model3 configuration (UNet
-duration predictor, no flow, no phoneme VAE). The posterior encoder
-``enc_q`` serves training only and is not part of this module.
+Port of ``VITS.__call__``, ``_predict_durations``, ``predict_lengths`` and
+``infer`` of ``diff_vits_tpu/models/vits.py`` for the model3 configuration
+(UNet duration predictor, no flow, no phoneme VAE).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -16,8 +17,10 @@ from diff_vits_tpu_torch.core import masking
 from diff_vits_tpu_torch.core.config import VitsConfig
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
 from diff_vits_tpu_torch.models.duration import DurationPredictorUNet
-from diff_vits_tpu_torch.models.encoders import PromptEncoder, TextEncoder
+from diff_vits_tpu_torch.models.encoders import (
+    PosteriorEncoder, PromptEncoder, TextEncoder)
 from diff_vits_tpu_torch.nn.embeddings import TextTimeEmbedding
+from diff_vits_tpu_torch.ops.mas import maximum_path
 
 
 def check_supported(cfg: VitsConfig) -> None:
@@ -46,16 +49,75 @@ class VITS(nn.Module):
         self.enc_p = TextEncoder(n_vocab, c.inter_channels,
                                  c.hidden_channels, c.filter_channels,
                                  c.n_heads, c.n_layers, c.kernel_size,
-                                 gin_channels=c.gin_channels, **kw)
+                                 c.p_dropout, gin_channels=c.gin_channels,
+                                 **kw)
+        self.enc_q = PosteriorEncoder(
+            c.posterior_in_channels, c.inter_channels, c.hidden_channels,
+            c.posterior_kernel_size, c.posterior_dilation_rate,
+            c.posterior_n_layers, gin_channels=c.gin_channels, **kw)
         # speaker conditioning: attention pooling over the prompt mel
         self.ref_enc = TextTimeEmbedding(c.posterior_in_channels,
                                          c.gin_channels, num_heads=1)
         self.dp = DurationPredictorUNet(c.hidden_channels, 256,
                                         c.posterior_in_channels, **kw)
         self.o_proj = PromptEncoder(c.inter_channels, c.hidden_channels,
-                                    c.inter_channels, 6,
+                                    c.inter_channels, 6, 0.2,
                                     gin_channels=c.gin_channels, **kw)
         self.to(**kw)
+
+    def forward(self, x, x_lengths, y, y_lengths, tone, language, *,
+                mas_noise_scale: float = 0.0,
+                generator: Optional[torch.Generator] = None):
+        """Training forward (vits.py:85-166). x/tone/language [B, Tx]; y
+        [B, Ty, 100] the target mel. ``generator`` draws the posterior and
+        MAS noise and every dropout mask; without one both noises are zero
+        (and dropout needs eval mode). Returns (content [B, Ty, C],
+        y_lengths, (l_length, loss_kl, loss_kl_ph = 0))."""
+        g = self.ref_enc(y)[:, None, :]
+        x_h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, tone, language,
+                                              g=g, generator=generator)
+        z, m_q, logs_q, y_mask = self.enc_q(y, y_lengths, g=g,
+                                            generator=generator)
+        attn_mask = y_mask[:, :, 0][:, :, None] * x_mask[:, :, 0][:, None, :]
+        attn = self._alignment(z, m_p, logs_p, attn_mask, mas_noise_scale,
+                               generator)
+
+        w = attn.sum(dim=1)                                     # [B, Tx]
+        logw_ = torch.log(w + 1e-6)[..., None] * x_mask
+        logw = self.dp(x_h, x_lengths, y, y_lengths)
+        l_length = torch.sum((logw - logw_) ** 2, dim=(1, 2)) \
+            / torch.sum(x_mask)
+        l_length = torch.sum(l_length.float())
+
+        m_p_e = torch.matmul(attn, m_p.float())
+        logs_p_e = torch.matmul(attn, logs_p.float())
+        loss_kl = masking.kl_loss(z, logs_q, m_p_e, logs_p_e, y_mask)
+        content = self.o_proj(z, y_lengths, g=g, generator=generator)
+        return content, y_lengths, (l_length, loss_kl,
+                                    torch.zeros((), device=l_length.device))
+
+    @torch.no_grad()
+    def _alignment(self, z_p, m_p, logs_p, attn_mask, mas_noise_scale,
+                   generator):
+        """MAS on the negative cross-entropy of z under the prior, in
+        float32 with autocast off and no gradient (vits.py:104-124)."""
+        with torch.autocast(z_p.device.type, enabled=False):
+            zf, m_pf, logs_pf = z_p.float(), m_p.float(), logs_p.float()
+            s_p_sq_r = torch.exp(-2.0 * logs_pf)                # [B, Tx, D]
+            neg_cent1 = torch.sum(-0.5 * math.log(2 * math.pi) - logs_pf,
+                                  dim=-1)                       # [B, Tx]
+            neg_cent2 = torch.matmul(-0.5 * zf ** 2, s_p_sq_r.transpose(1, 2))
+            neg_cent3 = torch.matmul(zf, (m_pf * s_p_sq_r).transpose(1, 2))
+            neg_cent4 = torch.sum(-0.5 * m_pf ** 2 * s_p_sq_r, dim=-1)
+            neg_cent = (neg_cent1[:, None, :] + neg_cent2 + neg_cent3
+                        + neg_cent4[:, None, :])                # [B, Ty, Tx]
+            if generator is not None:
+                # jnp.std is the population std
+                noise = torch.randn(neg_cent.shape, generator=generator,
+                                    device=neg_cent.device)
+                neg_cent = neg_cent + torch.std(neg_cent, correction=0) \
+                    * noise * mas_noise_scale
+            return maximum_path(neg_cent.contiguous(), attn_mask.float())
 
     def _predict_durations(self, x, x_lengths, y, y_lengths, tone, language,
                            length_scale: float = 1.0):

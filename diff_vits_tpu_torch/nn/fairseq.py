@@ -3,14 +3,20 @@
 Port of ``ConvLayer``, ``TransformerFFNLayer`` and ``EncSALayer`` of
 ``diff_vits_tpu/nn/fairseq.py:85-228`` on their plain einsum path (the JAX
 package's flash route is off by default). Keep masks are float [B, T, 1].
+Dropout (train mode only, from the caller's generator) sits where the JAX
+layers have it: the FFN's ReLU (:161), the attention output (:217) and the
+FFN output (:226); registry code 8 sets the attention-probability dropout
+(:211) to 0.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diff_vits_tpu_torch.nn.layers import Conv1d
+from diff_vits_tpu_torch.nn.layers import Conv1d, dropout
 
 
 class ConvLayer(nn.Module):
@@ -36,39 +42,43 @@ class TransformerFFNLayer(nn.Module):
     """Conv FFN: SAME k-wide conv scaled by k^-1/2 -> ReLU -> Linear."""
 
     def __init__(self, hidden_size: int, filter_size: int,
-                 kernel_size: int = 1):
+                 kernel_size: int = 1, p_dropout: float = 0.0):
         super().__init__()
-        self.kernel_size = kernel_size
+        self.kernel_size, self.p_dropout = kernel_size, p_dropout
         if kernel_size == 1:
             self.ffn_1 = nn.Linear(hidden_size, filter_size)
         else:
             self.ffn_1 = Conv1d(hidden_size, filter_size, kernel_size)
         self.ffn_2 = nn.Linear(filter_size, hidden_size)
 
-    def forward(self, x):
+    def forward(self, x, *, generator: Optional[torch.Generator] = None):
         k = self.kernel_size
         if k == 1:
             x = self.ffn_1(x)
         else:
             pad_l = (k - 1) // 2
             x = self.ffn_1(F.pad(x, (0, 0, pad_l, k - 1 - pad_l))) * k ** -0.5
-        return self.ffn_2(torch.relu(x))
+        x = dropout(torch.relu(x), self.p_dropout, self.training, generator)
+        return self.ffn_2(x)
 
 
 class EncSALayer(nn.Module):
     """Pre-LN self-attention (no qkv bias, -inf key padding) + conv FFN;
     registry code 8: 8 heads, FFN kernel 9 (fairseq.py:189)."""
 
-    def __init__(self, c: int, num_heads: int = 8, kernel_size: int = 9):
+    def __init__(self, c: int, num_heads: int = 8, kernel_size: int = 9,
+                 p_dropout: float = 0.0):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.p_dropout = num_heads, p_dropout
         self.layer_norm1 = nn.LayerNorm(c, eps=1e-5)
         self.in_proj = nn.Linear(c, 3 * c, bias=False)
         self.out_proj = nn.Linear(c, c, bias=False)
         self.layer_norm2 = nn.LayerNorm(c, eps=1e-5)
-        self.ffn = TransformerFFNLayer(c, 4 * c, kernel_size=kernel_size)
+        self.ffn = TransformerFFNLayer(c, 4 * c, kernel_size=kernel_size,
+                                       p_dropout=p_dropout)
 
-    def forward(self, x, keep_mask):
+    def forward(self, x, keep_mask, *,
+                generator: Optional[torch.Generator] = None):
         b, t, c = x.shape
         d = c // self.num_heads
         q, k, v = self.in_proj(self.layer_norm1(x)).chunk(3, dim=-1)
@@ -81,6 +91,8 @@ class EncSALayer(nn.Module):
         scores = scores.masked_fill(pad, float("-inf"))
         out = torch.matmul(torch.softmax(scores, dim=-1), split(v))
         out = self.out_proj(out.transpose(1, 2).reshape(b, t, c))
+        out = dropout(out, self.p_dropout, self.training, generator)
         x = (x + out) * keep_mask
-        h = self.ffn(self.layer_norm2(x))
+        h = self.ffn(self.layer_norm2(x), generator=generator)
+        h = dropout(h, self.p_dropout, self.training, generator)
         return (x + h) * keep_mask

@@ -8,12 +8,15 @@ down/up sampling, the five block types the model uses and
 ``attn_0.block_0.attn2``, ...) so ``utils/convert.py`` maps the JAX
 package's parameters mechanically.
 
-Routing: ``ResnetBlock1D`` and ``BasicTransformerBlock`` send every call
-that passes the JAX package's shape gates (:157-168, :397-406) through the
-fused ops of ``diff_vits_tpu_torch.ops``, which run their CUDA kernels on
-the card and their plain PyTorch versions on the CPU; there is no batch
-cut-off. ``use_fused=False`` selects the unfused PyTorch formulation (the
-JAX package's XLA path), which is also what a call failing the gate takes.
+Routing: in eval mode, ``ResnetBlock1D`` and ``BasicTransformerBlock``
+send every call that passes the JAX package's shape gates (:157-168,
+:397-406) through the fused ops of ``diff_vits_tpu_torch.ops``, which run
+their CUDA kernels on the card and their plain PyTorch versions on the
+CPU; there is no batch cut-off. ``use_fused=False``, training mode (as the
+JAX modules turn the fused route off when ``deterministic=False``) and a
+call failing the gate take the unfused PyTorch formulation (the JAX
+package's XLA path). The UNet's dropout is 0 on every path, so both routes
+compute the same function.
 """
 from __future__ import annotations
 
@@ -110,7 +113,8 @@ class BasicTransformerBlock(nn.Module):
         self.ff = GEGLUFeedForward(dim)
 
     def _fused_enabled(self, attention_bias) -> bool:
-        return (self.use_fused and attention_bias is None
+        return (self.use_fused and not self.training
+                and attention_bias is None
                 and self.num_heads * self.head_dim == self.dim)
 
     def forward(self, x, context=None, attention_bias=None,
@@ -184,7 +188,8 @@ class ResnetBlock1D(nn.Module):
                               if in_channels != out_channels else None)
 
     def _fused_enabled(self) -> bool:
-        return (self.use_fused and self.in_channels % self.groups == 0
+        return (self.use_fused and not self.training
+                and self.in_channels % self.groups == 0
                 and self.out_channels % self.groups == 0)
 
     def forward(self, x, temb):

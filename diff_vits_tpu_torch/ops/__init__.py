@@ -1,4 +1,4 @@
-"""Fused UNet ops: plain PyTorch on the CPU, hand-written CUDA on the card.
+"""Kernel ops: plain PyTorch on the CPU, hand-written CUDA on the card.
 
 Each op's wrapper counts the times it launched its kernels in an integer
 attribute ``launches``; :func:`launch_counts` and :func:`reset_launches`
@@ -11,15 +11,16 @@ from typing import Dict
 from diff_vits_tpu_torch.ops.fused_resnet import fused_resnet_block
 from diff_vits_tpu_torch.ops.fused_transformer import (
     fused_cross_attention, fused_geglu_ff, fused_self_attention)
+from diff_vits_tpu_torch.ops.mas import maximum_path
 
-FUSED_OPS = (fused_resnet_block, fused_self_attention, fused_cross_attention,
-             fused_geglu_ff)
+KERNEL_OPS = (fused_resnet_block, fused_self_attention,
+              fused_cross_attention, fused_geglu_ff, maximum_path)
 
 
 def launch_counts() -> Dict[str, int]:
-    return {op.__name__: op.launches for op in FUSED_OPS}
+    return {op.__name__: op.launches for op in KERNEL_OPS}
 
 
 def reset_launches() -> None:
-    for op in FUSED_OPS:
+    for op in KERNEL_OPS:
         op.launches = 0

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _CHECKOUT = Path(__file__).resolve().parents[2]
-SOURCES = ("norm_stats.cu", "gemm.cu", "attention.cu")
+SOURCES = ("norm_stats.cu", "gemm.cu", "attention.cu", "mas.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +39,7 @@ _SIGNATURES = {
     "dvt_gemm": (_P, _P),
     "dvt_gemm_args_size": (),
     "dvt_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "dvt_mas": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

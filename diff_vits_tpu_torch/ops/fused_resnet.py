@@ -10,7 +10,9 @@ Replaces the Pallas kernel ``fused_resnet_block`` of
 
 On a CPU tensor the plain PyTorch version below runs (the math of the JAX
 package's ``_xla_twin``, :89-130). On a CUDA tensor the hand-written
-kernels of ``diff_vits_tpu_torch/csrc`` run, or the call raises:
+kernels of ``diff_vits_tpu_torch/csrc`` run, or the call raises; their
+gradient is that of the plain version, recomputed
+(``ops/kernel_function.py``, JAX's ``defvjp`` through the twin):
 
     norm_stats(x) -> gemm(conv1: GN1+SiLU prologue, 3 taps) -> norm_stats(h)
     [-> gemm(1x1 shortcut)] -> gemm(conv2: GN2+FiLM+SiLU prologue, 3 taps,
@@ -27,9 +29,12 @@ float32 conv1 output does.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from diff_vits_tpu_torch.ops import _cuda
+from diff_vits_tpu_torch.ops.kernel_function import run_kernels
 
 
 def mm(a: torch.Tensor, w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -138,9 +143,11 @@ def fused_resnet_block(x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale,
     if x.device.type != "cuda":
         raise ValueError(f"fused_resnet_block runs on cpu or cuda, not "
                          f"{x.device}")
-    return _kernels(x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
-                    w2, b2, w_short, b_short, groups=groups, eps=eps,
-                    compute_dtype=compute_dtype)
+    kw = dict(groups=groups, eps=eps, compute_dtype=compute_dtype)
+    return run_kernels(functools.partial(_kernels, **kw),
+                       functools.partial(fused_resnet_block_plain, **kw),
+                       x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale,
+                       gn2_bias, w2, b2, w_short, b_short)
 
 
 def _kernels(x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2,

@@ -13,7 +13,8 @@ On a CPU tensor each runs its plain PyTorch version below (the math of the
 JAX package's XLA twins, :99-127 and :282-296; GELU with the exact erf
 where Pallas used the A&S 7.1.26 rational form). On a CUDA tensor the
 hand-written kernels of ``diff_vits_tpu_torch/csrc`` run, or the call
-raises:
+raises; their gradient is that of the plain version, recomputed
+(``ops/kernel_function.py``, JAX's ``defvjp`` through the twin):
 
   K2: norm_stats(rows) -> gemm(LN prologue; q, k, v as three problems of
       one launch) -> attention -> gemm(Wo + bo + residual)
@@ -34,11 +35,14 @@ version is FMA issue: no product runs on tensor cores, and head dims of
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from diff_vits_tpu_torch.ops import _cuda
 from diff_vits_tpu_torch.ops.fused_resnet import (
     _check, _check_vecs, _check_weight, mm)
+from diff_vits_tpu_torch.ops.kernel_function import run_kernels
 
 
 def _layer_norm(x, scale, bias, eps=1e-5):
@@ -141,12 +145,14 @@ def fused_self_attention(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *,
         return fused_self_attention_plain(
             x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads=heads,
             compute_dtype=compute_dtype)
-    return _self_attention_kernels(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
-                                   heads, compute_dtype)
+    kw = dict(heads=heads, compute_dtype=compute_dtype)
+    return run_kernels(functools.partial(_self_attention_kernels, **kw),
+                       functools.partial(fused_self_attention_plain, **kw),
+                       x, ln_scale, ln_bias, wq, wk, wv, wo, bo)
 
 
-def _self_attention_kernels(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads,
-                            compute_dtype):
+def _self_attention_kernels(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *,
+                            heads, compute_dtype):
     """The kernel route: check every input, then launch."""
     _check_x(x, "fused_self_attention")
     b, t, c = x.shape
@@ -179,12 +185,14 @@ def fused_cross_attention(x, ctx, bias, ln_scale, ln_bias, wq, wk, wv, wo,
         return fused_cross_attention_plain(
             x, ctx, bias, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads=heads,
             compute_dtype=compute_dtype)
-    return _cross_attention_kernels(x, ctx, bias, ln_scale, ln_bias, wq, wk,
-                                    wv, wo, bo, heads, compute_dtype)
+    kw = dict(heads=heads, compute_dtype=compute_dtype)
+    return run_kernels(functools.partial(_cross_attention_kernels, **kw),
+                       functools.partial(fused_cross_attention_plain, **kw),
+                       x, ctx, bias, ln_scale, ln_bias, wq, wk, wv, wo, bo)
 
 
 def _cross_attention_kernels(x, ctx, bias, ln_scale, ln_bias, wq, wk, wv, wo,
-                             bo, heads, compute_dtype):
+                             bo, *, heads, compute_dtype):
     """The kernel route: check every input, then launch."""
     _check_x(x, "fused_cross_attention")
     b, t, c = x.shape
@@ -224,11 +232,14 @@ def fused_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
     if not _route(x, "fused_geglu_ff"):
         return fused_geglu_ff_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
                                     compute_dtype=compute_dtype)
-    return _geglu_ff_kernels(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                             compute_dtype)
+    kw = dict(compute_dtype=compute_dtype)
+    return run_kernels(functools.partial(_geglu_ff_kernels, **kw),
+                       functools.partial(fused_geglu_ff_plain, **kw),
+                       x, ln_scale, ln_bias, w1, b1, w2, b2)
 
 
-def _geglu_ff_kernels(x, ln_scale, ln_bias, w1, b1, w2, b2, compute_dtype):
+def _geglu_ff_kernels(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
+                      compute_dtype):
     """The kernel route: check every input, then launch."""
     _check_x(x, "fused_geglu_ff")
     b, t, c = x.shape

@@ -11,8 +11,9 @@ mechanical:
   bias and named parameters    -> unchanged (positional_embedding,
                                   emb_rel_k, emb_rel_v)
 
-Every leaf is converted except the subtrees in :data:`SKIPPED`, which
-belong to training.
+Every leaf is converted, the training-only posterior encoder
+(``vits.enc_q``) included. A tree of gradients has the parameters' names
+and shapes, so it converts the same way.
 """
 from __future__ import annotations
 
@@ -23,9 +24,6 @@ import torch
 
 from diff_vits_tpu_torch.core.config import Config
 from diff_vits_tpu_torch.models.vits import check_supported
-
-# flax subtrees the port's inference modules have no place for
-SKIPPED: Tuple[str, ...] = ("vits.enc_q",)
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -50,16 +48,13 @@ def _convert(path: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
     return path, a
 
 
-def convert_tree(flax_params: Mapping[str, Any], skip: Tuple[str, ...] = ()
-                 ) -> Dict[str, torch.Tensor]:
+def convert_tree(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Any flax params tree of a module the port mirrors (numpy leaves)
-    -> that module's ``state_dict``, leaving out the subtrees in ``skip``."""
+    -> that module's ``state_dict``."""
     if set(flax_params) == {"params"}:
         flax_params = flax_params["params"]
     out: Dict[str, torch.Tensor] = {}
     for path, a in _flatten(flax_params):
-        if any(path == s or path.startswith(s + ".") for s in skip):
-            continue
         name, v = _convert(path, a)
         out[name] = torch.tensor(np.ascontiguousarray(v, np.float32))
     return out
@@ -71,4 +66,4 @@ def from_flax_params(flax_params: Mapping[str, Any], cfg: Config
     the outer ``{"params": ...}``) -> ``state_dict`` of the port's
     ``DiffVits``. Load it with ``load_state_dict(..., strict=True)``."""
     check_supported(cfg.vits)
-    return convert_tree(flax_params, SKIPPED)
+    return convert_tree(flax_params)

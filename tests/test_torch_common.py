@@ -73,8 +73,8 @@ def to_jax(tree):
     return {"params": jax.tree_util.tree_map(jnp.asarray, tree)}
 
 
-def load(port_module, tree, skip=()):
-    port_module.load_state_dict(convert_tree(tree, skip), strict=True)
+def load(port_module, tree):
+    port_module.load_state_dict(convert_tree(tree), strict=True)
     return port_module.eval()
 
 
@@ -125,3 +125,36 @@ def test_text_time_embedding_matches_jax():
         pm = load(temb.TextTimeEmbedding(16, 24, num_heads=heads), tree)
         assert_close(pm(torch.from_numpy(x)),
                      jm.apply(to_jax(tree), jnp.asarray(x)), atol=1e-5)
+
+
+# key biases: a bias on the attention keys adds the same q.b to every score
+# of a query row, which the softmax cancels, so their true gradient is 0
+# and both packages hold float32 rounding noise there
+ZERO_GRAD_SUFFIXES = ("conv_k.bias", "k_proj.bias")
+
+
+def assert_grads_close(module, jax_grads, rtol=1e-3):
+    """``module``'s parameter gradients against a JAX gradient tree of the
+    same flax parameters (converted by ``convert_tree``): every leaf within
+    rtol plus an atol of rtol times the leaf's largest |gradient| (near-zero
+    elements are sums of many terms taken in another order). The key biases
+    of ZERO_GRAD_SUFFIXES: both sides below 1e-6 times the largest
+    gradient of the tree."""
+    ref = convert_tree(jax.tree_util.tree_map(np.asarray, jax_grads))
+    params = dict(module.named_parameters())
+    assert set(ref) == set(params)
+    top = max(float(np.abs(r.numpy()).max()) for r in ref.values())
+    worst = 0.0
+    for name, p in params.items():
+        assert p.grad is not None, name
+        got, want = p.grad.numpy(), ref[name].numpy()
+        if name.endswith(ZERO_GRAD_SUFFIXES):
+            assert np.abs(got).max() <= 1e-6 * top, name
+            assert np.abs(want).max() <= 1e-6 * top, name
+            continue
+        scale = float(np.abs(want).max())
+        worst = max(worst, float(np.abs(got - want).max()) / scale)
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * scale,
+                                   err_msg=name)
+    print(f"{len(params)} leaves; worst max |port - jax| / max |jax| = "
+          f"{worst:.2e}")

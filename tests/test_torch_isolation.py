@@ -1,7 +1,7 @@
 """The port stands alone: no JAX import anywhere in it or in
 chip_smoke.py, no silent CPU path at its entry points, the same configs,
 and a parameter conversion that consumes every leaf of the JAX model it
-mirrors except the named training-only subtrees."""
+mirrors, the training-only posterior encoder included."""
 import ast
 import dataclasses
 import json
@@ -18,7 +18,7 @@ from diff_vits_tpu.models.diff_vits import DiffVits as JDiffVits
 from diff_vits_tpu_torch.core import config as tconfig
 from diff_vits_tpu_torch.models.diff_vits import DiffVits
 from diff_vits_tpu_torch.text.symbols import symbols
-from diff_vits_tpu_torch.utils.convert import SKIPPED, from_flax_params
+from diff_vits_tpu_torch.utils.convert import from_flax_params
 from test_torch_common import flax_shapes, tiny_configs
 
 torch.set_num_threads(2)
@@ -78,7 +78,8 @@ def test_configs_load_equal_in_both_packages(path):
 
 def test_from_flax_params_consumes_every_leaf_but_the_skip_list():
     """Against the whole JAX model tree, training parts included (the tree
-    of the training forward, read with eval_shape)."""
+    of the training forward, read with eval_shape): the skip list is
+    empty, every leaf lands in the port's state dict."""
     jcfg, pcfg = tiny_configs()
     jm = JDiffVits(jcfg, n_vocab=len(symbols))
     b, tx, ty, s = 2, 7, 20, 11
@@ -93,15 +94,13 @@ def test_from_flax_params_consumes_every_leaf_but_the_skip_list():
         lambda sd: rng.normal(size=sd.shape).astype(np.float32), shapes)
     assert set(tree) == {"vits", "diff_model"}
     assert "enc_q" in tree["vits"]
-    assert SKIPPED == ("vits.enc_q",)
     sd = from_flax_params(tree, pcfg)
     want = DiffVits(pcfg, len(symbols), device="cpu").state_dict()
     assert set(sd) == set(want)
+    assert any(k.startswith("vits.enc_q.") for k in sd)
     for k, v in want.items():
         assert sd[k].shape == v.shape, k
-    n_leaves = len(jax.tree_util.tree_leaves(tree))
-    n_skipped = len(jax.tree_util.tree_leaves(tree["vits"]["enc_q"]))
-    assert len(sd) == n_leaves - n_skipped
+    assert len(sd) == len(jax.tree_util.tree_leaves(tree))
     # Dense [in, out] -> Linear [out, in]; Conv [k, in, out] -> [out, in, k]
     dense = tree["vits"]["dp"]["pre"]["kernel"]
     np.testing.assert_array_equal(sd["vits.dp.pre.weight"].numpy(), dense.T)

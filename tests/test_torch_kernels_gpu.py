@@ -1,13 +1,19 @@
-"""K1-K4 CUDA kernels on the card against their plain PyTorch versions, at
-the ragged shapes that the main path's tile-aligned ones do not reach:
+"""K1-K4 and K6 CUDA kernels on the card against their plain PyTorch
+versions. K1-K4 at the ragged shapes that the main path's tile-aligned
+ones do not reach:
 rows and columns that fill no whole 64-wide tile, reductions shorter than
 one 16-deep step, T = 1 and 2 (both conv taps at the sequence edge),
 every head dim the attention kernel takes, one kept key, no key bias.
 Each also takes its weights in the layout the UNet modules hand over
 (strided views of nn.Linear [out, in] and nn.Conv1d [out, in, k]
 parameters, norm parameters and biases in the compute dtype) as well as in
-the JAX layout with float32 vectors. Also the wrappers' refusals and launch counts, and a tiny UNet on the
-kernels against its unfused formulation.
+the JAX layout with float32 vectors. Also the wrappers' refusals and
+launch counts, a tiny UNet on the kernels against its unfused
+formulation, and gradients through the kernel routes' autograd Function
+(landing on the nn.Parameters, equal to plain autograd's within 1e-3).
+K6 (MAS): paths identical to the plain version's (tolerance 0) on random
+and tied scores, ragged lengths, more text columns than one thread a
+column covers, bfloat16 scores, and a refusal of what does not fit.
 
 Needs a CUDA device and nvcc; skips otherwise. On the card, from the
 repository root (the JAX conftest is not needed there):
@@ -26,6 +32,7 @@ from diff_vits_tpu_torch.nn.unet1d import (
     UNet1DConditionModel, set_use_fused)
 from diff_vits_tpu_torch.ops import fused_resnet as FR
 from diff_vits_tpu_torch.ops import fused_transformer as FT
+from diff_vits_tpu_torch.ops import mas
 
 torch.set_num_threads(2)
 
@@ -231,8 +238,160 @@ def test_tiny_unet_on_kernels_matches_unfused(dev):
         torch.cuda.synchronize()
         assert ops.launch_counts() == {
             "fused_resnet_block": 22, "fused_self_attention": 16,
-            "fused_cross_attention": 16, "fused_geglu_ff": 16}
+            "fused_cross_attention": 16, "fused_geglu_ff": 16,
+            "maximum_path": 0}
         set_use_fused(model, False)
         ref = model(x, ts, ctx, encoder_attention_mask=keep)
     assert out.shape == (b, t, 4)
     _assert_close(out, ref, torch.float32)
+
+
+def _grad_case(name, dev, dtype=torch.float32):
+    """(op, plain, args, kwargs, positions of the weights) of a ragged case
+    of ``name``."""
+    gen = torch.Generator(device=dev).manual_seed(len(name))
+    r = lambda *s, **k: _rand(gen, dev, *s, **k)  # noqa: E731
+    b, t, c, ck, s = 2, 37, 32, 24, 13
+    if name == "fused_resnet_block":
+        ci, co = 24, 40
+        args = (r(b, t, ci), r(b, 2 * co, scale=0.3), 1 + r(ci, scale=0.1),
+                r(ci, scale=0.1), r(3, ci, co, scale=(3 * ci) ** -0.5),
+                r(co, scale=0.1), 1 + r(co, scale=0.1), r(co, scale=0.1),
+                r(3, co, co, scale=(3 * co) ** -0.5), r(co, scale=0.1),
+                r(ci, co, scale=ci ** -0.5), r(co, scale=0.1))
+        return FR.fused_resnet_block, FR.fused_resnet_block_plain, args, \
+            dict(groups=8, eps=1e-5, compute_dtype=dtype), (4, 8, 10)
+    if name == "fused_geglu_ff":
+        args = (r(b, t, c), 1 + r(c, scale=0.1), r(c, scale=0.1),
+                r(c, 8 * c, scale=c ** -0.5), r(8 * c, scale=0.1),
+                r(4 * c, c, scale=(4 * c) ** -0.5), r(c, scale=0.1))
+        return FT.fused_geglu_ff, FT.fused_geglu_ff_plain, args, \
+            dict(compute_dtype=dtype), (3, 5)
+    kw = dict(heads=4, compute_dtype=dtype)
+    if name == "fused_self_attention":
+        args = (r(b, t, c), *_attn_weights(gen, dev, c, c, dtype))
+        return FT.fused_self_attention, FT.fused_self_attention_plain, \
+            args, kw, (3, 4, 5, 6)
+    keep = torch.ones(b, s, device=dev)
+    keep[1, 5:] = 0.0
+    bias = ((1 - keep) * -10000.0)[:, None, :].contiguous()
+    args = (r(b, t, c), r(b, s, ck), bias,
+            *_attn_weights(gen, dev, c, ck, dtype))
+    return (FT.fused_cross_attention, FT.fused_cross_attention_plain, args,
+            kw, (5, 6, 7, 8))
+
+
+@pytest.mark.parametrize("name", ["fused_resnet_block", "fused_self_attention",
+                                  "fused_cross_attention", "fused_geglu_ff"])
+def test_kernel_route_gradients_reach_parameters(dev, name):
+    """Weights as views of [out, in(, k)] nn.Parameters, as the UNet
+    passes them: their .grad is set, and equals plain autograd's."""
+    op, plain, args, kw, weights = _grad_case(name, dev)
+    grads = {}
+    for route, fn in (("kernel", op), ("plain", plain)):
+        leaves, call = [], []
+        for i, a in enumerate(args):
+            if name == "fused_cross_attention" and i == 2:
+                call.append(a)           # the key bias: a constant
+                continue
+            perm = tuple(range(a.dim()))[::-1] if i in weights else None
+            leaf = torch.nn.Parameter(a if perm is None
+                                      else a.permute(perm).contiguous())
+            leaves.append(leaf)
+            call.append(leaf if perm is None else leaf.permute(perm))
+        before = op.launches
+        out = fn(*call, **kw)
+        assert out.grad_fn is not None
+        r = torch.randn(out.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+        (out * r).sum().backward()
+        torch.cuda.synchronize()
+        assert op.launches - before == (1 if route == "kernel" else 0)
+        grads[route] = [leaf.grad for leaf in leaves]
+    assert all(g is not None for g in grads["kernel"])
+    for k, p in zip(grads["kernel"], grads["plain"]):
+        _assert_close(k, p, torch.float32)
+
+
+def test_tiny_unet_gradients_through_the_kernels(dev):
+    torch.manual_seed(1)
+    model = UNet1DConditionModel(8, 4, (16, 16, 32, 32),
+                                 cross_attention_dim=16,
+                                 attention_head_dim=2, device=dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x, ctx = _rand(gen, dev, 2, 21, 8), _rand(gen, dev, 2, 9, 16)
+    ts = torch.tensor([700.0, 5.0], device=dev)
+    keep = (torch.arange(9, device=dev)[None]
+            < torch.tensor([[9], [4]], device=dev)).float()
+    grads = {}
+    for route in (True, False):
+        set_use_fused(model, route)
+        model.zero_grad(set_to_none=True)
+        ops.reset_launches()
+        model(x, ts, ctx, encoder_attention_mask=keep).square().sum() \
+            .backward()
+        torch.cuda.synchronize()
+        assert (ops.launch_counts()["fused_resnet_block"] == 22) == route
+        grads[route] = {n: p.grad for n, p in model.named_parameters()}
+    set_use_fused(model, True)
+    top = max(g.abs().max().item() for g in grads[False].values())
+    for n, g in grads[True].items():
+        assert g is not None, n
+        if n.endswith("k_proj.bias"):
+            # a key bias shifts every score of a query row alike, which the
+            # softmax cancels: its true gradient is 0, both hold noise
+            assert max(g.abs().max().item(),
+                       grads[False][n].abs().max().item()) <= 1e-6 * top
+            continue
+        _assert_close(g, grads[False][n], torch.float32)
+
+
+def _mas_case(dev, b, t_y_max, t_x_max, tied, seed):
+    """Scores and mask with random lengths (item 0: t_y = Ty, item 1:
+    t_x = t_y; items with t_x > t_y have an empty band and still a path
+    under the reference's rules)."""
+    gen = torch.Generator().manual_seed(seed)
+    t_x = torch.randint(1, t_x_max + 1, (b,), generator=gen)
+    t_y = torch.randint(1, t_y_max + 1, (b,), generator=gen)
+    t_y[0], t_x[0] = t_y_max, min(t_x_max, t_y_max)
+    if b > 1:
+        t_x[1] = t_y[1] = min(t_y[1], t_x_max)
+    if tied:
+        neg = torch.randint(-2, 1, (b, t_y_max, t_x_max), generator=gen)
+    else:
+        neg = torch.randn(b, t_y_max, t_x_max, generator=gen) * 5 - 50
+    mask = ((torch.arange(t_y_max)[None] < t_y[:, None])[:, :, None]
+            & (torch.arange(t_x_max)[None] < t_x[:, None])[:, None, :])
+    return neg.float().to(dev), mask.float().to(dev)
+
+
+@pytest.mark.parametrize("b,t_y,t_x,tied", [
+    (5, 37, 13, False), (4, 29, 29, True), (3, 1, 1, False),
+    (2, 300, 33, True), (2, 90, 1100, True),      # 2 columns a thread
+    (3, 600, 2500, False), (2, 350, 4000, True),  # 3 and 4 columns
+])
+def test_mas_kernel_matches_plain(dev, b, t_y, t_x, tied):
+    neg, mask = _mas_case(dev, b, t_y, t_x, tied, seed=t_y + t_x)
+    before = mas.maximum_path.launches
+    out = mas.maximum_path(neg, mask)
+    torch.cuda.synchronize()
+    assert mas.maximum_path.launches == before + 1
+    ref = mas.maximum_path_plain(neg, mask)
+    assert out.dtype == ref.dtype == torch.float32
+    assert int((out != ref).sum()) == 0
+
+
+def test_mas_kernel_bfloat16_and_refusals(dev):
+    neg, mask = _mas_case(dev, 4, 60, 21, False, seed=1)
+    out = mas.maximum_path(neg.bfloat16(), mask)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, mas.maximum_path_plain(neg.bfloat16(), mask))
+    before = mas.maximum_path.launches
+    for t_y, t_x in [(8, 4097), (1800, 4000)]:   # too wide; bits too many
+        z = torch.zeros(1, t_y, t_x, device=dev)
+        with pytest.raises(ValueError, match="MAS kernel .* refused"):
+            mas.maximum_path(z, z)
+    with pytest.raises(ValueError, match="contiguous"):
+        mas.maximum_path(neg.transpose(1, 2).contiguous().transpose(1, 2),
+                         mask)
+    assert mas.maximum_path.launches == before

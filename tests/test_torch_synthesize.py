@@ -37,6 +37,9 @@ def tiny_models(seed: int = 0):
     refer_lengths = jnp.full((b,), s, jnp.int32)
 
     def init_path(m):
+        # the posterior encoder's weights too (speaker-conditioned)
+        m.vits.enc_q(refer, refer_lengths,
+                     g=m.vits.ref_enc(refer)[:, None, :])
         content, _ = m.vits_infer(text, lengths, refer, refer_lengths, text,
                                   text, noise_key=jax.random.PRNGKey(0),
                                   max_len=ty)

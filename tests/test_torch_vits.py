@@ -32,8 +32,12 @@ def test_vits_predict_lengths_and_infer_match_jax():
     key = jax.random.PRNGKey(0)
 
     jm = JVITS(N_VOCAB, jcfg.vits)
-    tree = fill(flax_shapes(jm, *jargs, method=JVITS.infer, noise_key=key,
-                            max_len=max_len), seed=4)
+
+    def init_path(m, *a):
+        # the posterior encoder's weights too (speaker-conditioned)
+        m.enc_q(a[2], a[3], g=m.ref_enc(a[2])[:, None, :])
+        return m.infer(*a, noise_key=key, max_len=max_len)
+    tree = fill(flax_shapes(jm, *jargs, method=init_path), seed=4)
     pm = load(VITS(N_VOCAB, pcfg.vits, device="cpu"), tree)
     params = to_jax(tree)
 
