@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--out DIR]
 
-``--out DIR`` also writes the kernel rows, the serving numbers and the
-training numbers as ``DIR/kernels.json``, ``DIR/path.json`` and
-``DIR/train.json``.
+``--out DIR`` also writes the kernel rows, the serving numbers, the
+training numbers and the variant's serving numbers as
+``DIR/kernels.json``, ``DIR/path.json``, ``DIR/train.json`` and
+``DIR/variant.json``.
 
 Phases, each of which fails the run:
 
@@ -20,6 +21,13 @@ Phases, each of which fails the run:
    events, warmed, mean of many back-to-back calls, the wrapper's host work
    included), the kernel route's device time (torch.profiler, summed
    device activity per call) and the roofline bound are printed;
+   then K5 (rel-pos attention) at B=8, C=256, 2 heads of 128, window 4:
+   T=128 and 601 with ragged lengths (kept rows compared) and T=400
+   unmasked, float32 and bfloat16, same gates; and K7 (RQ spline) at
+   N=4808 (8 x 601), inverse and forward in float32 (outputs atol/rtol
+   1e-5, log|det| 1e-4) and inverse in bfloat16 (outputs rtol 1e-2, one
+   bf16 rounding); K5 against its plain route at B=1 and 8, T=128 and
+   601 in bfloat16 (the route decision);
 4. mas: K6 (MAS) against its plain version at the training shape (B=32,
    Ty=400, Tx=601; ragged lengths, t_x == t_y, t_x == 1) on random and on
    tied integer scores: identical paths (0 mismatched cells); its times,
@@ -31,8 +39,9 @@ Phases, each of which fails the run:
 6. path (serving): ``BatchSynthesizer`` (bf16 weights, batch 8, mel
    buckets 400 and 800, 30-step UniPC) answers 10 requests at the widths
    of ``configs/reference_parity.json`` with random weights from a seed;
-   every kernel counter must rise by exactly 22/16/16/16 per UNet call, and
-   MAS's by 0;
+   every kernel counter must rise by exactly 22/16/16/16 per UNet call,
+   K5's by one per layer of each encoder call (6 per TextEncoder call),
+   and MAS's and K7's by 0;
 7. parity: one fixed batch in float32 through the kernels and through the
    plain path on the card (same weights, injected initial noise, zero prior
    noise), max |mel difference| <= 5e-3;
@@ -51,10 +60,23 @@ Phases, each of which fails the run:
 10. eval parity: ``Trainer.eval_fixed_t_loss`` (eval mode, float32, TF32
    off) through the kernels and through the plain route on the card:
    every value within rel 1e-4, the MAS paths equal, the counters
-   22/16/16/16 per UNet call and 1 per MAS call.
+   22/16/16/16 per UNet call, 6 K5 launches per TextEncoder call and 1 per
+   MAS call;
+11. variant serving: the same ``BatchSynthesizer`` run for the VITS variant
+   of ``reference_parity`` with the stochastic duration predictor and the
+   residual-coupling spec flow (``duration_predictor="sdp"``,
+   ``use_flow=True``; random weights from seed 0, bf16, batch 8, mel
+   buckets 400 and 800, the K5 route on): counters exactly 22/16/16/16
+   per UNet call, 6 K5 launches per TextEncoder call and 3 K7 launches per
+   stochastic-duration reverse (its three ConvFlow reverses); then the
+   variant in float32, kernels against the plain route on the card with
+   injected duration and initial noise (equal frame counts, max |mel
+   difference| <= 5e-3), and its latency at batch 1 and 8, real-time
+   factor and peak memory.
 
 The launch counts in the kernel table are those of each kernel's own path:
-serving for K1-K4, training for K6. The last line of standard output is one JSON object with the device; the
+serving for K1-K4, training for K6, the variant's serving for K5 and K7.
+The last line of standard output is one JSON object with the device; the
 line before it the kernel table. Exits non-zero, printing no result, when
 there is no CUDA device or the port's package is not beside this script.
 """
@@ -78,6 +100,8 @@ REPLACES = {
     "fused_cross_attention": "diff_vits_tpu/ops/fused_transformer.py:173",
     "fused_geglu_ff": "diff_vits_tpu/ops/fused_transformer.py:246",
     "maximum_path": "diff_vits_tpu/ops/mas_pallas.py:89",
+    "fused_rel_self_attention": "diff_vits_tpu/ops/rel_attention.py:90",
+    "unconstrained_rqs": "diff_vits_tpu/ops/spline_pallas.py:132",
 }
 SOURCE = {
     "fused_resnet_block": "diff_vits_tpu_torch/csrc/gemm.cu",
@@ -85,10 +109,15 @@ SOURCE = {
     "fused_cross_attention": "diff_vits_tpu_torch/csrc/attention.cu",
     "fused_geglu_ff": "diff_vits_tpu_torch/csrc/gemm.cu",
     "maximum_path": "diff_vits_tpu_torch/csrc/mas.cu",
+    "fused_rel_self_attention": "diff_vits_tpu_torch/csrc/rel_attention.cu",
+    "unconstrained_rqs": "diff_vits_tpu_torch/csrc/spline.cu",
 }
 # per UNet call (nn/unet1d.py: 22 resnets, 16 transformer blocks)
 PER_UNET = {"fused_resnet_block": 22, "fused_self_attention": 16,
             "fused_cross_attention": 16, "fused_geglu_ff": 16}
+# the stochastic duration predictor's reverse drops flow_0 and so runs
+# three of its four ConvFlows (models/duration.py)
+K7_PER_SDP_REVERSE = 3
 
 
 def log(*a):
@@ -336,33 +365,239 @@ def kernel_phase(torch, dev, headline_dtype="bfloat16"):
             finite = bool(torch.isfinite(out.float()).all())
             good = finite and rel <= TOL[dname]
             ok &= good
-            ms = cuda_time(kfn)
-            device_ms = device_time(kfn)
-            plain_ms = cuda_time(pfn, iters=5)
-            lib_ms = cuda_time(lfn)
-            bound_ms = 1e3 * max(nbytes / PEAK_BYTES_S,
-                                 flops / PEAK_FLOPS[dname])
-            bound_by = ("bytes" if nbytes / PEAK_BYTES_S
-                        >= flops / PEAK_FLOPS[dname] else "operations")
-            row = dict(name=name, site=site, dtype=dname,
-                       max_abs_err=diff, rel_err=rel, ok=good, ms=ms,
-                       device_ms=device_ms, plain_ms=plain_ms,
-                       library_ms=lib_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                       bytes=nbytes)
-            rows.append(row)
-            log(f"kernel {name:22s} {dname:8s} {site:44s} "
-                f"rel_err={rel:.2e} {'ok' if good else 'FAIL'} "
-                f"ms={ms:.4f} device_ms={device_ms} "
-                f"plain_ms={plain_ms:.4f} "
-                f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
-                f"({bound_by})")
+            rows.append(_time_row(torch, name, site, dname, kfn, pfn, lfn,
+                                  flops, nbytes, diff, rel, good))
             if dname == headline_dtype and name not in summary:
-                summary[name] = dict(row)
+                summary[name] = dict(rows[-1])
     for name, row in summary.items():
         row["max_abs_err"] = max(r["max_abs_err"] for r in rows
                                  if r["name"] == name)
     return ok, rows, summary
+
+
+# -- K5 and K7: the VITS encoder's attention and the spline couplings ------
+
+REL_C, REL_HEADS, REL_WINDOW = 256, 2, 4     # reference_parity widths
+
+
+def _rel_args(torch, gen, dev, b, t, dtype, ragged):
+    """K5's inputs at the TextEncoder's widths as MultiHeadAttention passes
+    them: weights as views of nn.Linear [out, in] storage and vectors and
+    tables in the module dtype; ragged lengths (item 0 full) or none."""
+    c, d = REL_C, REL_C // REL_HEADS
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    lengths = None
+    if ragged:
+        lengths = torch.tensor([t] + [max(1, t * (8 - i) // 8 - 3 * i)
+                                      for i in range(1, b)], device=dev)
+    w = [r(c, c, scale=c ** -0.5).t() for _ in range(4)]
+    return (r(b, t, c), lengths, w[0], r(c, scale=0.1), w[1],
+            r(c, scale=0.1), w[2], r(c, scale=0.1), w[3], r(c, scale=0.1),
+            r(1, 2 * REL_WINDOW + 1, d, scale=d ** -0.5),
+            r(1, 2 * REL_WINDOW + 1, d, scale=d ** -0.5))
+
+
+def _rel_library(torch, args):
+    """K5's function from PyTorch library calls (the yardstick, used
+    nowhere in the port): F.linear projections, the memory-efficient SDPA
+    with the relative-key band and the mask as one additive bias (which
+    returns the row log-sum-exp), the value band from the neighbours'
+    probabilities exp(score - lse), F.linear output projection."""
+    import torch.nn.functional as F
+    x, lengths, wq, bq, wk, bk, wv, bv, wo, bo, ek, ev = args
+    b, t, c = x.shape
+    h, w = REL_HEADS, REL_WINDOW
+    d = c // h
+    scale, dt, dev = d ** -0.5, x.dtype, x.device
+
+    def heads(z):
+        return z.unflatten(-1, (h, d)).transpose(1, 2).contiguous()
+
+    q, k, v = (heads(F.linear(x, m.t(), bias))
+               for m, bias in ((wq, bq), (wk, bk), (wv, bv)))
+    ql = torch.einsum("bhtd,md->bhtm", q * scale, ek[0].to(dt))
+    pos = torch.arange(t, device=dev)
+    rel = pos[None, :] - pos[:, None]                      # s - t
+    idx = (rel.clamp(-w, w) + w).expand(b, h, t, t)
+    t_pad = (t + 15) // 16 * 16                            # aligned rows
+    bias = torch.zeros(b, h, t, t_pad, device=dev, dtype=dt)[..., :t]
+    bias.copy_(torch.where(rel.abs() <= w, ql.gather(-1, idx), 0.0))
+    keep = (torch.ones(b, t, dtype=torch.bool, device=dev) if lengths is None
+            else pos[None] < lengths[:, None])
+    pair = keep[:, None, :, None] & keep[:, None, None, :]
+    bias.masked_fill_(~pair, -1e4)
+    out, lse = torch.ops.aten._scaled_dot_product_efficient_attention(
+        q, k, v, bias, True, 0.0, False, scale=scale)[:2]
+    key = pos[:, None] + torch.arange(2 * w + 1, device=dev)[None] - w
+    valid = (key >= 0) & (key < t)
+    kb = F.pad(k, (0, 0, w, w)).unfold(2, 2 * w + 1, 1)   # [B,H,T,d,2w+1]
+    sb = torch.einsum("bhtd,bhtdm->bhtm", q * scale, kb) + ql
+    key_kept = keep[:, key.clamp(0, t - 1)] & valid        # [B, T, 2w+1]
+    sb = sb.masked_fill(~(key_kept & keep[:, :, None])[:, None], -1e4)
+    sb = sb.masked_fill(~valid, float("-inf"))
+    pb = torch.exp(sb.float() - lse[..., :t, None])
+    out = out + (pb @ ev[0].float()).to(dt)
+    return F.linear(out.transpose(1, 2).flatten(2), wo.t(), bo)
+
+
+def _rel_cost(b, t, esz):
+    """(flops, bytes) of K5 at [b, t, 256]: the four projections, the
+    [T, T] score and PV products and the band, every row (a masked row
+    attends uniformly, as in the reference); x, the weights, vectors and
+    tables read once, the output written once."""
+    c, h, w = REL_C, REL_HEADS, REL_WINDOW
+    d = c // h
+    flops = (2 * b * t * c * 4 * c + 4 * b * h * t * t * d
+             + 4 * b * h * t * (2 * w + 1) * d)
+    nbytes = esz * (2 * b * t * c + 4 * c * c + 4 * c
+                    + 2 * (2 * w + 1) * d) + 4 * b
+    return flops, nbytes
+
+
+def _kept_err(torch, out, ref, lengths):
+    """Max |out - ref| over kept rows, and that relative to max |ref|."""
+    t = out.shape[1]
+    keep = (torch.ones(out.shape[:2], dtype=torch.bool, device=out.device)
+            if lengths is None else
+            torch.arange(t, device=out.device)[None] < lengths[:, None])
+    o, r = out.float()[keep], ref.float()[keep]
+    diff = (o - r).abs().max().item()
+    return diff, diff / max(r.abs().max().item(), 1e-30), \
+        bool(torch.isfinite(o).all())
+
+
+def _time_row(torch, name, site, dname, kfn, pfn, lfn, flops, nbytes, err,
+              rel, good, extra=None):
+    """One kernel row: times (kernel, device, plain, library) and bound."""
+    ms = cuda_time(kfn)
+    device_ms = device_time(kfn)
+    plain_ms = cuda_time(pfn, iters=5)
+    lib_ms = cuda_time(lfn) if lfn is not None else None
+    peak = PEAK_FLOPS[dname]
+    bound_ms = 1e3 * max(nbytes / PEAK_BYTES_S, flops / peak)
+    bound_by = "bytes" if nbytes / PEAK_BYTES_S >= flops / peak \
+        else "operations"
+    row = dict(name=name, site=site, dtype=dname, max_abs_err=err,
+               rel_err=rel, ok=good, ms=ms, device_ms=device_ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+               bound_by=bound_by, flops=flops, bytes=nbytes, **(extra or {}))
+    log(f"kernel {name:24s} {dname:8s} {site:44s} rel_err={rel:.2e} "
+        f"{'ok' if good else 'FAIL'} ms={ms:.4f} device_ms={device_ms} "
+        f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
+    return row
+
+
+def vits_kernel_phase(torch, dev, headline_dtype="bfloat16"):
+    """K5 and K7 against their plain versions at the variant path's shapes;
+    returns (ok, rows, {name: headline row}, the K5 route timings)."""
+    import functools
+    from diff_vits_tpu_torch.ops import rel_attention as RA
+    from diff_vits_tpu_torch.ops import spline
+    ok, rows, summary = True, [], {}
+    name = "fused_rel_self_attention"
+    kw = dict(heads=REL_HEADS, window=REL_WINDOW)
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        for b, t, ragged in ((8, 128, True), (8, 601, True),
+                             (8, 400, False)):
+            args = _rel_args(torch, gen, dev, b, t, dtype, ragged)
+            kfn = functools.partial(RA.fused_rel_self_attention, *args,
+                                    compute_dtype=dtype, **kw)
+            pfn = functools.partial(RA.fused_rel_self_attention_plain, *args,
+                                    compute_dtype=dtype, **kw)
+            lfn = functools.partial(_rel_library, torch, args)
+            out = kfn()
+            torch.cuda.synchronize()
+            ref = pfn()
+            diff, rel, finite = _kept_err(torch, out, ref, args[1])
+            lib_diff, lib_rel, _ = _kept_err(torch, lfn(), ref, args[1])
+            good = finite and rel <= TOL[dname]
+            ok &= good
+            flops, nbytes = _rel_cost(b, t, torch.finfo(dtype).bits // 8)
+            site = (f"B={b} T={t} C={REL_C} H={REL_HEADS} w={REL_WINDOW} "
+                    + ("ragged" if ragged else "no mask"))
+            rows.append(_time_row(torch, name, site, dname, kfn, pfn, lfn,
+                                  flops, nbytes, diff, rel, good,
+                                  dict(library_rel_err=lib_rel)))
+            log(f"  library composition vs plain: rel err {lib_rel:.2e}")
+            if dname == headline_dtype and t == 601:
+                summary[name] = dict(rows[-1])
+
+    name = "unconstrained_rqs"
+    n, nb, tb = 8 * 601, 10, 5.0
+    for dname, inverse in (("float32", True), ("float32", False),
+                           ("bfloat16", True)):
+        dtype = getattr(torch, dname)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        # the layout ConvFlow hands over: one [N, 3 nb - 1] projection,
+        # widths and heights scaled copies, derivatives a strided slice
+        proj = torch.randn(n, 3 * nb - 1, generator=gen, device=dev) \
+            .to(dtype)
+        uw, uh = proj[:, :nb] / 16.0, proj[:, nb:2 * nb] / 16.0
+        ud = proj[:, 2 * nb:]
+        x = (torch.randn(n, generator=gen, device=dev) * 3.0).to(dtype)
+        skw = dict(inverse=inverse, tail_bound=tb)
+        kfn = functools.partial(spline.unconstrained_rqs, x, uw, uh, ud, **skw)
+        pfn = functools.partial(spline.unconstrained_rqs_plain, x, uw, uh, ud,
+                                **skw)
+        out, ld = kfn()
+        torch.cuda.synchronize()
+        ref, ref_ld = pfn()
+        tol = 1e-5 if dname == "float32" else 1e-2
+        out_ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+        ld_ok = torch.allclose(ld, ref_ld, atol=1e-4, rtol=1e-4)
+        diff = (out.float() - ref.float()).abs().max().item()
+        ld_diff = (ld - ref_ld).abs().max().item()
+        rel = diff / max(ref.float().abs().max().item(), 1e-30)
+        good = bool(out_ok and ld_ok and torch.isfinite(out.float()).all())
+        ok &= good
+        esz = torch.finfo(dtype).bits // 8
+        nbytes = n * (2 * esz + (3 * nb - 1) * esz + 4)
+        # softmaxes and edges, softplus, bin search, the rational form
+        flops = n * (25 * nb + 40)
+        site = (f"N={n} bins={nb} tail={tb:g} "
+                + ("inverse" if inverse else "forward"))
+        rows.append(_time_row(torch, name, site, dname, kfn, pfn, None,
+                              flops, nbytes, diff, rel, good,
+                              dict(logdet_max_abs_err=ld_diff)))
+        log(f"  log|det| max |diff| {ld_diff:.2e} (atol/rtol 1e-4)")
+        if dname == "float32" and inverse:
+            summary[name] = dict(rows[-1])
+    summary[name]["max_abs_err"] = max(r["max_abs_err"] for r in rows
+                                       if r["name"] == name)
+    summary["fused_rel_self_attention"]["max_abs_err"] = max(
+        r["max_abs_err"] for r in rows
+        if r["name"] == "fused_rel_self_attention")
+    return ok, rows, summary, k5_route_timing(torch, dev)
+
+
+def k5_route_timing(torch, dev):
+    """K5 against the plain banded route at the TextEncoder's serving
+    shapes (bfloat16, B 1 and 8, T 128 and 601, ragged): the numbers behind
+    MultiHeadAttention's default route."""
+    import functools
+    from diff_vits_tpu_torch.ops import rel_attention as RA
+    out = []
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for b in (1, 8):
+        for t in (128, 601):
+            args = _rel_args(torch, gen, dev, b, t, torch.bfloat16, b > 1)
+            kw = dict(heads=REL_HEADS, window=REL_WINDOW,
+                      compute_dtype=torch.bfloat16)
+            k_ms = cuda_time(functools.partial(
+                RA.fused_rel_self_attention, *args, **kw))
+            p_ms = cuda_time(functools.partial(
+                RA.fused_rel_self_attention_plain, *args, **kw), iters=10)
+            out.append(dict(b=b, t=t, kernel_ms=k_ms, plain_ms=p_ms))
+            log(f"K5 route B={b} T={t} bf16: kernel {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms ({p_ms / k_ms:.1f}x)")
+    return out
 
 
 def main(argv=None) -> int:
@@ -403,12 +638,16 @@ def main(argv=None) -> int:
     phases = {}
     k_ok, rows, summary = kernel_phase(torch, dev)
     phases["kernels"] = k_ok
+    v_ok, v_rows, v_summary, k5_route = vits_kernel_phase(torch, dev)
+    phases["kernels_vits"] = v_ok
+    rows += v_rows
+    summary.update(v_summary)
     phases["mas"], summary["maximum_path"] = mas_phase(torch, dev, card)
     summary["maximum_path"]["library_ms"] = None   # no one PyTorch call
     phases["grad"] = grad_phase(torch, dev)
 
     # each path's counts are read from its own run: serving for K1-K4,
-    # training for K6
+    # training for K6, the variant's serving for K5 and K7
     p_ok, counts, details = path_phase(torch, dev, card)
     phases.update(p_ok)
     phases["train"], train_counts, train_numbers, trainer, eval_batch = \
@@ -417,14 +656,20 @@ def main(argv=None) -> int:
     phases["eval_parity"], train_numbers["eval"] = eval_phase(
         torch, trainer, eval_batch)
     del trainer
+    torch.cuda.empty_cache()
+    var_ok, var_counts, variant = variant_phase(torch, dev, card)
+    phases.update(var_ok)
+    for name in ("fused_rel_self_attention", "unconstrained_rqs"):
+        counts[name] = var_counts[name]
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "kernels.json").write_text(json.dumps(
-            dict(card=card, rows=rows, mas=summary["maximum_path"]),
-            indent=1))
+            dict(card=card, rows=rows, mas=summary["maximum_path"],
+                 k5_route=k5_route), indent=1))
         (out_dir / "path.json").write_text(json.dumps(details, indent=1))
         (out_dir / "train.json").write_text(json.dumps(
             dict(card=card, **train_numbers), indent=1))
+        (out_dir / "variant.json").write_text(json.dumps(variant, indent=1))
 
     table = {"kernels": [dict(
         name=name, route="cuda", source=SOURCE[name],
@@ -457,19 +702,44 @@ def _requests(torch, gen, symbols_n, refer_frames):
     return reqs
 
 
-def _count_unet_calls(model):
-    """Forward pre-hooks counting denoising UNet calls (embedding-only
-    requests launch no kernel and are not counted)."""
-    from diff_vits_tpu_torch.nn.unet1d import UNet1DConditionModel
+def _count_calls(model, cls, weight):
+    """Forward pre-hooks on every ``cls`` module of ``model``: a one-item
+    list that grows by ``weight(module, kwargs)`` a call."""
     calls = [0]
 
     def hook(module, args, kwargs):
-        if kwargs.get("embedding_request") is None:
-            calls[0] += 1
+        calls[0] += weight(module, kwargs)
     handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
-               for m in model.modules()
-               if isinstance(m, UNet1DConditionModel)]
+               for m in model.modules() if isinstance(m, cls)]
     return calls, handles
+
+
+def _count_path_calls(model):
+    """Denoising UNet calls (embedding-only requests launch no kernel and
+    are not counted), rel-pos encoder layers run (one K5 launch each on
+    the kernel route) and stochastic-duration reverses (three K7 launches
+    each); returns ({what: one-item list}, hook handles)."""
+    from diff_vits_tpu_torch.models.duration import (
+        StochasticDurationPredictor)
+    from diff_vits_tpu_torch.nn.layers import Encoder
+    from diff_vits_tpu_torch.nn.unet1d import UNet1DConditionModel
+    unet, h1 = _count_calls(model, UNet1DConditionModel, lambda m, kw: int(
+        kw.get("embedding_request") is None))
+    layers, h2 = _count_calls(model, Encoder, lambda m, kw: m.n_layers)
+    sdp, h3 = _count_calls(model, StochasticDurationPredictor,
+                           lambda m, kw: int(kw.get("reverse", False)))
+    return dict(unet=unet, encoder_layers=layers, sdp_reverse=sdp), \
+        h1 + h2 + h3
+
+
+def _want(calls, mas: int = 0, k5: bool = True):
+    """Expected launch counts from the counted calls."""
+    want = {name: n * calls["unet"][0] for name, n in PER_UNET.items()}
+    want["fused_rel_self_attention"] = \
+        calls["encoder_layers"][0] if k5 else 0
+    want["maximum_path"] = mas
+    want["unconstrained_rqs"] = K7_PER_SDP_REVERSE * calls["sdp_reverse"][0]
+    return want
 
 
 def path_phase(torch, dev, card):
@@ -499,7 +769,7 @@ def path_phase(torch, dev, card):
                            device=dev)
     reqs = _requests(torch, torch.Generator().manual_seed(1), len(symbols),
                      syn.refer_frames)
-    calls, handles = _count_unet_calls(syn.model)
+    calls, handles = _count_path_calls(syn.model)
     ops.reset_launches()
     t0 = time.perf_counter()
     results = syn.synthesize_all(reqs, seed=0)
@@ -508,15 +778,15 @@ def path_phase(torch, dev, card):
     counts = ops.launch_counts()
     for h in handles:
         h.remove()
-    want = {name: n * calls[0] for name, n in PER_UNET.items()}
-    want["maximum_path"] = 0
+    want = _want(calls)
     order_ok = [r[0] for r in results] == [r[0] for r in reqs]
     finite = all(np.isfinite(m).all() and m.ndim == 2 and m.shape[1] == 100
                  and m.shape[0] >= 1 for _, m in results)
     ok["serve"] = order_ok and finite and counts == want
     log(f"serve: {len(results)} requests in {wall:.3f} s (first call of "
         f"each bucket shape included); frames "
-        f"{[m.shape[0] for _, m in results]}; UNet calls {calls[0]}; "
+        f"{[m.shape[0] for _, m in results]}; UNet calls "
+        f"{calls['unet'][0]}, encoder layers {calls['encoder_layers'][0]}; "
         f"launches {counts} (want {want}); order {order_ok}; finite "
         f"{finite}")
 
@@ -540,10 +810,23 @@ def path_phase(torch, dev, card):
         f"{err:.3e} (gate 5e-3), max |mel| {mel_p.abs().max().item():.3f}")
     del model
 
-    # -- serving numbers: latency and real-time factor at batch 1 and 8 --
-    numbers = {}
-    audio_s = 400 * cfg.data.hop_length / cfg.data.sampling_rate
     short = [r for r in reqs if len(r[1]) <= 128]
+    numbers = serving_numbers(torch, syn, short, card)
+    numbers["profile"] = {f"b{b}": profile_synthesize(
+        torch, syn, [short[i % len(short)] for i in range(b)], card)
+        for b in (1, 8)}
+    return ok, counts, dict(card=card, serve_wall_s=wall,
+                            unet_calls=calls["unet"][0], launches=counts,
+                            parity_max_abs=err, numbers=numbers)
+
+
+def serving_numbers(torch, syn, short, card, what="serving"):
+    """Per-request latency (median of 3 warmed runs) and real-time factor
+    of ``synthesize`` at batch 1 and 8 (text bucket 128, mel bucket 400),
+    and the peak device memory over them."""
+    from diff_vits_tpu_torch.models.diff_vits import synthesize
+    numbers = {}
+    audio_s = 400 * syn.cfg.data.hop_length / syn.cfg.data.sampling_rate
     torch.cuda.reset_peak_memory_stats()
     for b in (1, 8):
         syn.batch_size = b
@@ -554,26 +837,21 @@ def path_phase(torch, dev, card):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             synthesize(syn.model, *args, generator=gen, max_len=400,
-                       device=dev)
+                       device=syn.device)
             torch.cuda.synchronize()
             runs.append(time.perf_counter() - t0)
         lat = sorted(runs[1:])[1]
         numbers[f"b{b}"] = dict(latency_s=lat, runs_s=runs,
                                 rtf=b * audio_s / lat)
-        log(f"serving b={b}: latency {lat * 1e3:.1f} ms per request "
+        log(f"{what} b={b}: latency {lat * 1e3:.1f} ms per request "
             f"(median of {runs[1:]}), real-time factor "
             f"{b * audio_s / lat:.1f}x ({b} x {audio_s:.2f} s of audio); "
             f"card {card}")
     numbers["max_memory_allocated_GB"] = \
         torch.cuda.max_memory_allocated() / 1e9
-    log(f"peak device memory {numbers['max_memory_allocated_GB']:.2f} GB; "
-        f"card {card}")
-    numbers["profile"] = {f"b{b}": profile_synthesize(
-        torch, syn, [short[i % len(short)] for i in range(b)], card)
-        for b in (1, 8)}
-    return ok, counts, dict(card=card, serve_wall_s=wall,
-                            unet_calls=calls[0], launches=counts,
-                            parity_max_abs=err, numbers=numbers)
+    log(f"{what} peak device memory "
+        f"{numbers['max_memory_allocated_GB']:.2f} GB; card {card}")
+    return numbers
 
 
 def profile_synthesize(torch, syn, requests, card):
@@ -852,13 +1130,14 @@ def train_phase(torch, dev, card):
                   == p.untyped_storage().data_ptr()
                   for e, p in zip(trainer.ema, trainer.params))
     counters = all(c["maximum_path"] == 1 and all(
-        c[k] == 0 for k in PER_UNET) for c in per_step)
+        c[k] == 0 for k in c if k != "maximum_path") for c in per_step)
     ok = (finite and moved == len(params0) and ema_moved > 0
           and aliased == 0 and counters)
     log(f"train: 7 steps, losses finite {finite}; parameters changed "
         f"{moved}/{len(params0)}, EMA tensors changed {ema_moved}/"
         f"{len(ema0)}, EMA aliasing parameters {aliased}; one K6 launch and "
-        f"no K1-K4 launch per step {counters}: {'ok' if ok else 'FAIL'}")
+        f"no other kernel launch per step {counters}: "
+        f"{'ok' if ok else 'FAIL'}")
     log(f"train numbers: median step {step_s * 1e3:.1f} ms of "
         f"{[round(t * 1e3, 1) for t in times]} ms, {1 / step_s:.3f} steps/s, "
         f"peak device memory {peak:.2f} GB; card {card}")
@@ -872,17 +1151,22 @@ def eval_phase(torch, trainer, batch):
     """``eval_fixed_t_loss`` (float32, TF32 off, eval mode) through the
     kernels against the plain route on the card: every value within rel
     1e-4, the MAS paths equal, the counters 22/16/16/16 per UNet call and
-    1 per MAS call on the kernel route and 0 on the plain one."""
+    1 per MAS call on the kernel route and 0 on the plain one. The text
+    encoder's attention (K5) stays on its plain route in both runs, so
+    that both align with MAS on the same scores: K5's float32 rounding
+    differs from the plain route's, and one near-tie in the Viterbi DP would
+    change a path."""
     import diff_vits_tpu_torch.models.vits as V
     from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.nn.layers import MultiHeadAttention
     from diff_vits_tpu_torch.nn.unet1d import set_use_fused
     from diff_vits_tpu_torch.ops.mas import maximum_path_plain
 
     orig = V.maximum_path
     mas_of = {True: orig, False: maximum_path_plain}
     paths = {True: [], False: []}
-    calls, handles = _count_unet_calls(trainer.model)
-    res, counts, n_calls = {}, {}, {}
+    calls, handles = _count_path_calls(trainer.model)
+    res, counts, want = {}, {}, {}
     try:
         for route in (True, False):
             def recording(nc, mask, route=route):
@@ -890,10 +1174,15 @@ def eval_phase(torch, trainer, batch):
                 return paths[route][-1]
             V.maximum_path = recording
             set_use_fused(trainer.model, route)
+            for m in trainer.model.modules():
+                if isinstance(m, MultiHeadAttention):
+                    m.use_fused = False
             ops.reset_launches()
-            calls[0] = 0
+            for c in calls.values():
+                c[0] = 0
             res[route] = trainer.eval_fixed_t_loss(batch)
-            counts[route], n_calls[route] = ops.launch_counts(), calls[0]
+            counts[route] = ops.launch_counts()
+            want[route] = _want(calls, len(paths[route]), k5=False)
     finally:
         V.maximum_path = orig
         set_use_fused(trainer.model, True)
@@ -903,18 +1192,111 @@ def eval_phase(torch, trainer, batch):
               / max(abs(res[False][k]), 1e-30) for k in res[False])
     same_paths = (len(paths[True]) == len(paths[False]) > 0 and all(
         torch.equal(a, b) for a, b in zip(paths[True], paths[False])))
-    want = {k: n * n_calls[True] for k, n in PER_UNET.items()}
-    want["maximum_path"] = len(paths[True])
-    ok = (rel <= 1e-4 and same_paths and counts[True] == want
+    ok = (rel <= 1e-4 and same_paths and counts[True] == want[True]
           and all(v == 0 for v in counts[False].values()))
     log(f"eval loss parity (fp32, kernels vs plain): "
         + " ".join(f"{k}={res[True][k]:.6g}/{res[False][k]:.6g}"
                    for k in sorted(res[True]))
         + f"; max rel diff {rel:.2e} (gate 1e-4); MAS paths equal "
-        f"{same_paths} ({len(paths[True])} calls); UNet calls "
-        f"{n_calls[True]}, launches {counts[True]} (want {want}), plain "
-        f"route {counts[False]}: {'ok' if ok else 'FAIL'}")
+        f"{same_paths} ({len(paths[True])} calls); launches {counts[True]} "
+        f"(want {want[True]}), plain route {counts[False]}: "
+        f"{'ok' if ok else 'FAIL'}")
     return ok, dict(kernel=res[True], plain=res[False], max_rel=rel)
+
+
+# -- the VITS variant: stochastic duration predictor + residual spec flow --
+
+def variant_phase(torch, dev, card):
+    """Serving run of the variant through the kernels, its fp32
+    kernels-vs-plain parity run and its serving numbers. Returns
+    ({phase: ok}, launch counts of the serving run, numbers)."""
+    import dataclasses
+    import numpy as np
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.core.config import load_config
+    from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
+    from diff_vits_tpu_torch.models.diff_vits import DiffVits, synthesize
+    from diff_vits_tpu_torch.nn.unet1d import set_use_fused
+    from diff_vits_tpu_torch.text.symbols import symbols
+    from diff_vits_tpu_torch.utils.init import init_random
+
+    ok = {}
+    cfg = load_config(str(ROOT / "configs" / "reference_parity.json"))
+    cfg = dataclasses.replace(cfg, vits=dataclasses.replace(
+        cfg.vits, duration_predictor="sdp", use_flow=True))
+    model = DiffVits(cfg, len(symbols), device=dev)
+    init_random(model, torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"variant: reference_parity widths, duration_predictor='sdp', "
+        f"residual-coupling flow, {n_params} parameters, random weights "
+        "(seed 0)")
+
+    syn = BatchSynthesizer(cfg, model.state_dict(), batch_size=8,
+                           mel_buckets=(400, 800), dtype=torch.bfloat16,
+                           device=dev)
+    set_use_fused(syn.model, True)          # the K5 route on
+    reqs = _requests(torch, torch.Generator().manual_seed(1), len(symbols),
+                     syn.refer_frames)
+    calls, handles = _count_path_calls(syn.model)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = syn.synthesize_all(reqs, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for h in handles:
+        h.remove()
+    want = _want(calls)
+    order_ok = [r[0] for r in results] == [r[0] for r in reqs]
+    finite = all(np.isfinite(m).all() and m.ndim == 2 and m.shape[1] == 100
+                 and m.shape[0] >= 1 for _, m in results)
+    launched = all(counts[k] > 0 for k in ("fused_rel_self_attention",
+                                           "unconstrained_rqs"))
+    ok["variant_serve"] = order_ok and finite and launched and counts == want
+    log(f"variant serve: {len(results)} requests in {wall:.3f} s (first "
+        f"call of each bucket shape included); frames "
+        f"{[m.shape[0] for _, m in results]}; UNet calls "
+        f"{calls['unet'][0]}, encoder layers {calls['encoder_layers'][0]}, "
+        f"duration-predictor reverses {calls['sdp_reverse'][0]}; launches "
+        f"{counts} (want {want}); order {order_ok}; finite {finite}")
+
+    # -- parity: one fp32 batch, kernels vs the plain path on the card ----
+    gen = torch.Generator().manual_seed(2)
+    syn.batch_size = 2
+    batch = syn.pad_batch(reqs[:2], 128)
+    noise = torch.randn(2, 400, 100, generator=gen).to(dev)
+    dur_noise = torch.randn(2, 128, 2, generator=gen).to(dev)
+    out, launches = {}, {}
+    for route in (True, False):
+        set_use_fused(model, route)
+        ops.reset_launches()
+        out[route] = synthesize(model, *batch, noise_scale=0.0, max_len=400,
+                                init_noise=noise, dur_noise=dur_noise,
+                                device=dev)
+        launches[route] = ops.launch_counts()
+    set_use_fused(model, True)
+    (mel_k, len_k), (mel_p, len_p) = out[True], out[False]
+    err = (mel_k - mel_p).abs().max().item()
+    routes_ok = (launches[True]["fused_rel_self_attention"] > 0
+                 and launches[True]["unconstrained_rqs"] > 0
+                 and not any(launches[False].values()))
+    ok["variant_parity_fp32"] = (
+        bool(torch.equal(len_k, len_p)) and err <= 5e-3 and routes_ok
+        and bool(torch.isfinite(mel_k).all()))
+    log(f"variant parity fp32 (kernels vs plain, 2 utterances, 400 frames, "
+        f"injected duration and initial noise): frames {len_k.tolist()} vs "
+        f"{len_p.tolist()}, max |diff| {err:.3e} (gate 5e-3), max |mel| "
+        f"{mel_p.abs().max().item():.3f}; launches {launches[True]} vs "
+        f"{launches[False]}")
+    del model
+
+    short = [r for r in reqs if len(r[1]) <= 128]
+    numbers = serving_numbers(torch, syn, short, card, "variant serving")
+    return ok, counts, dict(card=card, serve_wall_s=wall, n_params=n_params,
+                            calls={k: v[0] for k, v in calls.items()},
+                            launches=counts, want=want,
+                            frames=[int(m.shape[0]) for _, m in results],
+                            parity_max_abs=err, numbers=numbers)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,9 @@ refer mel [S, 100])``:
   whose outputs are dropped;
 * prompts are cropped or zero-padded to one frame count;
 * a duration-only pass predicts each utterance's frame count and places it
-  in the smallest mel bucket that holds it (clamped to the largest);
+  in the smallest mel bucket that holds it (clamped to the largest); the
+  stochastic duration predictor draws there from a seeded generator other
+  than the synthesis's, so its count gets 10% headroom;
 * each (text bucket, mel bucket) batch is one ``synthesize`` call;
 * results come back in request order, trimmed to their frame counts.
 
@@ -106,21 +108,28 @@ class BatchSynthesizer:
         return [torch.from_numpy(a).to(self.device) for a in arrays]
 
     @torch.inference_mode()
-    def _predict_mel_buckets(self, by_text) -> Dict[int, int]:
+    def _predict_mel_buckets(self, by_text, seed: int) -> Dict[int, int]:
         """Duration pass per text-bucket batch: request index -> mel
         bucket. Skipped with one mel bucket."""
         if len(self.mel_buckets) == 1:
             return {}
         assign: Dict[int, int] = {}
         top = self.mel_buckets[-1]
+        # the stochastic predictor draws again inside synthesize, so the
+        # realised count can exceed this one (the unet and conv predictors
+        # are deterministic)
+        headroom = 1.1 if self.cfg.vits.duration_predictor == "sdp" else 1.0
         for t_bucket, group in sorted(by_text.items()):
             for off in range(0, len(group), self.batch_size):
                 chunk = group[off:off + self.batch_size]
+                gen = torch.Generator().manual_seed(
+                    seed * 2 ** 31 + t_bucket + off)
                 lens = self.model.vits.predict_lengths(
                     *self.pad_batch([r for _, r in chunk], t_bucket),
-                    length_scale=self.length_scale).cpu().numpy()
+                    length_scale=self.length_scale,
+                    generator=gen).float().cpu().numpy()
                 for j, (i, r) in enumerate(chunk):
-                    n = int(lens[j])
+                    n = int(np.ceil(headroom * lens[j]))
                     if n > top:
                         print(f"warning: {r[0]} predicted {n} frames > "
                               f"largest mel bucket {top}; clamping",
@@ -135,7 +144,7 @@ class BatchSynthesizer:
         for i, r in enumerate(requests):
             by_text.setdefault(pick_bucket(len(r[1]), self.text_buckets),
                                []).append((i, r))
-        mel_assign = self._predict_mel_buckets(by_text)
+        mel_assign = self._predict_mel_buckets(by_text, seed)
         by_shape: Dict[Tuple[int, int], list] = {}
         for t_bucket, group in by_text.items():
             for i, r in group:

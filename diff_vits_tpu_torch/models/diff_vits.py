@@ -121,14 +121,17 @@ def synthesize(model: DiffVits, text, text_lengths, refer, refer_lengths,
                max_len: Optional[int] = None, noise_scale: float = 0.667,
                length_scale: float = 1.0,
                init_noise: Optional[torch.Tensor] = None,
+               dur_noise: Optional[torch.Tensor] = None,
                device: DeviceLike = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """text [B, Tx] + prompt mel [B, S, 100] -> (mel [B, Ty, 100] float32,
-    out_lengths [B]). ``init_noise`` injects x_T; ``generator`` draws the
-    prior and initial noise otherwise. Runs on ``device`` (the card unless
-    given), which must hold the model, in eval mode whatever the model's
-    mode (no dropout, the kernel routes), as JAX samples deterministically;
-    the model's mode is restored after."""
+    out_lengths [B]). ``init_noise`` injects x_T and ``dur_noise`` [B, Tx,
+    2] the stochastic duration predictor's standard normal draw;
+    ``generator`` draws the duration, prior and initial noise otherwise.
+    Runs on ``device`` (the card unless given), which must hold the model,
+    in eval mode whatever the model's mode (no dropout, the kernel routes),
+    as JAX samples deterministically; the model's mode is restored
+    after."""
     with eval_mode(model):
         if sample_method != "unipc":
             raise NotImplementedError(
@@ -146,6 +149,7 @@ def synthesize(model: DiffVits, text, text_lengths, refer, refer_lengths,
         content, out_lengths = model.vits.infer(
             text, text_lengths, refer, refer_lengths, tone, language,
             noise_scale=noise_scale, length_scale=length_scale, max_len=max_len,
+            dur_noise=None if dur_noise is None else dev(dur_noise),
             generator=generator)
 
         ns = NoiseScheduleVP(linear_beta_schedule(model.cfg.train.timesteps))

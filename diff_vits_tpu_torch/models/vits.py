@@ -2,8 +2,11 @@
 losses) and the inference path (text -> durations -> expanded content).
 
 Port of ``VITS.__call__``, ``_predict_durations``, ``predict_lengths`` and
-``infer`` of ``diff_vits_tpu/models/vits.py`` for the model3 configuration
-(UNet duration predictor, no flow, no phoneme VAE).
+``infer`` of ``diff_vits_tpu/models/vits.py``. Inference covers every
+duration predictor (``unet``, ``conv``, ``sdp``) with or without the spec
+flow (residual or transformer coupling); the training forward covers the
+model3 configuration (UNet duration predictor, no flow). The phoneme VAE
+is not ported.
 """
 from __future__ import annotations
 
@@ -16,22 +19,29 @@ from torch import nn
 from diff_vits_tpu_torch.core import masking
 from diff_vits_tpu_torch.core.config import VitsConfig
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
-from diff_vits_tpu_torch.models.duration import DurationPredictorUNet
+from diff_vits_tpu_torch.models.duration import (
+    DurationPredictor, DurationPredictorUNet, StochasticDurationPredictor,
+    draw_normal)
 from diff_vits_tpu_torch.models.encoders import (
     PosteriorEncoder, PromptEncoder, TextEncoder)
+from diff_vits_tpu_torch.models.flow import (
+    ResidualCouplingBlock, TransformerCouplingBlock)
 from diff_vits_tpu_torch.nn.embeddings import TextTimeEmbedding
 from diff_vits_tpu_torch.ops.mas import maximum_path
 
 
 def check_supported(cfg: VitsConfig) -> None:
-    """The port runs the model3 prior; the variants are later slices."""
-    if cfg.duration_predictor != "unet" or cfg.use_flow \
-            or cfg.use_phoneme_vae:
-        raise NotImplementedError(
-            "the port supports duration_predictor='unet' without flow or "
-            "phoneme VAE (model3); got duration_predictor="
-            f"{cfg.duration_predictor!r}, use_flow={cfg.use_flow}, "
-            f"use_phoneme_vae={cfg.use_phoneme_vae}")
+    """The phoneme VAE (bv2) is a later slice."""
+    if cfg.use_phoneme_vae:
+        raise NotImplementedError("the port has no phoneme VAE "
+                                  "(use_phoneme_vae=True)")
+    if cfg.duration_predictor not in ("unet", "conv", "sdp"):
+        raise ValueError(f"unknown duration_predictor "
+                         f"{cfg.duration_predictor!r}")
+
+
+def _is_model3(cfg: VitsConfig) -> bool:
+    return cfg.duration_predictor == "unet" and not cfg.use_flow
 
 
 class VITS(nn.Module):
@@ -58,8 +68,27 @@ class VITS(nn.Module):
         # speaker conditioning: attention pooling over the prompt mel
         self.ref_enc = TextTimeEmbedding(c.posterior_in_channels,
                                          c.gin_channels, num_heads=1)
-        self.dp = DurationPredictorUNet(c.hidden_channels, 256,
-                                        c.posterior_in_channels, **kw)
+        if c.duration_predictor == "unet":
+            self.dp = DurationPredictorUNet(c.hidden_channels, 256,
+                                            c.posterior_in_channels, **kw)
+        elif c.duration_predictor == "sdp":
+            self.dp = StochasticDurationPredictor(
+                c.hidden_channels, 192, 3, 0.5, 4,
+                gin_channels=c.gin_channels, **kw)
+        else:
+            self.dp = DurationPredictor(c.hidden_channels, 256, 3, 0.5,
+                                        gin_channels=c.gin_channels, **kw)
+        if c.use_flow and c.use_transformer_flow:
+            self.flow = TransformerCouplingBlock(
+                c.inter_channels, c.hidden_channels, c.filter_channels,
+                c.n_heads, c.n_layers_trans_flow, 5, c.p_dropout,
+                c.n_flow_layer, gin_channels=c.gin_channels, **kw)
+        elif c.use_flow:
+            self.flow = ResidualCouplingBlock(
+                c.inter_channels, c.hidden_channels, 5, 1, 4,
+                n_flows=c.n_flow_layer, gin_channels=c.gin_channels, **kw)
+        else:
+            self.flow = None
         self.o_proj = PromptEncoder(c.inter_channels, c.hidden_channels,
                                     c.inter_channels, 6, 0.2,
                                     gin_channels=c.gin_channels, **kw)
@@ -72,7 +101,14 @@ class VITS(nn.Module):
         [B, Ty, 100] the target mel. ``generator`` draws the posterior and
         MAS noise and every dropout mask; without one both noises are zero
         (and dropout needs eval mode). Returns (content [B, Ty, C],
-        y_lengths, (l_length, loss_kl, loss_kl_ph = 0))."""
+        y_lengths, (l_length, loss_kl, loss_kl_ph = 0)). Model3 only: the
+        variants' training forward is a later slice."""
+        if not _is_model3(self.cfg):
+            raise NotImplementedError(
+                "the port's training forward covers duration_predictor="
+                "'unet' without flow; got duration_predictor="
+                f"{self.cfg.duration_predictor!r}, use_flow="
+                f"{self.cfg.use_flow}")
         g = self.ref_enc(y)[:, None, :]
         x_h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, tone, language,
                                               g=g, generator=generator)
@@ -120,35 +156,54 @@ class VITS(nn.Module):
             return maximum_path(neg_cent.contiguous(), attn_mask.float())
 
     def _predict_durations(self, x, x_lengths, y, y_lengths, tone, language,
-                           length_scale: float = 1.0):
+                           length_scale: float = 1.0,
+                           dur_noise: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None):
         """Speaker embedding, text encoding, durations, ceil. Returns (g,
         x_h, m_p, logs_p, x_mask, w_ceil, out_lengths) with unclamped
-        ``out_lengths`` = max(sum ceil(w), 1)."""
+        ``out_lengths`` = max(sum ceil(w), 1). The stochastic predictor
+        samples with noise scale 0.8 from ``dur_noise`` [B, Tx, 2] (a
+        standard normal draw) or from ``generator``."""
         y = y.to(self.ref_enc.proj.weight.dtype)
         g = self.ref_enc(y)[:, None, :]
         x_h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, tone, language,
                                               g=g)
-        logw = self.dp(x_h, x_lengths, y, y_lengths)
+        kind = self.cfg.duration_predictor
+        if kind == "sdp":
+            logw = self.dp(x_h, x_mask, g=g, reverse=True, noise_scale=0.8,
+                           noise=dur_noise, generator=generator)
+        elif kind == "conv":
+            logw = self.dp(x_h, x_mask, g=g)
+        else:
+            logw = self.dp(x_h, x_lengths, y, y_lengths)
         w = torch.exp(logw) * x_mask * length_scale
         w_ceil = torch.ceil(w)[..., 0]
         out_lengths = torch.clamp(w_ceil.sum(dim=-1), min=1.0).to(torch.int32)
         return g, x_h, m_p, logs_p, x_mask, w_ceil, out_lengths
 
     def predict_lengths(self, x, x_lengths, y, y_lengths, tone, language, *,
-                        length_scale: float = 1.0):
+                        length_scale: float = 1.0,
+                        dur_noise: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None):
         """Predicted mel frame counts [B] (the duration pass only)."""
         return self._predict_durations(x, x_lengths, y, y_lengths, tone,
-                                       language, length_scale)[-1]
+                                       language, length_scale, dur_noise,
+                                       generator)[-1]
 
     def infer(self, x, x_lengths, y, y_lengths, tone, language, *,
               noise_scale: float = 0.667, length_scale: float = 1.0,
               max_len: Optional[int] = None,
+              dur_noise: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None):
-        """Returns (content [B, max_len, C], out_lengths [B]); the prior
-        noise comes from ``generator`` (unused when noise_scale is 0)."""
+        """Returns (content [B, max_len, C], out_lengths [B]). The
+        stochastic duration predictor's noise is ``dur_noise`` or drawn
+        from ``generator`` first; the prior noise is drawn from
+        ``generator`` next (unused when noise_scale is 0). The spec flow,
+        when configured, runs in reverse on the prior sample."""
         g, x_h, m_p, logs_p, x_mask, w_ceil, out_lengths = \
             self._predict_durations(x, x_lengths, y, y_lengths, tone,
-                                    language, length_scale)
+                                    language, length_scale, dur_noise,
+                                    generator)
         t_y = max_len if max_len is not None else x.shape[1] * 16
         out_lengths = torch.clamp(out_lengths, max=t_y)
         y_mask = masking.sequence_mask(out_lengths, t_y).to(x_mask.dtype)
@@ -158,9 +213,10 @@ class VITS(nn.Module):
         z_p = m_p_e
         if noise_scale != 0.0:
             logs_p_e = torch.matmul(attn, logs_p)
-            gen_dev = generator.device if generator is not None else "cpu"
-            noise = torch.randn(m_p_e.shape, generator=generator,
-                                device=gen_dev, dtype=torch.float32)
-            z_p = m_p_e + noise.to(m_p_e) * torch.exp(logs_p_e) * noise_scale
+            noise = draw_normal(m_p_e.shape, m_p_e, generator)
+            z_p = m_p_e + noise * torch.exp(logs_p_e) * noise_scale
+        if self.flow is not None:
+            y_keep = y_mask[..., None]
+            z_p = self.flow(z_p, y_keep, g=g, reverse=True) * y_keep
         content = self.o_proj(z_p, out_lengths, g=g)
         return content, out_lengths

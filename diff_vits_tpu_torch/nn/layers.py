@@ -1,10 +1,11 @@
 """Core layers of the port, channel-last [B, T, C].
 
-Port of the main-path parts of ``diff_vits_tpu/nn/layers.py``: ``WN``
-(:141-190), the relative-position ``MultiHeadAttention`` in its banded
-form (:232-410), ``FFN`` (:413-443) and the VITS ``Encoder`` (:446-487),
-with dropout where the JAX modules have it. Masks are float [B, T, 1]
-(1 = keep), as in the JAX package.
+Port of the main-path parts of ``diff_vits_tpu/nn/layers.py``: the
+channel ``LayerNorm`` (:25-33), ``DDSConv`` (:62-88), ``WN`` (:141-190),
+the relative-position ``MultiHeadAttention`` in its banded form with its
+route through kernel K5 (:232-410), ``FFN`` (:413-443) and the VITS
+``Encoder`` (:446-487), with dropout where the JAX modules have it. Masks
+are float [B, T, 1] (1 = keep), as in the JAX package.
 
 Dropout is active only in ``train()`` mode, and every mask is drawn from
 the ``torch.Generator`` the caller passes down (never the global stream);
@@ -19,6 +20,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from diff_vits_tpu_torch.ops.rel_attention import (
+    fused_rel_self_attention, fused_rel_self_attention_plain)
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
@@ -41,6 +45,50 @@ class Conv1d(nn.Conv1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = super().forward(x.transpose(1, 2))
         return y.transpose(1, 2).contiguous()
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the channel axis, eps 1e-5, held as a submodule
+    ``ln`` as in the JAX module (layers.py:25-33)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.ln = nn.LayerNorm(channels, eps=eps)
+
+    def forward(self, x):
+        return self.ln(x)
+
+
+class DDSConv(nn.Module):
+    """Dilated depth-separable conv stack (layers.py:62-88): per layer a
+    depthwise k-wide conv of dilation k^i (groups = C), LayerNorm, exact
+    GELU, a 1x1, LayerNorm, exact GELU, dropout, residual; the input masked
+    before each depthwise conv and at the end."""
+
+    def __init__(self, channels: int, kernel_size: int, n_layers: int,
+                 p_dropout: float = 0.0):
+        super().__init__()
+        self.n_layers, self.p_dropout = n_layers, p_dropout
+        for i in range(n_layers):
+            d = kernel_size ** i
+            self.add_module(f"conv_sep_{i}", Conv1d(
+                channels, channels, kernel_size, groups=channels, dilation=d,
+                padding=(kernel_size - 1) * d // 2))
+            self.add_module(f"norm1_{i}", nn.LayerNorm(channels, eps=1e-5))
+            self.add_module(f"conv_1x1_{i}", nn.Linear(channels, channels))
+            self.add_module(f"norm2_{i}", nn.LayerNorm(channels, eps=1e-5))
+
+    def forward(self, x, x_mask, g=None, *,
+                generator: Optional[torch.Generator] = None):
+        if g is not None:
+            x = x + g
+        for i in range(self.n_layers):
+            y = getattr(self, f"conv_sep_{i}")(x * x_mask)
+            y = F.gelu(getattr(self, f"norm1_{i}")(y))
+            y = F.gelu(getattr(self, f"norm2_{i}")(
+                getattr(self, f"conv_1x1_{i}")(y)))
+            x = x + dropout(y, self.p_dropout, self.training, generator)
+        return x * x_mask
 
 
 class WN(nn.Module):
@@ -84,49 +132,27 @@ class WN(nn.Module):
         return output * x_mask
 
 
-def _band_embeddings(emb: torch.Tensor, length: int, window: int):
-    """The nonzero centre [g, 2w'+1, d] of the relative-position table,
-    w' = min(window, length - 1) (layers.py:232-246)."""
-    w_eff = min(window, length - 1)
-    start = window - w_eff
-    return emb[:, start:start + 2 * w_eff + 1]
-
-
-def _band_to_abs(band: torch.Tensor) -> torch.Tensor:
-    """[B, H, L, 2w+1] band logits -> [B, H, L, L], where band[..., t, j]
-    lands at key s = t + j - w and every other entry is zero."""
-    l, width = band.shape[-2], band.shape[-1]
-    w = (width - 1) // 2
-    out = band.new_zeros(band.shape[:-1] + (l,))
-    for j in range(width):
-        off = j - w
-        t = torch.arange(max(0, -off), min(l, l - off), device=band.device)
-        out[..., t, t + off] = band[..., t, j]
-    return out
-
-
-def _abs_to_band(x: torch.Tensor, w: int) -> torch.Tensor:
-    """[B, H, L, L] -> [B, H, L, 2w+1] with band[..., t, j] = x[..., t,
-    t + j - w] (zero where that key is outside the sequence)."""
-    l = x.shape[-1]
-    out = x.new_zeros(x.shape[:-1] + (2 * w + 1,))
-    for j in range(2 * w + 1):
-        off = j - w
-        t = torch.arange(max(0, -off), min(l, l - off), device=x.device)
-        out[..., t, j] = x[..., t, t + off]
-    return out
-
-
 class MultiHeadAttention(nn.Module):
     """Relative-position multi-head self-attention (VITS), banded form with
     a head-shared window of relative keys and values; masked scores are
-    replaced by -1e4 (layers.py:389)."""
+    replaced by -1e4 (layers.py:285-410).
+
+    Routing (``use_fused``, the JAX module's switch, layers.py:291-319):
+    on a CUDA tensor in eval mode, when autograd records nothing for the
+    call, ``True`` (the default) sends it through kernel K5
+    (``ops.fused_rel_self_attention``) at every batch and length: K5 beat
+    the plain route at every serving shape measured on the H100 (B 1 and
+    8, T 128 and 601; PERF.md), where JAX keeps its kernel opt-in.
+    ``False``, training mode, a recorded forward (K5 has no backward) and
+    the CPU take the plain banded formulation, with dropout on the
+    probabilities in training."""
 
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 window_size: int = 4, p_dropout: float = 0.0):
+                 window_size: int = 4, p_dropout: float = 0.0,
+                 use_fused: bool = True):
         super().__init__()
         self.n_heads, self.window_size = n_heads, window_size
-        self.p_dropout = p_dropout
+        self.p_dropout, self.use_fused = p_dropout, use_fused
         self.k_channels = channels // n_heads
         self.conv_q = nn.Linear(channels, channels)
         self.conv_k = nn.Linear(channels, channels)
@@ -136,30 +162,30 @@ class MultiHeadAttention(nn.Module):
         self.emb_rel_k = nn.Parameter(torch.zeros(shape))
         self.emb_rel_v = nn.Parameter(torch.zeros(shape))
 
-    def forward(self, x, attn_mask=None, *,
+    def _fused_enabled(self, x: torch.Tensor) -> bool:
+        recorded = torch.is_grad_enabled() and (
+            x.requires_grad or self.conv_q.weight.requires_grad)
+        return (self.use_fused and not self.training
+                and x.device.type == "cuda" and not recorded)
+
+    def forward(self, x, lengths: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None):
-        b, t, c = x.shape
-        d = self.k_channels
-
-        def split(a):
-            return a.reshape(b, t, self.n_heads, d).transpose(1, 2)
-
-        q = split(self.conv_q(x)) / math.sqrt(d)
-        k, v = split(self.conv_k(x)), split(self.conv_v(x))
-        scores = torch.matmul(q, k.transpose(-1, -2))
-        key_band = _band_embeddings(self.emb_rel_k, t, self.window_size)
-        scores = scores + _band_to_abs(
-            torch.einsum("bhtd,gmd->bhtm", q, key_band.to(q.dtype)))
-        if attn_mask is not None:
-            scores = scores.masked_fill(attn_mask == 0, -1e4)
-        p = torch.softmax(scores, dim=-1)
-        p = dropout(p, self.p_dropout, self.training, generator)
-        out = torch.matmul(p, v)
-        w_eff = min(self.window_size, t - 1)
-        value_band = _band_embeddings(self.emb_rel_v, t, self.window_size)
-        out = out + torch.einsum("bhtm,gmd->bhtd", _abs_to_band(p, w_eff),
-                                 value_band.to(p.dtype))
-        return self.conv_o(out.transpose(1, 2).reshape(b, t, c))
+        """x [B, T, C]; ``lengths`` [B] the kept prefix of each item (None:
+        nothing masked)."""
+        args = (x, lengths, self.conv_q.weight.t(), self.conv_q.bias,
+                self.conv_k.weight.t(), self.conv_k.bias,
+                self.conv_v.weight.t(), self.conv_v.bias,
+                self.conv_o.weight.t(), self.conv_o.bias, self.emb_rel_k,
+                self.emb_rel_v)
+        kw = dict(heads=self.n_heads, window=self.window_size,
+                  compute_dtype=self.conv_q.weight.dtype)
+        if self._fused_enabled(x):
+            return fused_rel_self_attention(*args, **kw)
+        p_drop = None
+        if self.training and self.p_dropout > 0.0:
+            def p_drop(p):
+                return dropout(p, self.p_dropout, True, generator)
+        return fused_rel_self_attention_plain(*args, p_drop=p_drop, **kw)
 
 
 class FFN(nn.Module):
@@ -208,14 +234,14 @@ class Encoder(nn.Module):
 
     def forward(self, x, x_mask, g: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None):
-        m = x_mask[..., 0]
-        attn_mask = (m[:, None, :, None] * m[:, None, None, :])
+        # the attention mask is the outer product of this length mask
+        lengths = (x_mask[..., 0] > 0).sum(dim=1)
         x = x * x_mask
         for i in range(self.n_layers):
             if (i == self.cond_layer_idx and g is not None
                     and self.spk_emb_linear is not None):
                 x = (x + self.spk_emb_linear(g)) * x_mask
-            y = getattr(self, f"attn_{i}")(x, attn_mask, generator=generator)
+            y = getattr(self, f"attn_{i}")(x, lengths, generator=generator)
             y = dropout(y, self.p_dropout, self.training, generator)
             x = getattr(self, f"norm1_{i}")(x + y)
             y = getattr(self, f"ffn_{i}")(x, x_mask, generator=generator)

@@ -533,8 +533,10 @@ class UNet1DConditionModel(nn.Module):
 
 
 def set_use_fused(module: nn.Module, flag: bool) -> None:
-    """Route every resnet and transformer block under ``module`` through
-    the fused ops (True, the default) or the unfused formulation."""
+    """Route every kernel-backed module under ``module`` (the UNet's
+    resnet and transformer blocks, the rel-pos attention of the VITS
+    encoders, the spline couplings) through its kernels (True) or its plain
+    formulation (False)."""
     for m in module.modules():
-        if isinstance(m, (ResnetBlock1D, BasicTransformerBlock)):
+        if hasattr(m, "use_fused"):
             m.use_fused = flag

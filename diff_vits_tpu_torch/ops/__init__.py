@@ -12,9 +12,12 @@ from diff_vits_tpu_torch.ops.fused_resnet import fused_resnet_block
 from diff_vits_tpu_torch.ops.fused_transformer import (
     fused_cross_attention, fused_geglu_ff, fused_self_attention)
 from diff_vits_tpu_torch.ops.mas import maximum_path
+from diff_vits_tpu_torch.ops.rel_attention import fused_rel_self_attention
+from diff_vits_tpu_torch.ops.spline import unconstrained_rqs
 
 KERNEL_OPS = (fused_resnet_block, fused_self_attention,
-              fused_cross_attention, fused_geglu_ff, maximum_path)
+              fused_cross_attention, fused_geglu_ff, fused_rel_self_attention,
+              maximum_path, unconstrained_rqs)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -26,20 +26,25 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _CHECKOUT = Path(__file__).resolve().parents[2]
-SOURCES = ("norm_stats.cu", "gemm.cu", "attention.cu", "mas.cu")
+SOURCES = ("norm_stats.cu", "gemm.cu", "attention.cu", "mas.cu",
+           "rel_attention.cu", "spline.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 F32, BF16 = 0, 1
 _DTYPE_FLAG = {torch.float32: F32, torch.bfloat16: BF16}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
     "dvt_norm_stats": (_P, _I, _P, _P, _I, _I, _I, _I, _F, _P),
     "dvt_gemm": (_P, _P),
     "dvt_gemm_args_size": (),
     "dvt_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "dvt_mas": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+    "dvt_rel_attention": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                          _I, _F, _P),
+    "dvt_spline": (_P, _I, _P, _L, _P, _L, _P, _L, _I, _P, _P, _L, _I, _I, _F,
+                   _F, _F, _F, _P),
 }
 
 

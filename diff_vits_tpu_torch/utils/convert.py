@@ -9,7 +9,10 @@ mechanical:
   LayerNorm/GroupNorm scale    -> weight
   Embed embedding              -> weight
   bias and named parameters    -> unchanged (positional_embedding,
-                                  emb_rel_k, emb_rel_v)
+                                  emb_rel_k, emb_rel_v, m, logs)
+
+(a depthwise Conv kernel [k, 1, C] becomes the grouped Conv1d weight
+[C, 1, k] by the same rule).
 
 Every leaf is converted, the training-only posterior encoder
 (``vits.enc_q``) included. A tree of gradients has the parameters' names
@@ -36,15 +39,16 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
 
 
 def _convert(path: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
-    parent, leaf = path.rsplit(".", 1)
+    parent, _, leaf = path.rpartition(".")
+    weight = f"{parent}.weight" if parent else "weight"
     if leaf == "kernel":
         if a.ndim == 2:
-            return f"{parent}.weight", a.T
+            return weight, a.T
         if a.ndim == 3:
-            return f"{parent}.weight", a.transpose(2, 1, 0)
+            return weight, a.transpose(2, 1, 0)
         raise ValueError(f"{path}: kernel of rank {a.ndim}")
     if leaf in ("scale", "embedding"):
-        return f"{parent}.weight", a
+        return weight, a
     return path, a
 
 
@@ -64,6 +68,7 @@ def from_flax_params(flax_params: Mapping[str, Any], cfg: Config
                      ) -> Dict[str, torch.Tensor]:
     """flax ``params`` tree of ``DiffVits`` (numpy leaves; with or without
     the outer ``{"params": ...}``) -> ``state_dict`` of the port's
-    ``DiffVits``. Load it with ``load_state_dict(..., strict=True)``."""
+    ``DiffVits``, for every configuration the port builds (all but the
+    phoneme VAE). Load it with ``load_state_dict(..., strict=True)``."""
     check_supported(cfg.vits)
     return convert_tree(flax_params)

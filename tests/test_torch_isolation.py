@@ -76,11 +76,19 @@ def test_configs_load_equal_in_both_packages(path):
         json.dumps(theirs.to_dict()))
 
 
-def test_from_flax_params_consumes_every_leaf_but_the_skip_list():
+@pytest.mark.parametrize("variant", [{}, dict(duration_predictor="sdp",
+                                                use_flow=True)],
+                         ids=["model3", "sdp_flow"])
+def test_from_flax_params_consumes_every_leaf_but_the_skip_list(variant):
     """Against the whole JAX model tree, training parts included (the tree
-    of the training forward, read with eval_shape): the skip list is
-    empty, every leaf lands in the port's state dict."""
+    of the training forward, read with eval_shape; for the stochastic
+    duration predictor it holds the posterior flows' ``post_*`` leaves):
+    the skip list is empty, every leaf lands in the port's state dict."""
     jcfg, pcfg = tiny_configs()
+    jcfg = dataclasses.replace(jcfg, vits=dataclasses.replace(jcfg.vits,
+                                                              **variant))
+    pcfg = dataclasses.replace(pcfg, vits=dataclasses.replace(pcfg.vits,
+                                                              **variant))
     jm = JDiffVits(jcfg, n_vocab=len(symbols))
     b, tx, ty, s = 2, 7, 20, 11
     shapes = flax_shapes(
@@ -101,6 +109,14 @@ def test_from_flax_params_consumes_every_leaf_but_the_skip_list():
     for k, v in want.items():
         assert sd[k].shape == v.shape, k
     assert len(sd) == len(jax.tree_util.tree_leaves(tree))
+    if variant:
+        assert {"post_pre", "post_flow_0"} <= set(tree["vits"]["dp"])
+        assert "flow" in tree["vits"]
+        # a depthwise Conv kernel [k, 1, C] -> grouped Conv1d [C, 1, k]
+        dw = tree["vits"]["dp"]["convs"]["conv_sep_0"]["kernel"]
+        np.testing.assert_array_equal(
+            sd["vits.dp.convs.conv_sep_0.weight"].numpy(),
+            dw.transpose(2, 1, 0))
     # Dense [in, out] -> Linear [out, in]; Conv [k, in, out] -> [out, in, k]
     dense = tree["vits"]["dp"]["pre"]["kernel"]
     np.testing.assert_array_equal(sd["vits.dp.pre.weight"].numpy(), dense.T)
@@ -111,9 +127,7 @@ def test_from_flax_params_consumes_every_leaf_but_the_skip_list():
 
 def test_from_flax_params_rejects_unported_variants():
     _, pcfg = tiny_configs()
-    for change in (dict(use_flow=True), dict(duration_predictor="sdp"),
-                   dict(use_phoneme_vae=True)):
-        cfg = dataclasses.replace(
-            pcfg, vits=dataclasses.replace(pcfg.vits, **change))
-        with pytest.raises(NotImplementedError):
-            from_flax_params({}, cfg)
+    cfg = dataclasses.replace(
+        pcfg, vits=dataclasses.replace(pcfg.vits, use_phoneme_vae=True))
+    with pytest.raises(NotImplementedError):
+        from_flax_params({}, cfg)

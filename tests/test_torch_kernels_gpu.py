@@ -14,25 +14,36 @@ formulation, and gradients through the kernel routes' autograd Function
 K6 (MAS): paths identical to the plain version's (tolerance 0) on random
 and tied scores, ragged lengths, more text columns than one thread a
 column covers, bfloat16 scores, and a refusal of what does not fit.
-
-Needs a CUDA device and nvcc; skips otherwise. On the card, from the
-repository root (the JAX conftest is not needed there):
-
-    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
-
-Tolerance: max |kernel - plain| / max |plain| <= 1e-3 in float32 (sums in
-another order), 3e-2 in bfloat16 (the plain version rounds the attention
-probabilities to bf16 before PV, the kernel keeps them in float32).
+K5 (rel-pos attention): ragged lengths (kept rows compared) and no mask,
+T shorter than the band, not a multiple of the 16-query or 32-key tiles,
+every head dim the kernel takes, through the wrapper and through the
+routed MultiHeadAttention; a refusal. K7 (RQ spline): forward and inverse,
+inputs on the bin edges and at and beyond the tails, parameters as strided
+slices of one projection. The kernel and the plain version sum the bin
+fractions in another order and contract other products into FMAs, so
+their knots lie a few ulp apart, and the inverse's root moves by ulp /
+(bin width x knot derivative): with unscaled N(0, 1) parameters some
+inverse outputs differ by more than 1e-5, and on a knot log|det| by more
+than 1e-4. So every kernel value must lie within the plain version's
+values over inputs +-8 ulp (of tail_bound) from the given one (backward
+error), widened by the tolerances of tests/test_spline_pallas.py (outputs
+atol/rtol 1e-5, one bf16 rounding rtol 1e-2 for bfloat16 outputs;
+log|det| 1e-4, 1e-3 on a knot, where at +-tail_bound the inverse's
+discriminant b^2 - 4ac cancels down to (h d)^2); the forward, which is
+well conditioned, is held off the knots to those tolerances directly.
 """
 import pytest
 import torch
 
 from diff_vits_tpu_torch import ops
+from diff_vits_tpu_torch.nn.layers import MultiHeadAttention
 from diff_vits_tpu_torch.nn.unet1d import (
     UNet1DConditionModel, set_use_fused)
 from diff_vits_tpu_torch.ops import fused_resnet as FR
 from diff_vits_tpu_torch.ops import fused_transformer as FT
 from diff_vits_tpu_torch.ops import mas
+from diff_vits_tpu_torch.ops import rel_attention as RA
+from diff_vits_tpu_torch.ops import spline
 
 torch.set_num_threads(2)
 
@@ -239,7 +250,8 @@ def test_tiny_unet_on_kernels_matches_unfused(dev):
         assert ops.launch_counts() == {
             "fused_resnet_block": 22, "fused_self_attention": 16,
             "fused_cross_attention": 16, "fused_geglu_ff": 16,
-            "maximum_path": 0}
+            "fused_rel_self_attention": 0, "maximum_path": 0,
+            "unconstrained_rqs": 0}
         set_use_fused(model, False)
         ref = model(x, ts, ctx, encoder_attention_mask=keep)
     assert out.shape == (b, t, 4)
@@ -395,3 +407,171 @@ def test_mas_kernel_bfloat16_and_refusals(dev):
         mas.maximum_path(neg.transpose(1, 2).contiguous().transpose(1, 2),
                          mask)
     assert mas.maximum_path.launches == before
+
+
+def _rel_args(gen, dev, b, t, heads, d, dtype, window=4, co=None):
+    """x, lengths (ragged, item 0 full) and the weights of one rel-pos MHA
+    in the module layout (weights as views of [out, in] storage)."""
+    r = lambda *s, **k: _rand(gen, dev, *s, **k)  # noqa: E731
+    c = heads * d
+    co = co or c
+    lengths = torch.tensor([t] + [max(1, t - 7 * i) for i in range(1, b)],
+                           device=dev)
+
+    def w(cin, cout):
+        return r(cout, cin, scale=cin ** -0.5, dtype=dtype).t()
+    return (r(b, t, c, dtype=dtype), lengths, w(c, c), r(c, scale=0.1),
+            w(c, c), r(c, scale=0.1), w(c, c), r(c, scale=0.1), w(c, co),
+            r(co, scale=0.1), r(1, 2 * window + 1, d, scale=d ** -0.5),
+            r(1, 2 * window + 1, d, scale=d ** -0.5))
+
+
+def _assert_rows_close(out, ref, lengths, dtype):
+    """Kept rows (masked rows are undefined downstream), relative to the
+    largest kept |plain|."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    keep = (torch.arange(out.shape[1], device=out.device)[None]
+            < lengths[:, None])
+    o, p = out.float()[keep], ref.float()[keep]
+    assert bool(torch.isfinite(o).all())
+    err = (o - p).abs().max().item()
+    assert err <= TOL[dtype] * p.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,t,heads,d", [
+    (3, 37, 2, 128), (2, 601, 2, 128), (2, 5, 2, 128),   # T < 2w + 1
+    (3, 130, 4, 8), (2, 47, 2, 16), (1, 1, 2, 32), (2, 70, 1, 64),
+])
+def test_rel_attention_kernel_matches_plain(dev, dtype, b, t, heads, d):
+    gen = torch.Generator(device=dev).manual_seed(t * 5 + d)
+    args = _rel_args(gen, dev, b, t, heads, d, dtype)
+    kw = dict(heads=heads, window=4, compute_dtype=dtype)
+    for lengths in (args[1], None):
+        call = (args[0], lengths, *args[2:])
+        before = RA.fused_rel_self_attention.launches
+        out = RA.fused_rel_self_attention(*call, **kw)
+        torch.cuda.synchronize()
+        assert RA.fused_rel_self_attention.launches == before + 1
+        ref = RA.fused_rel_self_attention_plain(*call, **kw)
+        keep = args[1] if lengths is not None else torch.full_like(args[1], t)
+        _assert_rows_close(out, ref, keep, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_rel_attention_module_routes_through_the_kernel(dev, dtype):
+    torch.manual_seed(2)
+    module = MultiHeadAttention(256, 256, 2).to(dev, dtype).eval()
+    for p in module.parameters():
+        torch.nn.init.normal_(p, std=0.05)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = _rand(gen, dev, 3, 129, 256, dtype=dtype)
+    lengths = torch.tensor([129, 64, 1], device=dev)
+    with torch.no_grad():
+        before = RA.fused_rel_self_attention.launches
+        out = module(x, lengths)
+        torch.cuda.synchronize()
+        assert RA.fused_rel_self_attention.launches == before + 1
+        module.use_fused = False
+        ref = module(x, lengths)
+        assert RA.fused_rel_self_attention.launches == before + 1
+    _assert_rows_close(out, ref, lengths, dtype)
+    # a forward that autograd records keeps the plain route (no backward)
+    module.use_fused = True
+    module(x, lengths).float().sum().backward()
+    assert RA.fused_rel_self_attention.launches == before + 1
+    assert module.conv_q.weight.grad is not None
+
+
+def test_rel_attention_kernel_refuses_what_it_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    args = _rel_args(gen, dev, 2, 9, 2, 24, torch.float32)   # head dim 24
+    before = RA.fused_rel_self_attention.launches
+    with pytest.raises(ValueError, match="head dims"):
+        RA.fused_rel_self_attention(*args, heads=2, window=4,
+                                    compute_dtype=torch.float32)
+    args = _rel_args(gen, dev, 2, 9, 2, 32, torch.float32)
+    with pytest.raises(TypeError):             # weights not in bfloat16
+        RA.fused_rel_self_attention(*args, heads=2, window=4,
+                                    compute_dtype=torch.bfloat16)
+    assert RA.fused_rel_self_attention.launches == before
+
+
+def _spline_case(dev, n, num_bins, tail_bound, inverse, dtype, seed):
+    """x and strided (uw, uh, ud) slices of one [n, 3 nb - 1] projection;
+    a quarter of x placed on the interior bin edges (of the widths for the
+    forward, the heights for the inverse), some at +-tail_bound (the outer
+    knots) and some beyond it; and which x lie on a knot."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    proj = torch.randn(n, 3 * num_bins - 1, generator=gen, device=dev)
+    uw, uh = proj[:, :num_bins], proj[:, num_bins:2 * num_bins]
+    ud = proj[:, 2 * num_bins:]
+    x = torch.randn(n, generator=gen, device=dev) * tail_bound * 0.7
+    edges = spline._edges(uh if inverse else uw, -tail_bound, tail_bound,
+                          1e-3)
+    k = torch.randint(1, num_bins, (n,), generator=gen, device=dev)
+    on_edge = torch.arange(n, device=dev) % 4 == 0
+    x = torch.where(on_edge, edges.gather(1, k[:, None])[:, 0], x)
+    x[1::16] = tail_bound
+    x[2::16] = -tail_bound
+    x[3::16] = tail_bound * 1.5
+    x[5::16] = -tail_bound * 3
+    on_edge[1::16] = on_edge[2::16] = True
+    return x.to(dtype), uw.to(dtype), uh.to(dtype), ud.to(dtype), on_edge
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("n,num_bins,tail_bound", [
+    (4808, 10, 5.0), (37, 10, 1.0), (1, 8, 5.0), (1000, 4, 2.0)])
+def test_spline_kernel_matches_plain(dev, dtype, inverse, n, num_bins,
+                                     tail_bound):
+    x, uw, uh, ud, on_edge = _spline_case(dev, n, num_bins, tail_bound,
+                                          inverse, dtype, seed=n + num_bins)
+    kw = dict(inverse=inverse, tail_bound=tail_bound)
+    before = spline.unconstrained_rqs.launches
+    out, ld = spline.unconstrained_rqs(x, uw, uh, ud, **kw)
+    torch.cuda.synchronize()
+    assert spline.unconstrained_rqs.launches == before + 1
+    ref, ref_ld = spline.unconstrained_rqs_plain(x, uw, uh, ud, **kw)
+    assert out.dtype == x.dtype and ld.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    off = ~on_edge
+    if not inverse:
+        torch.testing.assert_close(out.float()[off], ref.float()[off],
+                                   atol=tol, rtol=tol)
+        torch.testing.assert_close(ld[off], ref_ld[off], atol=1e-4,
+                                   rtol=1e-4)
+    # backward error: within the plain values over inputs +-8 ulp away
+    tb = torch.tensor(tail_bound)
+    eps = 8 * (torch.nextafter(tb, tb + 1) - tb).item()
+    env = [spline.unconstrained_rqs_plain(x.float() + s, uw.float(),
+                                          uh.float(), ud.float(), **kw)
+           for s in (-eps, 0.0, eps)]
+    ld_tol = torch.where(on_edge, 1e-3, 1e-4)
+    for got, k, t in ((out.float(), 0, tol), (ld, 1, ld_tol)):
+        vals = torch.stack([e[k] for e in env])
+        lo, hi = vals.min(0).values, vals.max(0).values
+        assert bool(((got >= lo - t - t * lo.abs())
+                     & (got <= hi + t + t * hi.abs())).all())
+    outside = x.float().abs() > tail_bound
+    assert outside.any() or n < 16
+    assert torch.equal(out[outside], x[outside])
+    assert not ld[outside].any()
+
+
+def test_spline_kernel_refuses_what_it_does_not_take(dev):
+    x, uw, uh, ud, _ = _spline_case(dev, 64, 10, 5.0, True, torch.float32,
+                                    0)
+    before = spline.unconstrained_rqs.launches
+    with pytest.raises(ValueError, match="spline kernel .* refused"):
+        spline.unconstrained_rqs(x, uw[:, :7].contiguous(),
+                                 uh[:, :7].contiguous(), ud[:, :6],
+                                 inverse=True, tail_bound=5.0)   # 7 bins
+    with pytest.raises(ValueError, match="unit stride"):
+        spline.unconstrained_rqs(x, uw.t().contiguous().t(), uh, ud,
+                                 inverse=True, tail_bound=5.0)
+    with pytest.raises(TypeError):
+        spline.unconstrained_rqs(x, uw, uh.bfloat16(), ud, inverse=True,
+                                 tail_bound=5.0)
+    assert spline.unconstrained_rqs.launches == before
