@@ -4,9 +4,9 @@
     python3 chip_smoke.py [--out DIR]
 
 ``--out DIR`` also writes the kernel rows, the serving numbers, the
-training numbers and the variant's serving numbers as
-``DIR/kernels.json``, ``DIR/path.json``, ``DIR/train.json`` and
-``DIR/variant.json``.
+training numbers (flash route off and on) and the variant's serving and
+training numbers as ``DIR/kernels.json``, ``DIR/path.json``,
+``DIR/train.json`` and ``DIR/variant.json``.
 
 Phases, each of which fails the run:
 
@@ -27,7 +27,18 @@ Phases, each of which fails the run:
    N=4808 (8 x 601), inverse and forward in float32 (outputs atol/rtol
    1e-5, log|det| 1e-4) and inverse in bfloat16 (outputs rtol 1e-2, one
    bf16 rounding); K5 against its plain route at B=1 and 8, T=128 and
-   601 in bfloat16 (the route decision);
+   601 in bfloat16 (the route decision); and K8 (flash attention) at the
+   training step's gated sites, B=32, 8 heads: the DP UNet's level-0
+   self (T=S=601, d=8, no mask) and cross attention (T=601, S=400, d=8),
+   the denoiser's level-0 cross attention (T=400, S=267, d=16) and the
+   prompt encoder layer of ``o_proj`` (T=S=400, d=32), the last three with
+   ragged keep masks, in float32 and bfloat16: forward output and
+   log-sum-exp against ``sdpa_plain``, dq/dk/dv against autograd of it and
+   against ``sdpa_backward_plain`` on the kernel's own o and lse, each
+   gradient in its input view's layout; same gates; the forward, the
+   backward and forward + backward timed for the kernel, the plain version
+   and the library (``F.scaled_dot_product_attention``; the backward alone
+   as the ATen backward op of the backend it takes, on its own forward);
 4. mas: K6 (MAS) against its plain version at the training shape (B=32,
    Ty=400, Tx=601; ragged lengths, t_x == t_y, t_x == 1) on random and on
    tied integer scores: identical paths (0 mismatched cells); its times,
@@ -35,7 +46,18 @@ Phases, each of which fails the run:
 5. grad: gradients of sum(out * r) through each of K1-K4's kernel route
    (the autograd Function) at denoiser level 0, B=8, float32, against
    plain autograd, for x and every weight and vector passed as the UNet
-   passes them: every leaf gets one, max rel error <= 1e-3;
+   passes them: every leaf gets one, max rel error <= 1e-3; then flash
+   gradient parity: model3 at ``reference_parity`` widths, B=8, float32,
+   eval mode with the UNet's fused route off, injected t and noise,
+   ``DiffVits.forward`` and backward with the flash route off and on: loss
+   within rel 1e-4, every parameter gradient within 1e-3 of its leaf's
+   scale by its norm, and by its largest entry on every leaf that no ReLU,
+   clamp, abs or max separates from the loss; K8 counters equal to the
+   calls through the flash gate; then the route off with every ReLU on
+   the branches the route-on run took: every gradient within 1e-3 of its
+   leaf's largest entry (a ReLU input within rounding of 0 may flip between
+   the routes; this shows the flips explain what the kink-free gate
+   leaves out);
 6. path (serving): ``BatchSynthesizer`` (bf16 weights, batch 8, mel
    buckets 400 and 800, 30-step UniPC) answers 10 requests at the widths
    of ``configs/reference_parity.json`` with random weights from a seed;
@@ -54,9 +76,13 @@ Phases, each of which fails the run:
    and 5 timed steps on batches of 32 shaped like the loader's (text 601,
    mel 400, prompts 267 cut by ``random_slice``): finite losses, every
    parameter and the EMA changed, the EMA no alias of the parameters, one
-   K6 launch and no K1-K4 launch a step; median step time, steps/s, peak
-   memory, and under torch.profiler (the second warm-up step) K6's device
-   time and share of the step, the busy share and the top kernels;
+   K6 launch and no other kernel launch a step; median step time, steps/s,
+   peak memory, and under torch.profiler (the second warm-up step) K6's
+   device time and share of the step, the busy share and the top kernels;
+   then the same with the flash route on (``set_use_flash``):
+   each step also exactly one K8 forward and one K8 backward launch for
+   each attention call through the flash gate (counted by hooks on the
+   modules, from their own gate);
 10. eval parity: ``Trainer.eval_fixed_t_loss`` (eval mode, float32, TF32
    off) through the kernels and through the plain route on the card:
    every value within rel 1e-4, the MAS paths equal, the counters
@@ -72,10 +98,14 @@ Phases, each of which fails the run:
    variant in float32, kernels against the plain route on the card with
    injected duration and initial noise (equal frame counts, max |mel
    difference| <= 5e-3), and its latency at batch 1 and 8, real-time
-   factor and peak memory.
+   factor and peak memory;
+12. variant training: the variant trained by the same ``Trainer`` (B=32,
+   bf16, 2 warm-up and 3 timed steps) with the flash route off and on, with
+   the checks of phase 9 (no K5 or K7 launch: both are inference-only).
 
 The launch counts in the kernel table are those of each kernel's own path:
-serving for K1-K4, training for K6, the variant's serving for K5 and K7.
+serving for K1-K4, training for K6, the variant's serving for K5 and K7,
+training with the flash route on for K8 (forward and backward).
 The last line of standard output is one JSON object with the device; the
 line before it the kernel table. Exits non-zero, printing no result, when
 there is no CUDA device or the port's package is not beside this script.
@@ -102,6 +132,8 @@ REPLACES = {
     "maximum_path": "diff_vits_tpu/ops/mas_pallas.py:89",
     "fused_rel_self_attention": "diff_vits_tpu/ops/rel_attention.py:90",
     "unconstrained_rqs": "diff_vits_tpu/ops/spline_pallas.py:132",
+    "flash_attention_forward": "diff_vits_tpu/ops/flash_attention.py:81",
+    "flash_attention_backward": "diff_vits_tpu/ops/flash_attention.py:81",
 }
 SOURCE = {
     "fused_resnet_block": "diff_vits_tpu_torch/csrc/gemm.cu",
@@ -111,6 +143,8 @@ SOURCE = {
     "maximum_path": "diff_vits_tpu_torch/csrc/mas.cu",
     "fused_rel_self_attention": "diff_vits_tpu_torch/csrc/rel_attention.cu",
     "unconstrained_rqs": "diff_vits_tpu_torch/csrc/spline.cu",
+    "flash_attention_forward": "diff_vits_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_backward": "diff_vits_tpu_torch/csrc/flash_attention.cu",
 }
 # per UNet call (nn/unet1d.py: 22 resnets, 16 transformer blocks)
 PER_UNET = {"fused_resnet_block": 22, "fused_self_attention": 16,
@@ -642,12 +676,18 @@ def main(argv=None) -> int:
     phases["kernels_vits"] = v_ok
     rows += v_rows
     summary.update(v_summary)
+    phases["kernels_flash"], f_rows, f_summary = flash_kernel_phase(torch,
+                                                                    dev)
+    rows += f_rows
+    summary.update(f_summary)
     phases["mas"], summary["maximum_path"] = mas_phase(torch, dev, card)
     summary["maximum_path"]["library_ms"] = None   # no one PyTorch call
     phases["grad"] = grad_phase(torch, dev)
+    phases["flash_grad"], flash_grad = flash_grad_phase(torch, dev, card)
 
     # each path's counts are read from its own run: serving for K1-K4,
-    # training for K6, the variant's serving for K5 and K7
+    # training for K6, the variant's serving for K5 and K7, training with
+    # the flash route on for K8
     p_ok, counts, details = path_phase(torch, dev, card)
     phases.update(p_ok)
     phases["train"], train_counts, train_numbers, trainer, eval_batch = \
@@ -657,10 +697,32 @@ def main(argv=None) -> int:
         torch, trainer, eval_batch)
     del trainer
     torch.cuda.empty_cache()
+    phases["train_flash"], flash_counts, flash_numbers, trainer, _ = \
+        train_run(torch, dev, card, _train_cfg(), "train (flash on)",
+                  use_flash=True, steps=7, profile=True)
+    for name in ("flash_attention_forward", "flash_attention_backward"):
+        counts[name] = flash_counts[name]
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"training model3, flash off vs on: median step "
+        f"{train_numbers['step_s'] * 1e3:.1f} vs "
+        f"{flash_numbers['step_s'] * 1e3:.1f} ms, "
+        f"{train_numbers['steps_per_s']:.3f} vs "
+        f"{flash_numbers['steps_per_s']:.3f} steps/s, peak "
+        f"{train_numbers['max_memory_allocated_GB']:.2f} vs "
+        f"{flash_numbers['max_memory_allocated_GB']:.2f} GB; card {card}")
     var_ok, var_counts, variant = variant_phase(torch, dev, card)
     phases.update(var_ok)
     for name in ("fused_rel_self_attention", "unconstrained_rqs"):
         counts[name] = var_counts[name]
+    vt_ok, variant_train, _ = variant_train_phase(torch, dev, card)
+    phases.update(vt_ok)
+    log(f"training the variant, flash off vs on: median step "
+        f"{variant_train['off']['step_s'] * 1e3:.1f} vs "
+        f"{variant_train['on']['step_s'] * 1e3:.1f} ms, peak "
+        f"{variant_train['off']['max_memory_allocated_GB']:.2f} vs "
+        f"{variant_train['on']['max_memory_allocated_GB']:.2f} GB; "
+        f"card {card}")
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "kernels.json").write_text(json.dumps(
@@ -668,8 +730,10 @@ def main(argv=None) -> int:
                  k5_route=k5_route), indent=1))
         (out_dir / "path.json").write_text(json.dumps(details, indent=1))
         (out_dir / "train.json").write_text(json.dumps(
-            dict(card=card, **train_numbers), indent=1))
-        (out_dir / "variant.json").write_text(json.dumps(variant, indent=1))
+            dict(card=card, **train_numbers, flash=flash_numbers,
+                 flash_grad=flash_grad), indent=1))
+        (out_dir / "variant.json").write_text(json.dumps(
+            dict(variant, train=variant_train), indent=1))
 
     table = {"kernels": [dict(
         name=name, route="cuda", source=SOURCE[name],
@@ -739,6 +803,7 @@ def _want(calls, mas: int = 0, k5: bool = True):
         calls["encoder_layers"][0] if k5 else 0
     want["maximum_path"] = mas
     want["unconstrained_rqs"] = K7_PER_SDP_REVERSE * calls["sdp_reverse"][0]
+    want["flash_attention_forward"] = want["flash_attention_backward"] = 0
     return want
 
 
@@ -1060,65 +1125,121 @@ def _train_batches(np, b, t_x, t_y, s_max, n_symbols, seed):
                     refer2_lengths=np.array([len(c[2]) for c in cut]))
 
 
-def train_phase(torch, dev, card):
-    """``Trainer`` at the widths of configs/reference_parity.json (EMA on),
-    random weights from seed 0 (``train.seed``), bf16 autocast, batches of
-    32 shaped like the loader's: 2 warm-up steps (the second profiled) and
-    5 timed ones. Returns (ok, counts over the 7 steps, numbers, trainer,
-    a batch for the eval phase)."""
+def _flash_calls(model):
+    """Forward pre-hooks on every attention module of ``model`` that has a
+    flash route (``CrossAttention``, ``EncSALayer``): a one-item list that
+    grows by one for each call that passes the module's own gate, i.e. the
+    K8 forward launches to expect; each such output enters the loss, so as
+    many backward launches. Returns (the list, hook handles)."""
+    from diff_vits_tpu_torch.nn.fairseq import EncSALayer
+    from diff_vits_tpu_torch.nn.unet1d import CrossAttention
+    calls = [0]
+
+    def cross(m, args, kwargs):
+        x = args[0]
+        ctx = args[1] if len(args) > 1 else kwargs.get("context")
+        calls[0] += m.uses_flash(x.shape[1], (x if ctx is None
+                                              else ctx).shape[1])
+
+    def enc_sa(m, args, kwargs):
+        calls[0] += m.uses_flash(args[0].shape[1], args[0].shape[2])
+    handles = [m.register_forward_pre_hook(
+        cross if isinstance(m, CrossAttention) else enc_sa, with_kwargs=True)
+        for m in model.modules() if isinstance(m, (CrossAttention,
+                                                   EncSALayer))]
+    return calls, handles
+
+
+def _want_step(counts, flash_calls):
+    """A training step's expected launches: one K6, the K8 forward and
+    backward once for each call through the flash gate, nothing else."""
+    want = dict.fromkeys(counts, 0)
+    want["maximum_path"] = 1
+    want["flash_attention_forward"] = flash_calls
+    want["flash_attention_backward"] = flash_calls
+    return want
+
+
+def _train_cfg(**vits):
+    """``configs/reference_parity.json`` with EMA on and seed 0, the VITS
+    configuration changed by ``vits``."""
     import dataclasses
+    from diff_vits_tpu_torch.core.config import load_config
+    cfg = load_config(str(ROOT / "configs" / "reference_parity.json"))
+    return dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, use_ema=True, seed=0),
+        vits=dataclasses.replace(cfg.vits, **vits))
+
+
+def train_run(torch, dev, card, cfg, what, *, use_flash, steps,
+              profile=False):
+    """``Trainer`` on ``cfg`` (random weights from ``train.seed``, bf16
+    autocast) with the flash route ``use_flash``, on batches of 32 shaped
+    like the loader's (seed 8, the same for every run): 2 warm-up steps
+    (the second under torch.profiler when ``profile``) and ``steps`` - 2
+    timed ones. Checks finite losses, every parameter and the EMA changed,
+    the EMA no alias of the parameters, and each step's launches: one K6,
+    the K8 forward and backward once per call through the flash gate (more
+    than none with the route on), no other kernel. Returns (ok, counts over
+    the steps, numbers, trainer, a further batch)."""
     import math
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as profiler
     from diff_vits_tpu_torch import ops
-    from diff_vits_tpu_torch.core.config import load_config
+    from diff_vits_tpu_torch.nn.unet1d import set_use_flash
     from diff_vits_tpu_torch.text.symbols import symbols
     from diff_vits_tpu_torch.train.trainer import Trainer
 
-    cfg = load_config(str(ROOT / "configs" / "reference_parity.json"))
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, use_ema=True, seed=0))
     b, t_y = cfg.train.train_batch_size, cfg.data.max_mel_len
     t_x = cfg.data.max_text_len * 2 + 1
     batches = _train_batches(np, b, t_x, t_y, t_y * 2 // 3 + 1, len(symbols),
                              seed=8)
     trainer = Trainer(cfg, batches, device=dev)
+    set_use_flash(trainer.model, use_flash)
     n_params = sum(p.numel() for p in trainer.params)
-    log(f"train: reference_parity widths, {n_params} parameters, B={b}, "
-        f"text {t_x}, mel {t_y}, compute {cfg.train.compute_dtype}")
+    log(f"{what}: {n_params} parameters, B={b}, text {t_x}, mel {t_y}, "
+        f"compute {cfg.train.compute_dtype}, flash route {use_flash}")
     params0 = [p.detach().clone() for p in trainer.params]
     ema0 = [e.clone() for e in trainer.ema]
+    calls, handles = _flash_calls(trainer.model)
     it = iter(batches)
     total = {}
-    times, losses, per_step, profiled = [], [], [], None
-    for i in range(7):
+    times, losses, per_step_ok, flash_per_step = [], [], [], []
+    profiled = None
+    for i in range(steps):
         batch = next(it)
         if i == 2:
             torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
+        calls[0] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if i == 1:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+        if i == 1 and profile:
+            with profiler(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
                 metrics = trainer.train_step(batch)
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
             profiled = profile_summary(prof, wall_us, card,
-                                       "one training step (warm-up 2)")
+                                       f"one training step of {what} "
+                                       "(warm-up 2)")
         else:
             metrics = trainer.train_step(batch)
             torch.cuda.synchronize()
         if i >= 2:
             times.append(time.perf_counter() - t0)
         counts = ops.launch_counts()
-        per_step.append(counts)
+        want = _want_step(counts, calls[0])
+        per_step_ok.append(counts == want and (calls[0] > 0) == use_flash)
+        flash_per_step.append(calls[0])
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         losses.append({k: float(v) for k, v in metrics.items()})
-        log(f"train step {i + 1}: "
+        log(f"{what} step {i + 1}: "
             + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses[-1].items()))
-            + f"; launches {counts}")
+            + f"; launches {counts} (want {want})")
+    for h in handles:
+        h.remove()
     peak = torch.cuda.max_memory_allocated() / 1e9
     step_s = sorted(times)[len(times) // 2]
     finite = all(math.isfinite(v) for m in losses for v in m.values())
@@ -1129,22 +1250,32 @@ def train_phase(torch, dev, card):
     aliased = sum(e.untyped_storage().data_ptr()
                   == p.untyped_storage().data_ptr()
                   for e, p in zip(trainer.ema, trainer.params))
-    counters = all(c["maximum_path"] == 1 and all(
-        c[k] == 0 for k in c if k != "maximum_path") for c in per_step)
+    counters = all(per_step_ok)
     ok = (finite and moved == len(params0) and ema_moved > 0
           and aliased == 0 and counters)
-    log(f"train: 7 steps, losses finite {finite}; parameters changed "
+    log(f"{what}: {steps} steps, losses finite {finite}; parameters changed "
         f"{moved}/{len(params0)}, EMA tensors changed {ema_moved}/"
-        f"{len(ema0)}, EMA aliasing parameters {aliased}; one K6 launch and "
-        f"no other kernel launch per step {counters}: "
-        f"{'ok' if ok else 'FAIL'}")
-    log(f"train numbers: median step {step_s * 1e3:.1f} ms of "
+        f"{len(ema0)}, EMA aliasing parameters {aliased}; every step one K6 "
+        f"launch, K8 forward and backward launches equal to the calls "
+        f"through the flash gate ({flash_per_step}), no other launch "
+        f"{counters}: {'ok' if ok else 'FAIL'}")
+    log(f"{what} numbers: median step {step_s * 1e3:.1f} ms of "
         f"{[round(t * 1e3, 1) for t in times]} ms, {1 / step_s:.3f} steps/s, "
         f"peak device memory {peak:.2f} GB; card {card}")
-    numbers = dict(step_s=step_s, steps_s=times, steps_per_s=1 / step_s,
-                   max_memory_allocated_GB=peak, losses=losses,
-                   profile=profiled, n_params=n_params)
+    numbers = dict(use_flash=use_flash, step_s=step_s, steps_s=times,
+                   steps_per_s=1 / step_s, max_memory_allocated_GB=peak,
+                   losses=losses, profile=profiled, n_params=n_params,
+                   flash_calls_per_step=flash_per_step)
     return ok, total, numbers, trainer, next(it)
+
+
+def train_phase(torch, dev, card):
+    """Model3 at ``reference_parity`` widths, the flash route off: 2
+    warm-up steps (the second profiled) and 5 timed ones. Returns (ok,
+    counts over the 7 steps, numbers, trainer, a batch for the eval
+    phase)."""
+    return train_run(torch, dev, card, _train_cfg(), "train", steps=7,
+                     use_flash=False, profile=True)
 
 
 def eval_phase(torch, trainer, batch):
@@ -1297,6 +1428,466 @@ def variant_phase(torch, dev, card):
                             launches=counts, want=want,
                             frames=[int(m.shape[0]) for _, m in results],
                             parity_max_abs=err, numbers=numbers)
+
+
+# -- K8: flash attention, the training step's attention with the route on --
+
+FLASH_B, FLASH_H = 32, 8
+# (site, T, S, head dim, ragged keep): the gated sites of a training step
+FLASH_SITES = (("dp-unet L0 self", 601, 601, 8, False),
+               ("dp-unet L0 cross", 601, 400, 8, True),
+               ("denoiser L0 cross", 400, 267, 16, True),
+               ("EncSALayer o_proj", 400, 400, 32, True))
+
+
+def _flash_inputs(torch, gen, dev, t, s, d, ragged, dtype):
+    """q [B, H, T, d], k and v [B, H, S, d] as the modules hand them over
+    (heads split off [B, L, H*d] projections: strided views); a keep mask
+    [B, S] with ragged lengths (item 0 all S keys, the last one key) or
+    None."""
+    b, h = FLASH_B, FLASH_H
+
+    def heads(n):
+        return (torch.randn(b, n, h * d, generator=gen, device=dev)
+                .to(dtype).unflatten(-1, (h, d)).transpose(1, 2))
+    keep = None
+    if ragged:
+        lengths = torch.tensor([max(1, s - (s * i) // b) for i in range(b)],
+                               device=dev)
+        lengths[-1] = 1
+        keep = torch.arange(s, device=dev)[None] < lengths[:, None]
+    return heads(t), heads(s), heads(s), keep
+
+
+def _rel_err(out, ref):
+    diff = (out.float() - ref.float()).abs().max().item()
+    return diff, diff / max(ref.float().abs().max().item(), 1e-30)
+
+
+def _flash_bound(dname, b, h, t, s, d, ragged, what):
+    """(bound ms, by, flops, bytes) of K8's ``what`` ("forward",
+    "backward", "forward+backward"): 4 B H T S d operations forward, 2.5x
+    that backward; each input read once and each output written once (the
+    log-sum-exp is the forward's output and the backward's input, an
+    intermediate of the pair)."""
+    esz = 4 if dname == "float32" else 2
+    nt, ns = b * h * t * d, b * h * s * d
+    keep = b * s if ragged else 0
+    fwd = 4 * b * h * t * s * d
+    flops, nbytes = {
+        "forward": (fwd, esz * (2 * nt + 2 * ns) + 4 * b * h * t + keep),
+        "backward": (2.5 * fwd, esz * (4 * nt + 4 * ns) + 4 * b * h * t
+                     + keep),
+        "forward+backward": (3.5 * fwd, esz * (4 * nt + 4 * ns) + keep),
+    }[what]
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[dname]
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", flops, nbytes)
+
+
+def flash_kernel_phase(torch, dev):
+    """K8 against its plain version at the gated sites' shapes (B=32, 8
+    heads; float32 and bfloat16): forward output and log-sum-exp against
+    ``sdpa_plain``, dq/dk/dv of the backward kernels against autograd of
+    ``sdpa_plain`` and against ``sdpa_backward_plain`` on the same inputs;
+    gates max |kernel - plain| / max |plain| <= 1e-3 (float32), 3e-2
+    (bfloat16). Times (CUDA events, the wrappers' host work included) of the
+    forward, the backward and forward + backward through autograd for the
+    kernel, the plain version and the library
+    (``F.scaled_dot_product_attention`` with the mask as a boolean mask;
+    its backward alone as the ATen
+    backward op of the backend it takes, whose dq/dk/dv against the plain
+    version's are printed, not gated), the kernel's device times
+    (torch.profiler) and the bounds. Returns (ok, rows, {counter name:
+    headline row})."""
+    import torch.nn.functional as F
+    from diff_vits_tpu_torch.ops import flash_attention as FA
+    ok, rows = True, []
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        gen = torch.Generator(device=dev).manual_seed(14)
+        for site, t, s, d, ragged in FLASH_SITES:
+            q, k, v, keep = _flash_inputs(torch, gen, dev, t, s, d, ragged,
+                                          dtype)
+            scale = d ** -0.5
+            o, lse = FA.flash_attention_forward(q, k, v, keep, scale)
+            do = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
+            grads = FA.flash_attention_backward(q, k, v, o, lse, do, keep,
+                                                scale)
+            torch.cuda.synchronize()
+            ref_o, ref_lse = FA.sdpa_plain(q, k, v, keep, sm_scale=scale,
+                                           with_lse=True)
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            auto = torch.autograd.grad(
+                FA.sdpa_plain(*leaves, keep, sm_scale=scale), leaves, do)
+            manual = FA.sdpa_backward_plain(q, k, v, o, lse, do, keep,
+                                            sm_scale=scale)
+            lib_bwd, lib_grads = _library_backward(torch, q, k, v, keep, do,
+                                                   scale)
+            lib_err = max(_rel_err(g, ga)[1]
+                          for g, ga in zip(lib_grads, auto))
+            errs = {"o": _rel_err(o, ref_o), "lse": _rel_err(lse, ref_lse)}
+            for name, g, ga, gm, x in zip("qkv", grads, auto, manual,
+                                          (q, k, v)):
+                errs[f"d{name}"] = _rel_err(g, ga)
+                errs[f"d{name}_vs_written_out"] = _rel_err(g, gm)
+                # the gradient in its input's (a strided view's) layout
+                errs[f"d{name}_layout"] = (
+                    0.0, 0.0 if g.stride() == x.stride() else 1.0)
+            finite = all(bool(torch.isfinite(x.float()).all())
+                         for x in (o, lse, *grads))
+            good = finite and all(rel <= TOL[dname]
+                                  for _, rel in errs.values())
+            ok &= good
+            row = _flash_times(torch, F, FA, dname, q, k, v, keep, o, lse,
+                               do, scale, lib_bwd)
+            b, h = FLASH_B, FLASH_H
+            for what, key in (("forward", ""), ("backward", "bwd_"),
+                              ("forward+backward", "fwd_bwd_")):
+                bound, by, flops, nbytes = _flash_bound(dname, b, h, t, s, d,
+                                                        ragged, what)
+                row.update({f"{key}bound_ms": bound, f"{key}bound_by": by,
+                            f"{key}flops": flops, f"{key}bytes": nbytes})
+            row.update(site=f"{site} B={b} H={h} T={t} S={s} d={d} "
+                       + ("ragged" if ragged else "no mask"), dtype=dname,
+                       ok=good, errors={k: v[1] for k, v in errs.items()},
+                       library_bwd_err=lib_err,
+                       max_abs_err=max(errs[n][0] for n in ("o", "lse")),
+                       bwd_max_abs_err=max(errs[f"d{n}"][0] for n in "qkv"))
+            rows.append(row)
+            log(f"kernel flash_attention {dname:8s} {row['site']:50s} "
+                + " ".join(f"{k}={v[1]:.2e}" for k, v in errs.items()
+                           if not k.endswith("layout"))
+                + f" layouts {all(errs[f'd{n}_layout'][1] == 0 for n in 'qkv')}"
+                f" {'ok' if good else 'FAIL'}")
+            log("  forward ms={ms:.4f} device_ms={device_ms} plain_ms="
+                "{plain_ms:.4f} library_ms={library_ms:.4f} bound_ms="
+                "{bound_ms:.4f} ({bound_by}); backward ms={bwd_ms:.4f} "
+                "device_ms={bwd_device_ms} plain_ms={bwd_plain_ms:.4f} "
+                "library_ms={bwd_library_ms:.4f} (its dq/dk/dv vs plain "
+                "{library_bwd_err:.2e}) bound_ms={bwd_bound_ms:.4f} "
+                "({bwd_bound_by}); forward + "
+                "backward ms={fwd_bwd_ms:.4f} device_ms={fwd_bwd_device_ms} "
+                "plain_ms={fwd_bwd_plain_ms:.4f} library_ms="
+                "{fwd_bwd_library_ms:.4f} bound_ms={fwd_bwd_bound_ms:.4f}"
+                .format(**row))
+    head = next(r for r in rows if r["dtype"] == "bfloat16")
+    fwd = dict(head, name="flash_attention_forward",
+               max_abs_err=max(r["max_abs_err"] for r in rows))
+    bwd = dict(name="flash_attention_backward", site=head["site"],
+               dtype=head["dtype"],
+               max_abs_err=max(r["bwd_max_abs_err"] for r in rows),
+               ms=head["bwd_ms"], device_ms=head["bwd_device_ms"],
+               plain_ms=head["bwd_plain_ms"],
+               library_ms=head["bwd_library_ms"],
+               bound_ms=head["bwd_bound_ms"], bound_by=head["bwd_bound_by"])
+    for r in rows:
+        r["name"] = "flash_attention"
+    return ok, rows, {"flash_attention_forward": fwd,
+                      "flash_attention_backward": bwd}
+
+
+def _library_backward(torch, q, k, v, keep, do, scale):
+    """The library's backward as one call, on the backend
+    ``F.scaled_dot_product_attention`` takes: ATen's flash attention with
+    no mask in bfloat16, its memory-efficient attention otherwise. Its
+    forward runs once for its own output and log-sum-exp; the backward op
+    on them and ``do`` is the call. The mask is the additive -inf bias SDPA
+    makes of a boolean mask, in storage padded to 16 keys as SDPA pads it.
+    Returns (the call, its (dq, dk, dv))."""
+    aten = torch.ops.aten
+    if keep is None and q.dtype == torch.bfloat16:
+        o, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
+            aten._scaled_dot_product_flash_attention(q, k, v, 0.0, False,
+                                                     False, scale=scale)
+
+        def run():
+            return aten._scaled_dot_product_flash_attention_backward(
+                do, q, k, v, o, lse, cum_q, cum_k, max_q, max_k, 0.0, False,
+                seed, offset, scale=scale)
+        return run, run()
+    bias = None
+    if keep is not None:
+        b, s = keep.shape
+        padded = torch.zeros(b, 1, 1, -(-s // 16) * 16, dtype=q.dtype,
+                             device=q.device)
+        padded[..., :s].masked_fill_(~keep[:, None, None, :], float("-inf"))
+        bias = padded[..., :s].expand(b, q.shape[1], q.shape[2], s)
+    o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+        q, k, v, bias, True, 0.0, False, scale=scale)
+
+    def run():
+        return aten._scaled_dot_product_efficient_attention_backward(
+            do, q, k, v, bias, o, lse, seed, offset, 0.0,
+            [True, True, True, False], False, scale=scale)[:3]
+    return run, run()
+
+
+def _flash_times(torch, F, FA, dname, q, k, v, keep, o, lse, do, scale,
+                 library_bwd):
+    """K8's times at one case: the forward and backward launchers, forward
+    + backward through autograd; the plain version's; the library's
+    (forward and forward + backward through ``F.scaled_dot_product_attention``,
+    the backward call ``library_bwd``); the kernel's device times."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    mask = None if keep is None else keep[:, None, None, :]
+
+    def fwd_bwd(fn):
+        def run():
+            torch.autograd.grad(fn(*leaves), leaves, do)
+        return run
+    kernel = dict(
+        fwd=lambda: FA.flash_attention_forward(q, k, v, keep, scale),
+        bwd=lambda: FA.flash_attention_backward(q, k, v, o, lse, do, keep,
+                                                scale),
+        fwd_bwd=fwd_bwd(lambda *x: FA.sdpa(*x, keep, sm_scale=scale,
+                                           use_flash=True)))
+    plain = dict(
+        fwd=lambda: FA.sdpa_plain(q, k, v, keep, sm_scale=scale),
+        bwd=lambda: FA.sdpa_backward_plain(q, k, v, o, lse, do, keep,
+                                           sm_scale=scale),
+        fwd_bwd=fwd_bwd(lambda *x: FA.sdpa_plain(*x, keep, sm_scale=scale)))
+    library = dict(
+        fwd=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                   scale=scale),
+        fwd_bwd=fwd_bwd(lambda *x: F.scaled_dot_product_attention(
+            *x, attn_mask=mask, scale=scale)))
+    return dict(
+        ms=cuda_time(kernel["fwd"]), device_ms=device_time(kernel["fwd"]),
+        plain_ms=cuda_time(plain["fwd"], iters=5),
+        library_ms=cuda_time(library["fwd"]),
+        bwd_ms=cuda_time(kernel["bwd"]),
+        bwd_device_ms=device_time(kernel["bwd"]),
+        bwd_plain_ms=cuda_time(plain["bwd"], iters=5),
+        bwd_library_ms=cuda_time(library_bwd),
+        fwd_bwd_ms=cuda_time(kernel["fwd_bwd"]),
+        fwd_bwd_device_ms=device_time(kernel["fwd_bwd"]),
+        fwd_bwd_plain_ms=cuda_time(plain["fwd_bwd"], iters=5),
+        fwd_bwd_library_ms=cuda_time(library["fwd_bwd"]))
+
+
+# autograd nodes that pass or cut a gradient by the sign of a value: a value
+# within rounding of the kink takes the other branch on another route
+KINKS = ("ReluBackward", "ThresholdBackward", "ClampBackward",
+         "ClampMinBackward", "ClampMaxBackward", "MaximumBackward",
+         "MinimumBackward", "AbsBackward")
+
+
+def _behind_kinks(loss, named_params):
+    """Names of the parameters that some path of ``loss``'s autograd graph
+    reaches through a kink node (``KINKS``)."""
+    names = {id(p): n for n, p in named_params}
+    seen, out = set(), set()
+    stack = [(loss.grad_fn, False)]
+    while stack:
+        fn, kinked = stack.pop()
+        if fn is None or (fn, kinked) in seen:
+            continue
+        seen.add((fn, kinked))
+        kinked = kinked or fn.name().startswith(KINKS)
+        var = getattr(fn, "variable", None)
+        if kinked and var is not None and id(var) in names:
+            out.add(names[id(var)])
+        stack.extend((nxt, kinked) for nxt, _ in fn.next_functions)
+    return out
+
+
+class _ReluBranches:
+    """Forward hooks on the modules whose output enters a ReLU (every
+    ``TransformerFFNLayer.ffn_1`` and ``FFN.conv_1``). ``record`` keeps each
+    call's branch (output > 0); ``impose(branches)`` makes each call take
+    the recorded branches: an entry on the other side, within rounding of 0
+    on either route, becomes +-1e-30 with its gradient kept."""
+
+    def __init__(self, torch, model):
+        from diff_vits_tpu_torch.nn.fairseq import TransformerFFNLayer
+        from diff_vits_tpu_torch.nn.layers import FFN
+        self.torch, self.want, self.seen = torch, None, []
+        self.handles = [
+            (m.ffn_1 if isinstance(m, TransformerFFNLayer) else m.conv_1)
+            .register_forward_hook(self.hook) for m in model.modules()
+            if isinstance(m, (TransformerFFNLayer, FFN))]
+
+    def record(self):
+        self.want, self.seen = None, []
+
+    def impose(self, branches):
+        self.want, self.seen = list(branches), []
+
+    def hook(self, module, args, out):
+        torch = self.torch
+        if self.want is not None:
+            want = self.want[len(self.seen)]
+            flip = want != (out > 0)
+            tiny = torch.where(want, 1e-30, -1e-30).to(out.dtype)
+            out = torch.where(flip, out - out.detach() + tiny, out)
+        self.seen.append((out > 0).detach())
+        return out
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def _grad_gaps(g_ref, g_x, floor_max, floor_norm):
+    """{leaf of both: (max |g_x - g_ref| / max |g_ref|, |g_x - g_ref| /
+    |g_ref|)}, each scale at least its floor."""
+    gaps = {}
+    for name, g in g_ref.items():
+        if name not in g_x:
+            continue
+        diff = g_x[name] - g
+        gaps[name] = (diff.abs().max().item()
+                      / max(g.abs().max().item(), floor_max),
+                      diff.norm().item() / max(g.norm().item(), floor_norm))
+    return gaps
+
+
+def flash_grad_phase(torch, dev, card):
+    """Model3 at ``reference_parity`` widths, B=8, float32 (TF32 off), eval
+    mode with the UNet's fused route off (so every gated attention site
+    reaches K8 and dropout is off), ``generator=None`` with injected t and
+    noise: ``DiffVits.forward`` and its backward with the flash route off,
+    on, and off again with every ReLU on the branches the route-on run took
+    (``_ReluBranches``). Gates: the losses within rel 1e-4; the K8 forward
+    and backward counters equal to the calls through the flash gate (0 with
+    the route off); the gradients, on against off, within 1e-3 of each
+    leaf's scale by the norm (|g_on - g_off| / |g_off|) and by the largest
+    entry (max |g_on - g_off| / max |g_off|) on every leaf that no ReLU,
+    clamp, abs or max separates from the loss (``_behind_kinks``); and, on
+    against off with the same ReLU branches, by the largest entry on every
+    leaf. Each scale is at least 1e-5 of the largest leaf's. A ReLU input
+    within float32 rounding of 0 may take the other branch on the other
+    route; the third run shows what those flips alone move. Returns (ok,
+    numbers)."""
+    import numpy as np
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.models.diff_vits import DiffVits
+    from diff_vits_tpu_torch.nn.unet1d import set_use_flash, set_use_fused
+    from diff_vits_tpu_torch.text.symbols import symbols
+    from diff_vits_tpu_torch.train.trainer import device_batch
+    from diff_vits_tpu_torch.utils.init import init_random
+
+    cfg = _train_cfg()
+    model = DiffVits(cfg, len(symbols), device=dev)
+    init_random(model, torch.Generator().manual_seed(0))
+    model.eval()
+    set_use_fused(model, False)
+    b, t_y = 8, cfg.data.max_mel_len
+    t_x = cfg.data.max_text_len * 2 + 1
+    batch = next(_train_batches(np, b, t_x, t_y, t_y * 2 // 3 + 1,
+                                len(symbols), seed=9))
+    inputs = device_batch(batch, True, dev)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    t = torch.randint(0, cfg.train.timesteps, (b,), generator=gen,
+                      device=dev)
+    noise = torch.randn(inputs["spec"].shape, generator=gen, device=dev)
+    calls, handles = _flash_calls(model)
+    relus = _ReluBranches(torch, model)
+    res, branches, kinked = {}, {}, set()
+    for key, flash in (("off", False), ("on", True), ("swap", False)):
+        set_use_flash(model, flash)
+        model.zero_grad(set_to_none=True)
+        ops.reset_launches()
+        calls[0] = 0
+        if key == "swap":
+            relus.impose(branches["on"])
+        else:
+            relus.record()
+        loss, _ = model(**inputs, t=t, noise=noise)
+        if key == "off":
+            kinked = _behind_kinks(loss, model.named_parameters())
+        loss.backward()
+        torch.cuda.synchronize()
+        branches[key] = relus.seen
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        res[key] = (loss.item(), grads, ops.launch_counts(), calls[0])
+    relus.remove()
+    for h in handles:
+        h.remove()
+    loss_off, g_off, c_off, n_off = res["off"]
+    loss_on, g_on, c_on, n_on = res["on"]
+    loss_s, g_s, c_s, n_s = res["swap"]
+    flips = sum(int((x != y).sum()) for x, y in zip(branches["off"],
+                                                      branches["on"]))
+    swapped_ok = (len(branches["swap"]) == len(branches["on"]) and all(
+        bool((x == y).all()) for x, y in zip(branches["swap"],
+                                             branches["on"])))
+    rel_loss = abs(loss_on - loss_off) / max(abs(loss_off), 1e-30)
+    same_leaves = set(g_on) == set(g_off) == set(g_s)
+    floor_max = 1e-5 * max(g.abs().max().item() for g in g_off.values())
+    floor_norm = 1e-5 * max(g.norm().item() for g in g_off.values())
+    gaps = {"off": _grad_gaps(g_off, g_on, floor_max, floor_norm),
+            "swap": _grad_gaps(g_s, g_on, floor_max, floor_norm)}
+    common = [n for n in g_off if n in gaps["off"] and n in gaps["swap"]]
+    free = [n for n in common if n not in kinked]
+    behind = [n for n in common if n in kinked]
+
+    def worst(key, names, i):
+        return max(((gaps[key][n][i], n) for n in names),
+                   default=(float("inf"), None))
+    by_norm, by_norm_name = worst("off", common, 1)
+    free_max, free_name = worst("off", free, 0)
+    kink_max, kink_name = worst("off", behind, 0)
+    swap_max, swap_name = worst("swap", common, 0)
+    k8 = ("flash_attention_forward", "flash_attention_backward")
+    counts_ok = (n_on > 0 and n_off == 0 and n_s == 0
+                 and all(c_on[n] == n_on for n in k8)
+                 and all(c_off[n] == 0 and c_s[n] == 0 for n in k8))
+    ok = (same_leaves and counts_ok and swapped_ok and rel_loss <= 1e-4
+          and by_norm <= 1e-3 and free_max <= 1e-3 and swap_max <= 1e-3)
+    log(f"flash gradient parity (model3, B={b}, fp32, eval, fused off): "
+        f"loss {loss_on:.6f} (flash) vs {loss_off:.6f}, rel {rel_loss:.2e} "
+        f"(gate 1e-4); {len(g_off)} parameter gradients, {len(behind)} of "
+        f"them behind a ReLU/clamp/abs/max; on vs off: worst |diff| / |grad| "
+        f"{by_norm:.2e} ({by_norm_name}; gate 1e-3), worst max |diff| / max "
+        f"|grad| behind no kink {free_max:.2e} ({free_name}; gate 1e-3), "
+        f"behind one {kink_max:.2e} ({kink_name}; not gated); {flips} ReLU "
+        f"inputs on the other branch; on vs off with the route-on ReLU "
+        f"branches (loss {loss_s:.6f}): worst max |diff| / max |grad| "
+        f"{swap_max:.2e} ({swap_name}; gate 1e-3); calls through the flash "
+        f"gate {n_on}, launches {c_on} (route off: {c_off}): "
+        f"{'ok' if ok else 'FAIL'}; card {card}")
+    return ok, dict(loss_flash=loss_on, loss_plain=loss_off,
+                    loss_plain_flash_branches=loss_s, rel_loss=rel_loss,
+                    leaves=len(g_off), leaves_behind_kinks=len(behind),
+                    worst_grad_rel=by_norm, worst_grad=by_norm_name,
+                    worst_free_grad_max_rel=free_max,
+                    worst_free_grad=free_name,
+                    worst_kinked_grad_max_rel=kink_max,
+                    worst_kinked_grad=kink_name, relu_flips=flips,
+                    worst_same_branches_max_rel=swap_max,
+                    worst_same_branches=swap_name,
+                    over_1e4={n: dict(off=gaps["off"][n], swap=gaps["swap"][n],
+                                      behind_kink=n in kinked)
+                              for n in common if max(gaps["off"][n][0],
+                                                     gaps["swap"][n][0])
+                              > 1e-4},
+                    flash_calls=n_on, launches_flash=c_on,
+                    launches_plain=c_off)
+
+
+def variant_train_phase(torch, dev, card):
+    """The variant (``duration_predictor="sdp"``, residual-coupling flow)
+    trained by the same ``Trainer`` at ``reference_parity`` widths, B=32,
+    bf16: 2 warm-up and 3 timed steps with the flash route off, then with
+    it on; the checks of ``train_run`` (K5 and K7 stay at 0: K5 runs only
+    unrecorded in eval mode, K7 only in ConvFlow's reverse). Returns
+    ({phase: ok}, {"off": numbers, "on": numbers}, the counts of the run
+    with the route on)."""
+    cfg = _train_cfg(duration_predictor="sdp", use_flow=True)
+    ok, numbers, counts = {}, {}, None
+    for flash in (False, True):
+        key = "on" if flash else "off"
+        good, total, numbers[key], trainer, _ = train_run(
+            torch, dev, card, cfg, f"variant train (flash {key})",
+            use_flash=flash, steps=5)
+        ok[f"variant_train_flash_{key}"] = good
+        counts = total
+        del trainer
+        torch.cuda.empty_cache()
+    return ok, numbers, counts
 
 
 if __name__ == "__main__":

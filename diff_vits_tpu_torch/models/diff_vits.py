@@ -57,7 +57,8 @@ class DiffVits(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 mas_noise_scale: float = 0.0,
                 t: Optional[torch.Tensor] = None,
-                noise: Optional[torch.Tensor] = None
+                noise: Optional[torch.Tensor] = None,
+                dur_noise: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Tuple[Dict[str, torch.Tensor],
                                                torch.Tensor, torch.Tensor]]:
         """Training loss. text/tone/language [B, Tx]; spec [B, Ty, 100] the
@@ -65,14 +66,17 @@ class DiffVits(nn.Module):
         refer2). ``generator`` (on the model's device) draws the posterior
         and MAS noise, t, the diffusion noise and every dropout mask. With
         ``generator=None``, ``t`` [B] and ``noise`` [B, Ty, 100] must be
-        given and the posterior and MAS noise are zero: the parity mode.
+        given and the posterior and MAS noise are zero: the parity mode,
+        where ``dur_noise`` [B, Tx, 2] injects the stochastic duration
+        predictor's posterior draw (``VITS.forward``).
         Returns (loss, (metrics, model_out, target))."""
         if generator is None and (t is None or noise is None):
             raise ValueError("generator=None needs injected t and noise")
         gd = self.diffusion(spec.device)
         content, lengths, (l_length, loss_kl, loss_kl_ph) = self.vits(
             text, text_lengths, spec, spec_lengths, tone, language,
-            mas_noise_scale=mas_noise_scale, generator=generator)
+            mas_noise_scale=mas_noise_scale, dur_noise=dur_noise,
+            generator=generator)
 
         b = spec.shape[0]
         if t is None:

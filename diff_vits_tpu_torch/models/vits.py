@@ -2,11 +2,9 @@
 losses) and the inference path (text -> durations -> expanded content).
 
 Port of ``VITS.__call__``, ``_predict_durations``, ``predict_lengths`` and
-``infer`` of ``diff_vits_tpu/models/vits.py``. Inference covers every
-duration predictor (``unet``, ``conv``, ``sdp``) with or without the spec
-flow (residual or transformer coupling); the training forward covers the
-model3 configuration (UNet duration predictor, no flow). The phoneme VAE
-is not ported.
+``infer`` of ``diff_vits_tpu/models/vits.py``. Both cover every duration
+predictor (``unet``, ``conv``, ``sdp``) with or without the spec flow
+(residual or transformer coupling). The phoneme VAE is not ported.
 """
 from __future__ import annotations
 
@@ -38,10 +36,6 @@ def check_supported(cfg: VitsConfig) -> None:
     if cfg.duration_predictor not in ("unet", "conv", "sdp"):
         raise ValueError(f"unknown duration_predictor "
                          f"{cfg.duration_predictor!r}")
-
-
-def _is_model3(cfg: VitsConfig) -> bool:
-    return cfg.duration_predictor == "unet" and not cfg.use_flow
 
 
 class VITS(nn.Module):
@@ -96,38 +90,51 @@ class VITS(nn.Module):
 
     def forward(self, x, x_lengths, y, y_lengths, tone, language, *,
                 mas_noise_scale: float = 0.0,
+                dur_noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
         """Training forward (vits.py:85-166). x/tone/language [B, Tx]; y
         [B, Ty, 100] the target mel. ``generator`` draws the posterior and
-        MAS noise and every dropout mask; without one both noises are zero
-        (and dropout needs eval mode). Returns (content [B, Ty, C],
-        y_lengths, (l_length, loss_kl, loss_kl_ph = 0)). Model3 only: the
-        variants' training forward is a later slice."""
-        if not _is_model3(self.cfg):
-            raise NotImplementedError(
-                "the port's training forward covers duration_predictor="
-                "'unet' without flow; got duration_predictor="
-                f"{self.cfg.duration_predictor!r}, use_flow="
-                f"{self.cfg.use_flow}")
+        MAS noise, the stochastic duration predictor's posterior draw and
+        every dropout mask; without one the posterior and MAS noise are zero
+        (and dropout needs eval mode). The stochastic predictor's draw is
+        ``dur_noise`` [B, Tx, 2] (a standard normal draw) when given, else
+        from ``generator``, else from a generator seeded 0 (JAX draws from
+        PRNGKey(0) there). Returns (content [B, Ty, C], y_lengths,
+        (l_length, loss_kl, loss_kl_ph = 0))."""
+        kind = self.cfg.duration_predictor
         g = self.ref_enc(y)[:, None, :]
         x_h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, tone, language,
                                               g=g, generator=generator)
         z, m_q, logs_q, y_mask = self.enc_q(y, y_lengths, g=g,
                                             generator=generator)
+        z_p = z
+        if self.flow is not None:
+            z_p = self.flow(z, y_mask, g=g, generator=generator)
         attn_mask = y_mask[:, :, 0][:, :, None] * x_mask[:, :, 0][:, None, :]
-        attn = self._alignment(z, m_p, logs_p, attn_mask, mas_noise_scale,
+        attn = self._alignment(z_p, m_p, logs_p, attn_mask, mas_noise_scale,
                                generator)
 
         w = attn.sum(dim=1)                                     # [B, Tx]
-        logw_ = torch.log(w + 1e-6)[..., None] * x_mask
-        logw = self.dp(x_h, x_lengths, y, y_lengths)
-        l_length = torch.sum((logw - logw_) ** 2, dim=(1, 2)) \
-            / torch.sum(x_mask)
-        l_length = torch.sum(l_length.float())
+        if kind == "sdp":
+            if dur_noise is None and generator is None:
+                dur_noise = draw_normal((x.shape[0], x.shape[1], 2), w,
+                                        torch.Generator().manual_seed(0))
+            nll = self.dp(x_h, x_mask, w=w[..., None], g=g, noise=dur_noise,
+                          generator=generator)
+            l_length = torch.sum(nll.float()) / torch.sum(x_mask.float())
+        else:
+            logw_ = torch.log(w + 1e-6)[..., None] * x_mask
+            if kind == "conv":
+                logw = self.dp(x_h, x_mask, g=g, generator=generator)
+            else:
+                logw = self.dp(x_h, x_lengths, y, y_lengths)
+            l_length = torch.sum((logw - logw_) ** 2, dim=(1, 2)) \
+                / torch.sum(x_mask)
+            l_length = torch.sum(l_length.float())
 
         m_p_e = torch.matmul(attn, m_p.float())
         logs_p_e = torch.matmul(attn, logs_p.float())
-        loss_kl = masking.kl_loss(z, logs_q, m_p_e, logs_p_e, y_mask)
+        loss_kl = masking.kl_loss(z_p, logs_q, m_p_e, logs_p_e, y_mask)
         content = self.o_proj(z, y_lengths, g=g, generator=generator)
         return content, y_lengths, (l_length, loss_kl,
                                     torch.zeros((), device=l_length.device))

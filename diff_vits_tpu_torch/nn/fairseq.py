@@ -1,8 +1,9 @@
 """Fairseq-style encoder layers (the PromptEncoder backbone), channel-last.
 
 Port of ``ConvLayer``, ``TransformerFFNLayer`` and ``EncSALayer`` of
-``diff_vits_tpu/nn/fairseq.py:85-228`` on their plain einsum path (the JAX
-package's flash route is off by default). Keep masks are float [B, T, 1].
+``diff_vits_tpu/nn/fairseq.py:85-228``; ``EncSALayer`` has the JAX
+package's flash route (:197-203) behind ``use_flash``, off by default as in
+JAX (``nn/unet1d.set_use_flash``). Keep masks are float [B, T, 1].
 Dropout (train mode only, from the caller's generator) sits where the JAX
 layers have it: the FFN's ReLU (:161), the attention output (:217) and the
 FFN output (:226); registry code 8 sets the attention-probability dropout
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from diff_vits_tpu_torch.nn.layers import Conv1d, dropout
+from diff_vits_tpu_torch.ops.flash_attention import flash_ok, sdpa
 
 
 class ConvLayer(nn.Module):
@@ -64,18 +66,26 @@ class TransformerFFNLayer(nn.Module):
 
 class EncSALayer(nn.Module):
     """Pre-LN self-attention (no qkv bias, -inf key padding) + conv FFN;
-    registry code 8: 8 heads, FFN kernel 9 (fairseq.py:189)."""
+    registry code 8: 8 heads, FFN kernel 9, no attention-probability dropout
+    (fairseq.py:189), so the flash route (``use_flash``, the keep mask as
+    the key mask) computes the same function."""
 
     def __init__(self, c: int, num_heads: int = 8, kernel_size: int = 9,
                  p_dropout: float = 0.0):
         super().__init__()
         self.num_heads, self.p_dropout = num_heads, p_dropout
+        self.use_flash = False
         self.layer_norm1 = nn.LayerNorm(c, eps=1e-5)
         self.in_proj = nn.Linear(c, 3 * c, bias=False)
         self.out_proj = nn.Linear(c, c, bias=False)
         self.layer_norm2 = nn.LayerNorm(c, eps=1e-5)
         self.ffn = TransformerFFNLayer(c, 4 * c, kernel_size=kernel_size,
                                        p_dropout=p_dropout)
+
+    def uses_flash(self, t: int, c: int) -> bool:
+        """Whether a call on [B, t, c] takes the flash route."""
+        shape = (None, self.num_heads, t, c // self.num_heads)
+        return flash_ok(shape, shape, self.use_flash)
 
     def forward(self, x, keep_mask, *,
                 generator: Optional[torch.Generator] = None):
@@ -86,10 +96,15 @@ class EncSALayer(nn.Module):
         def split(a):
             return a.reshape(b, t, self.num_heads, d).transpose(1, 2)
 
-        scores = torch.matmul(split(q) * d ** -0.5, split(k).transpose(-1, -2))
-        pad = keep_mask[:, None, None, :, 0] == 0
-        scores = scores.masked_fill(pad, float("-inf"))
-        out = torch.matmul(torch.softmax(scores, dim=-1), split(v))
+        if self.uses_flash(t, c):
+            out = sdpa(split(q), split(k), split(v), keep_mask[:, :, 0] > 0,
+                       sm_scale=d ** -0.5, use_flash=True)
+        else:
+            scores = torch.matmul(split(q) * d ** -0.5,
+                                  split(k).transpose(-1, -2))
+            pad = keep_mask[:, None, None, :, 0] == 0
+            scores = scores.masked_fill(pad, float("-inf"))
+            out = torch.matmul(torch.softmax(scores, dim=-1), split(v))
         out = self.out_proj(out.transpose(1, 2).reshape(b, t, c))
         out = dropout(out, self.p_dropout, self.training, generator)
         x = (x + out) * keep_mask

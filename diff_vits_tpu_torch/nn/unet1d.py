@@ -33,6 +33,8 @@ from diff_vits_tpu_torch.nn.layers import Conv1d
 from diff_vits_tpu_torch.ops import (
     fused_cross_attention, fused_geglu_ff, fused_resnet_block,
     fused_self_attention)
+from diff_vits_tpu_torch.ops.flash_attention import (
+    bias_to_keep_mask, flash_ok, sdpa)
 
 
 def _group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
@@ -51,7 +53,10 @@ def _conv_w(conv: nn.Conv1d) -> torch.Tensor:
 
 class CrossAttention(nn.Module):
     """SDPA attention: q from x, k/v from ``context`` (or x); additive key
-    bias [B, 1, S] (unet1d.py:34)."""
+    bias [B, 1, S] (unet1d.py:34). With ``use_flash`` (off by default, as
+    in JAX) a call that passes the flash gate (unet1d.py:70-74) goes through
+    ``ops.flash_attention.sdpa``: K8 on the card, its plain version on the
+    CPU."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None):
@@ -59,10 +64,17 @@ class CrossAttention(nn.Module):
         inner = heads * dim_head
         ctx_dim = cross_attention_dim or query_dim
         self.heads, self.dim_head = heads, dim_head
+        self.use_flash = False
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(ctx_dim, inner, bias=False)
         self.to_v = nn.Linear(ctx_dim, inner, bias=False)
         self.to_out = nn.Linear(inner, query_dim)
+
+    def uses_flash(self, t: int, s: int) -> bool:
+        """Whether a call with ``t`` queries and ``s`` keys takes the flash
+        route."""
+        return flash_ok((None, self.heads, t, self.dim_head),
+                        (None, self.heads, s, self.dim_head), self.use_flash)
 
     def forward(self, x, context=None, attention_bias=None):
         ctx = x if context is None else context
@@ -73,10 +85,15 @@ class CrossAttention(nn.Module):
 
         q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), \
             split(self.to_v(ctx))
-        scores = torch.matmul(q, k.transpose(-1, -2)) * self.dim_head ** -0.5
-        if attention_bias is not None:
-            scores = scores + attention_bias[:, None].to(scores.dtype)
-        out = torch.matmul(torch.softmax(scores, dim=-1), v)
+        if self.uses_flash(t, ctx.shape[1]):
+            out = sdpa(q, k, v, bias_to_keep_mask(attention_bias),
+                       sm_scale=self.dim_head ** -0.5, use_flash=True)
+        else:
+            scores = torch.matmul(q, k.transpose(-1, -2)) \
+                * self.dim_head ** -0.5
+            if attention_bias is not None:
+                scores = scores + attention_bias[:, None].to(scores.dtype)
+            out = torch.matmul(torch.softmax(scores, dim=-1), v)
         return self.to_out(out.transpose(1, 2).reshape(b, t, -1))
 
 
@@ -540,3 +557,14 @@ def set_use_fused(module: nn.Module, flag: bool) -> None:
     for m in module.modules():
         if hasattr(m, "use_fused"):
             m.use_fused = flag
+
+
+def set_use_flash(module: nn.Module, flag: bool) -> None:
+    """Route the score/softmax/PV core of every attention module under
+    ``module`` that has a flash route (the UNet's ``CrossAttention``, the
+    prompt encoders' ``EncSALayer``) through K8 (True) or its plain
+    formulation (False, the default, as in JAX). ``set_use_fused`` leaves
+    this flag alone."""
+    for m in module.modules():
+        if hasattr(m, "use_flash"):
+            m.use_flash = flag

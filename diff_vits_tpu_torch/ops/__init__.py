@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+from diff_vits_tpu_torch.ops.flash_attention import (
+    flash_attention_backward, flash_attention_forward)
 from diff_vits_tpu_torch.ops.fused_resnet import fused_resnet_block
 from diff_vits_tpu_torch.ops.fused_transformer import (
     fused_cross_attention, fused_geglu_ff, fused_self_attention)
@@ -17,7 +19,8 @@ from diff_vits_tpu_torch.ops.spline import unconstrained_rqs
 
 KERNEL_OPS = (fused_resnet_block, fused_self_attention,
               fused_cross_attention, fused_geglu_ff, fused_rel_self_attention,
-              maximum_path, unconstrained_rqs)
+              maximum_path, unconstrained_rqs, flash_attention_forward,
+              flash_attention_backward)
 
 
 def launch_counts() -> Dict[str, int]:

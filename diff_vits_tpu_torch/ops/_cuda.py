@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _CHECKOUT = Path(__file__).resolve().parents[2]
 SOURCES = ("norm_stats.cu", "gemm.cu", "attention.cu", "mas.cu",
-           "rel_attention.cu", "spline.cu")
+           "rel_attention.cu", "spline.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +45,9 @@ _SIGNATURES = {
                           _I, _F, _P),
     "dvt_spline": (_P, _I, _P, _L, _P, _L, _P, _L, _I, _P, _P, _L, _I, _I, _F,
                    _F, _F, _F, _P),
+    "dvt_flash_forward": (_P, _P),
+    "dvt_flash_backward": (_P, _P),
+    "dvt_flash_args_size": (),
 }
 
 
@@ -60,6 +63,23 @@ class GemmArgs(ctypes.Structure):
         ("norm", _I), ("silu", _I), ("geglu", _I), ("problems", _I),
         ("a_dtype", _I), ("b_dtype", _I), ("out_dtype", _I),
         ("res_dtype", _I), ("norm_dtype", _I), ("bias_dtype", _I),
+    ]
+
+
+class View(ctypes.Structure):
+    """Mirror of ``dvt::View`` in csrc/flash_attention.cu: a [B, H, L, D]
+    tensor with a unit last stride."""
+    _fields_ = [("p", _P), ("sb", _L), ("sh", _L), ("sl", _L)]
+
+
+class FlashArgs(ctypes.Structure):
+    """Mirror of ``dvt::FlashArgs`` in csrc/flash_attention.cu."""
+    _fields_ = [
+        ("q", View), ("k", View), ("v", View), ("o", View), ("dout", View),
+        ("dq", View), ("dk", View), ("dv", View),
+        ("lse", _P), ("delta", _P), ("keep", _P),
+        ("B", _I), ("H", _I), ("T", _I), ("S", _I), ("D", _I), ("dt", _I),
+        ("scale", _F),
     ]
 
 
@@ -137,10 +157,13 @@ def build() -> str:
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
         _libs[src] = lib
-    size = _libs["gemm.cu"].dvt_gemm_args_size()
-    if size != ctypes.sizeof(GemmArgs):
-        raise RuntimeError(f"GemmArgs layout mismatch: C {size} bytes, "
-                           f"ctypes {ctypes.sizeof(GemmArgs)}")
+    for src, name, mirror in (("gemm.cu", "dvt_gemm_args_size", GemmArgs),
+                              ("flash_attention.cu", "dvt_flash_args_size",
+                               FlashArgs)):
+        size = getattr(_libs[src], name)()
+        if size != ctypes.sizeof(mirror):
+            raise RuntimeError(f"{mirror.__name__} layout mismatch: C {size} "
+                               f"bytes, ctypes {ctypes.sizeof(mirror)}")
     return _build_log
 
 

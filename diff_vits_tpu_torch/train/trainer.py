@@ -16,6 +16,12 @@ Port of ``diff_vits_tpu/train/trainer.py`` for one process on one device:
 * bfloat16 ``torch.autocast`` on the card when ``train.compute_dtype`` is
   "bfloat16", over float32 master weights.
 
+Every configuration ``DiffVits`` builds trains here unchanged: the
+duration predictor and the spec flow are the model's business. The
+flash-attention route (K8) of the UNets' and prompt encoders' attention is
+off, as JAX defaults it; ``nn.unet1d.set_use_flash(trainer.model, True)``
+turns it on.
+
 Every random draw of a step (dropout, posterior and MAS noise, t,
 diffusion noise) comes from the trainer's ``torch.Generator`` on its
 device, seeded with ``train.seed``; the coin flip from a Python

@@ -31,14 +31,26 @@ atol/rtol 1e-5, one bf16 rounding rtol 1e-2 for bfloat16 outputs;
 log|det| 1e-4, 1e-3 on a knot, where at +-tail_bound the inverse's
 discriminant b^2 - 4ac cancels down to (h d)^2); the forward, which is
 well conditioned, is held off the knots to those tolerances directly.
+K8 (flash attention): forward output and log-sum-exp against the plain
+version, dq/dk/dv against autograd of it and against the backward written
+out on the kernel's own output, at every head dim the kernel takes
+(multiples of 8 up to 128), ragged keep masks, one query and one key,
+lengths past one 128-row block and one shared-memory tile, q/k/v as heads
+split off a [B, L, H*d] projection (the gradients come back in that
+layout) or contiguous; refusals; and the UNet's CrossAttention and the
+prompt encoder's EncSALayer with ``use_flash``, which launch the forward
+and backward kernels once per call and match their plain route, output and
+parameter gradients, in float32 and under bfloat16 autocast.
 """
 import pytest
 import torch
 
 from diff_vits_tpu_torch import ops
+from diff_vits_tpu_torch.nn.fairseq import EncSALayer
 from diff_vits_tpu_torch.nn.layers import MultiHeadAttention
 from diff_vits_tpu_torch.nn.unet1d import (
-    UNet1DConditionModel, set_use_fused)
+    CrossAttention, UNet1DConditionModel, set_use_flash, set_use_fused)
+from diff_vits_tpu_torch.ops import flash_attention as FA
 from diff_vits_tpu_torch.ops import fused_resnet as FR
 from diff_vits_tpu_torch.ops import fused_transformer as FT
 from diff_vits_tpu_torch.ops import mas
@@ -251,7 +263,8 @@ def test_tiny_unet_on_kernels_matches_unfused(dev):
             "fused_resnet_block": 22, "fused_self_attention": 16,
             "fused_cross_attention": 16, "fused_geglu_ff": 16,
             "fused_rel_self_attention": 0, "maximum_path": 0,
-            "unconstrained_rqs": 0}
+            "unconstrained_rqs": 0, "flash_attention_forward": 0,
+            "flash_attention_backward": 0}
         set_use_fused(model, False)
         ref = model(x, ts, ctx, encoder_attention_mask=keep)
     assert out.shape == (b, t, 4)
@@ -575,3 +588,149 @@ def test_spline_kernel_refuses_what_it_does_not_take(dev):
         spline.unconstrained_rqs(x, uw, uh.bfloat16(), ud, inverse=True,
                                  tail_bound=5.0)
     assert spline.unconstrained_rqs.launches == before
+
+
+# -- K8: flash attention --------------------------------------------------
+
+def _flash_case(gen, dev, b, h, t, s, d, dtype, ragged, split):
+    """q [B, H, T, d], k and v [B, H, S, d]: heads split off [B, L, H*d]
+    projections (``split``, strided views) or contiguous; a ragged keep
+    mask [B, S] (item 0 all keys, the last one key) or None."""
+    def make(n):
+        if split:
+            return _rand(gen, dev, b, n, h * d, dtype=dtype).unflatten(
+                -1, (h, d)).transpose(1, 2)
+        return _rand(gen, dev, b, h, n, d, dtype=dtype)
+    keep = None
+    if ragged:
+        lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
+        lengths[0], lengths[-1] = s, 1
+        keep = torch.arange(s, device=dev)[None] < lengths[:, None]
+    return make(t), make(s), make(s), keep
+
+
+def _check_flash(dev, dtype, b, h, t, s, d, ragged, split):
+    gen = torch.Generator(device=dev).manual_seed(b * 1000 + t + s + d)
+    q, k, v, keep = _flash_case(gen, dev, b, h, t, s, d, dtype, ragged,
+                                split)
+    scale = d ** -0.5
+    fwd, bwd = (FA.flash_attention_forward.launches,
+                FA.flash_attention_backward.launches)
+    o, lse = FA.flash_attention_forward(q, k, v, keep, scale)
+    do = _rand(gen, dev, *o.shape, dtype=dtype)
+    grads = FA.flash_attention_backward(q, k, v, o, lse, do, keep, scale)
+    torch.cuda.synchronize()
+    assert (FA.flash_attention_forward.launches,
+            FA.flash_attention_backward.launches) == (fwd + 1, bwd + 1)
+    ref_o, ref_lse = FA.sdpa_plain(q, k, v, keep, sm_scale=scale,
+                                   with_lse=True)
+    _assert_close(o, ref_o, dtype)
+    _assert_close(lse, ref_lse, dtype)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(FA.sdpa_plain(*leaves, keep, sm_scale=scale),
+                               leaves, do)
+    manual = FA.sdpa_backward_plain(q, k, v, o, lse, do, keep,
+                                    sm_scale=scale)
+    for g, ga, gm, x in zip(grads, auto, manual, (q, k, v)):
+        assert g.stride() == x.stride()
+        _assert_close(g, ga, dtype)
+        _assert_close(g, gm, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_flash_attention_kernel_every_head_dim(dev, dtype, d):
+    _check_flash(dev, dtype, 3, 2, 37, 29, d, ragged=True, split=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,h,t,s,d,ragged,split", [
+    (2, 3, 1, 2, 8, False, False),        # one query, two keys
+    (2, 2, 129, 130, 16, True, True),     # past a 128-row block, 64-row tile
+    (2, 8, 300, 5, 32, True, False),
+    (3, 2, 70, 257, 128, True, True),     # 32-row tiles at d = 128
+    (2, 8, 601, 400, 8, True, True),      # the DP UNet's cross attention
+])
+def test_flash_attention_kernel_ragged_shapes(dev, dtype, b, h, t, s, d,
+                                              ragged, split):
+    _check_flash(dev, dtype, b, h, t, s, d, ragged, split)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = ops.launch_counts()
+    q, k, v, keep = _flash_case(gen, dev, 2, 2, 9, 7, 12, torch.float32,
+                                True, True)
+    with pytest.raises(ValueError, match="head dims"):
+        FA.flash_attention_forward(q, k, v, keep, 0.3)
+    q, k, v, keep = _flash_case(gen, dev, 2, 2, 9, 7, 16, torch.float32,
+                                True, False)
+    with pytest.raises(TypeError):                 # mixed dtypes
+        FA.flash_attention_forward(q, k.bfloat16(), v, keep, 0.25)
+    with pytest.raises(TypeError):                 # float16
+        FA.flash_attention_forward(q.half(), k.half(), v.half(), keep, 0.25)
+    with pytest.raises(ValueError, match="unit last stride"):
+        FA.flash_attention_forward(q.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), k, v, keep, 0.25)
+    with pytest.raises(ValueError, match="keep"):
+        FA.flash_attention_forward(q, k, v, keep[:, :-1], 0.25)
+    assert ops.launch_counts() == before
+
+
+def _route_outputs(module, args, autocast):
+    """(output, parameter gradients) of sum(out * r) through ``module``."""
+    module.zero_grad(set_to_none=True)
+    with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+        out = module(*args)
+    r = torch.randn(out.shape, device=out.device,
+                    generator=torch.Generator(device=out.device).manual_seed(1))
+    (out.float() * r).sum().backward()
+    torch.cuda.synchronize()
+    return out.float(), [p.grad.float() for p in module.parameters()]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("which", ["cross_attention", "enc_sa_layer"])
+def test_flash_route_through_the_modules(dev, dtype, which, monkeypatch):
+    torch.manual_seed(3)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b = 3
+    if which == "cross_attention":
+        t, s = 260, 270
+        module = CrossAttention(16, 2, 8, cross_attention_dim=12).to(dev)
+        keep = torch.arange(s, device=dev)[None] < torch.tensor(
+            [[s], [37], [1]], device=dev)
+        bias = ((~keep).float() * -10000.0)[:, None, :]
+        args = (_rand(gen, dev, b, t, 16), _rand(gen, dev, b, s, 12), bias)
+    else:
+        t, s = 256, 256
+        module = EncSALayer(64, 8, 9).to(dev)
+        keep = (torch.arange(t, device=dev)[None] < torch.tensor(
+            [[t], [101], [1]], device=dev)).float()[..., None]
+        args = (_rand(gen, dev, b, t, 64), keep)
+    for p in module.parameters():
+        torch.nn.init.normal_(p, std=0.2)
+    autocast = dtype == torch.bfloat16
+    set_use_flash(module, True)
+    before = ops.launch_counts()
+    out, grads = _route_outputs(module, args, autocast)
+    after = ops.launch_counts()
+    assert after["flash_attention_forward"] == \
+        before["flash_attention_forward"] + 1
+    assert after["flash_attention_backward"] == \
+        before["flash_attention_backward"] + 1
+    if autocast:
+        # the same route with K8's plain version on the same bfloat16 q, k,
+        # v: the module's own plain route rounds its scores to bfloat16,
+        # and the layer's other bfloat16 roundings move its gradients by
+        # several percent of their scale on either route
+        monkeypatch.setattr(FA.FlashSDPA, "apply",
+                            lambda q, k, v, keep, scale: FA.sdpa_plain(
+                                q, k, v, keep, sm_scale=scale))
+    else:
+        set_use_flash(module, False)
+    ref, ref_grads = _route_outputs(module, args, autocast)
+    assert ops.launch_counts() == after
+    _assert_close(out, ref, dtype)
+    for g, gr in zip(grads, ref_grads):
+        _assert_close(g, gr, dtype)
