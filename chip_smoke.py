@@ -17,10 +17,12 @@ Phases, each of which fails the run:
    version (max |kernel - plain| / max |plain| <= 1e-3 in float32, 3e-2 in
    bfloat16), with its weights in the layout the UNet modules hand over
    (strided views of nn.Linear / nn.Conv1d parameters, vectors in the
-   compute dtype); kernel, plain and library-composition times (CUDA
-   events, warmed, mean of many back-to-back calls, the wrapper's host work
-   included), the kernel route's device time (torch.profiler, summed
-   device activity per call) and the roofline bound are printed;
+   compute dtype), K1 and K4 also at B=1 (denoiser L0 and L3, the
+   grid-starved shapes of b=1 serving); kernel, plain and
+   library-composition times (CUDA events, warmed, mean of many
+   back-to-back calls, the wrapper's host work included), the kernel
+   route's and the library composition's device times (torch.profiler,
+   summed device activity per call) and the roofline bound are printed;
    then K5 (rel-pos attention) at B=8, C=256, 2 heads of 128, window 4:
    T=128 and 601 with ragged lengths (kept rows compared) and T=400
    unmasked, float32 and bfloat16, same gates; and K7 (RQ spline) at
@@ -69,8 +71,9 @@ Phases, each of which fails the run:
    noise), max |mel difference| <= 5e-3;
 8. serving numbers: per-request latency at batch 1 and 8, real-time factor,
    peak device memory; then one more warmed ``synthesize`` at each batch
-   under torch.profiler: the device's busy share and device time by
-   kernel (informational);
+   under torch.profiler: the device's busy share, device time by kernel
+   and the GEMM kernels' launches and time; bf16 serving must show only
+   the tensor-core GEMM (``gemm_mma_kernel``), no FMA mainloop;
 9. train (the training path): ``Trainer`` at ``reference_parity`` widths
    (EMA on, random weights from seed 0, bf16 autocast) takes 2 warm-up
    and 5 timed steps on batches of 32 shaped like the loader's (text 601,
@@ -242,7 +245,9 @@ def _kernel_cases(torch, dtype, gen, dev):
     100, 50; C 128, 384, 512; head dims 16, 48, 64), its widest up-block
     resnet (Ci=1024), and the duration-predictor UNet at T=601 (C=64,
     head dim 8, cross-attention keys of width 256). Cross-attention keys:
-    S=267 prompt frames with a ragged mask."""
+    S=267 prompt frames with a ragged mask. K1 and K4 also at B=1, the
+    grid-starved shapes of b=1 serving: denoiser L0 (T=400, C=128) and L3
+    (T=50; K1's widest up-block resnet Ci=1024 -> 512, K4 at C=512)."""
     import torch.nn.functional as F
 
     f32 = torch.float32
@@ -264,11 +269,13 @@ def _kernel_cases(torch, dtype, gen, dev):
         return _module_layout(torch, one + r(n, scale=scale), dtype)
 
     cases = []
-    b = 8
-    for site, t, ci, co, groups in [("denoiser L0", 400, 128, 128, 8),
-                                    ("denoiser L2 down", 100, 256, 384, 8),
-                                    ("denoiser L3 up", 50, 1024, 512, 8),
-                                    ("dp-unet L0", 601, 64, 64, 8)]:
+    for site, b, t, ci, co, groups in [
+            ("denoiser L0", 8, 400, 128, 128, 8),
+            ("denoiser L2 down", 8, 100, 256, 384, 8),
+            ("denoiser L3 up", 8, 50, 1024, 512, 8),
+            ("dp-unet L0", 8, 601, 64, 64, 8),
+            ("denoiser L0", 1, 400, 128, 128, 8),
+            ("denoiser L3 up", 1, 50, 1024, 512, 8)]:
         x = act(b, t, ci)
         args = (x, r(b, 2 * co, scale=0.3), v(ci, one=1.0), v(ci),
                 w(3, ci, co, scale=(3 * ci) ** -0.5), v(co), v(co, one=1.0),
@@ -302,6 +309,7 @@ def _kernel_cases(torch, dtype, gen, dev):
         cases.append(("fused_resnet_block", f"{site} B={b} T={t} Ci={ci} "
                       f"Co={co}", args + sc, kw, lib, flops, nbytes))
 
+    b = 8
     for site, t, c, ck in [("denoiser L0", 400, 128, 128),
                            ("denoiser L2", 100, 384, 128),
                            ("denoiser mid", 50, 512, 128),
@@ -360,21 +368,33 @@ def _kernel_cases(torch, dtype, gen, dev):
                       esz * (2 * m * c + b * s * ck + 2 * c * c + 2 * ck * c
                              + 3 * c) + 4 * b * s))
 
-        fargs = (x, *ln, w(c, 8 * c, scale=c ** -0.5), v(8 * c),
-                 w(4 * c, c, scale=(4 * c) ** -0.5), bo)
-
-        def lib_ff(a=fargs):
-            x, s1, b1, w1, bb1, w2, bb2 = a
-            h = F.layer_norm(x, (x.shape[-1],), s1.to(x.dtype),
-                             b1.to(x.dtype), 1e-5)
-            v, g = (h @ w1 + bb1.to(x.dtype)).chunk(2, dim=-1)
-            return x + (v * F.gelu(g)) @ w2 + bb2.to(x.dtype)
-
-        cases.append(("fused_geglu_ff", f"{site} B={b} T={t} C={c}", fargs,
-                      dict(compute_dtype=dtype), lib_ff,
-                      2 * m * c * 8 * c + 2 * m * 4 * c * c,
-                      esz * (2 * m * c + 12 * c * c + 11 * c)))
+        cases.append(_geglu_case(torch, F, site, b, t, c, x, ln, w, v, bo,
+                                 dtype, esz))
+    for site, t, c in [("denoiser L0", 400, 128), ("denoiser L3", 50, 512)]:
+        cases.append(_geglu_case(torch, F, site, 1, t, c, act(1, t, c),
+                                 (v(c, one=1.0), v(c)), w, v, v(c), dtype,
+                                 esz))
     return cases
+
+
+def _geglu_case(torch, F, site, b, t, c, x, ln, w, v, bo, dtype, esz):
+    """K4's case at [b, t, c]: (name, site, args, kwargs, library fn,
+    flops, bytes)."""
+    fargs = (x, *ln, w(c, 8 * c, scale=c ** -0.5), v(8 * c),
+             w(4 * c, c, scale=(4 * c) ** -0.5), bo)
+
+    def lib_ff(a=fargs):
+        x, s1, b1, w1, bb1, w2, bb2 = a
+        h = F.layer_norm(x, (x.shape[-1],), s1.to(x.dtype), b1.to(x.dtype),
+                         1e-5)
+        val, g = (h @ w1 + bb1.to(x.dtype)).chunk(2, dim=-1)
+        return x + (val * F.gelu(g)) @ w2 + bb2.to(x.dtype)
+
+    m = b * t
+    return ("fused_geglu_ff", f"{site} B={b} T={t} C={c}", fargs,
+            dict(compute_dtype=dtype), lib_ff,
+            2 * m * c * 8 * c + 2 * m * 4 * c * c,
+            esz * (2 * m * c + 12 * c * c + 11 * c))
 
 
 def kernel_phase(torch, dev, headline_dtype="bfloat16"):
@@ -506,22 +526,26 @@ def _kept_err(torch, out, ref, lengths):
 
 def _time_row(torch, name, site, dname, kfn, pfn, lfn, flops, nbytes, err,
               rel, good, extra=None):
-    """One kernel row: times (kernel, device, plain, library) and bound."""
+    """One kernel row: times (kernel, device, plain, library, the library's
+    device time) and bound."""
     ms = cuda_time(kfn)
     device_ms = device_time(kfn)
     plain_ms = cuda_time(pfn, iters=5)
     lib_ms = cuda_time(lfn) if lfn is not None else None
+    lib_device_ms = device_time(lfn) if lfn is not None else None
     peak = PEAK_FLOPS[dname]
     bound_ms = 1e3 * max(nbytes / PEAK_BYTES_S, flops / peak)
     bound_by = "bytes" if nbytes / PEAK_BYTES_S >= flops / peak \
         else "operations"
     row = dict(name=name, site=site, dtype=dname, max_abs_err=err,
                rel_err=rel, ok=good, ms=ms, device_ms=device_ms,
-               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+               plain_ms=plain_ms, library_ms=lib_ms,
+               library_device_ms=lib_device_ms, bound_ms=bound_ms,
                bound_by=bound_by, flops=flops, bytes=nbytes, **(extra or {}))
     log(f"kernel {name:24s} {dname:8s} {site:44s} rel_err={rel:.2e} "
         f"{'ok' if good else 'FAIL'} ms={ms:.4f} device_ms={device_ms} "
         f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
+        f"library_device_ms={lib_device_ms} "
         f"bound_ms={bound_ms:.4f} ({bound_by})")
     return row
 
@@ -681,7 +705,8 @@ def main(argv=None) -> int:
     rows += f_rows
     summary.update(f_summary)
     phases["mas"], summary["maximum_path"] = mas_phase(torch, dev, card)
-    summary["maximum_path"]["library_ms"] = None   # no one PyTorch call
+    # no one PyTorch call
+    summary["maximum_path"].update(library_ms=None, library_device_ms=None)
     phases["grad"] = grad_phase(torch, dev)
     phases["flash_grad"], flash_grad = flash_grad_phase(torch, dev, card)
 
@@ -739,8 +764,10 @@ def main(argv=None) -> int:
         name=name, route="cuda", source=SOURCE[name],
         replaces=REPLACES[name], launches=counts.get(name, 0),
         max_abs_err=row["max_abs_err"], ms=row["ms"],
-        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-        bound_by=row["bound_by"], library_ms=row["library_ms"])
+        device_ms=row["device_ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        library_ms=row["library_ms"],
+        library_device_ms=row["library_device_ms"])
         for name, row in summary.items()]}
     log(f"phases: {phases}")
     if not all(phases.values()):
@@ -880,6 +907,15 @@ def path_phase(torch, dev, card):
     numbers["profile"] = {f"b{b}": profile_synthesize(
         torch, syn, [short[i % len(short)] for i in range(b)], card)
         for b in (1, 8)}
+    # bf16 serving runs every product on the tensor-core GEMM: the FMA
+    # mainloop is the float32 parity route only
+    names = [k for prof in numbers["profile"].values()
+             for k in prof["gemm_kernels"]]
+    ok["serve_tensor_cores"] = (any("gemm_mma_kernel" in k for k in names)
+                                and not any("gemm_fma_kernel" in k
+                                            for k in names))
+    log(f"serving GEMM kernels (profiler names): {sorted(set(names))}; "
+        f"tensor cores only: {ok['serve_tensor_cores']}")
     return ok, counts, dict(card=card, serve_wall_s=wall,
                             unet_calls=calls["unet"][0], launches=counts,
                             parity_max_abs=err, numbers=numbers)
@@ -950,6 +986,7 @@ def profile_summary(prof, wall_us, card, what):
     busy_us = sum(us for _, us in by_name.values())
     ours = {k: v for k, v in by_name.items() if "dvt::" in k}
     mas_us = sum(us for k, (_, us) in ours.items() if "mas_kernel" in k)
+    gemm = {k: v for k, v in ours.items() if "gemm_" in k}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     res = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                device_busy_share=busy_us / wall_us,
@@ -957,6 +994,10 @@ def profile_summary(prof, wall_us, card, what):
                port_kernels_ms=sum(us for _, us in ours.values()) / 1e3,
                port_kernel_launches=sum(n for n, _ in ours.values()),
                mas_device_ms=mas_us / 1e3, mas_share_of_wall=mas_us / wall_us,
+               gemm_ms=sum(us for _, us in gemm.values()) / 1e3,
+               gemm_launches=sum(n for n, _ in gemm.values()),
+               gemm_kernels={k: dict(launches=n, ms=us / 1e3)
+                             for k, (n, us) in gemm.items()},
                top=[dict(name=k[:90], launches=n, ms=us / 1e3)
                     for k, (n, us) in top])
     log(f"profile {what}: wall {res['wall_ms']:.1f} ms, device busy "
@@ -965,7 +1006,10 @@ def profile_summary(prof, wall_us, card, what):
         f"{res['device_launches']} device activities, of which the port's "
         f"kernels {res['port_kernel_launches']} taking "
         f"{res['port_kernels_ms']:.1f} ms (K6 {res['mas_device_ms']:.3f} ms, "
-        f"{100 * res['mas_share_of_wall']:.2f}% of the wall); card {card}")
+        f"{100 * res['mas_share_of_wall']:.2f}% of the wall); GEMM kernels "
+        f"{res['gemm_launches']} taking {res['gemm_ms']:.1f} ms; card {card}")
+    for k, row in res["gemm_kernels"].items():
+        log(f"  gemm {row['ms']:9.2f} ms {row['launches']:6d}x {k[:90]}")
     for row in res["top"]:
         log(f"  {row['ms']:9.2f} ms {row['launches']:6d}x {row['name']}")
     return res
@@ -1561,10 +1605,12 @@ def flash_kernel_phase(torch, dev):
                 + f" layouts {all(errs[f'd{n}_layout'][1] == 0 for n in 'qkv')}"
                 f" {'ok' if good else 'FAIL'}")
             log("  forward ms={ms:.4f} device_ms={device_ms} plain_ms="
-                "{plain_ms:.4f} library_ms={library_ms:.4f} bound_ms="
+                "{plain_ms:.4f} library_ms={library_ms:.4f} "
+                "library_device_ms={library_device_ms} bound_ms="
                 "{bound_ms:.4f} ({bound_by}); backward ms={bwd_ms:.4f} "
                 "device_ms={bwd_device_ms} plain_ms={bwd_plain_ms:.4f} "
-                "library_ms={bwd_library_ms:.4f} (its dq/dk/dv vs plain "
+                "library_ms={bwd_library_ms:.4f} library_device_ms="
+                "{bwd_library_device_ms} (its dq/dk/dv vs plain "
                 "{library_bwd_err:.2e}) bound_ms={bwd_bound_ms:.4f} "
                 "({bwd_bound_by}); forward + "
                 "backward ms={fwd_bwd_ms:.4f} device_ms={fwd_bwd_device_ms} "
@@ -1580,6 +1626,7 @@ def flash_kernel_phase(torch, dev):
                ms=head["bwd_ms"], device_ms=head["bwd_device_ms"],
                plain_ms=head["bwd_plain_ms"],
                library_ms=head["bwd_library_ms"],
+               library_device_ms=head["bwd_library_device_ms"],
                bound_ms=head["bwd_bound_ms"], bound_by=head["bwd_bound_by"])
     for r in rows:
         r["name"] = "flash_attention"
@@ -1628,7 +1675,8 @@ def _flash_times(torch, F, FA, dname, q, k, v, keep, o, lse, do, scale,
     """K8's times at one case: the forward and backward launchers, forward
     + backward through autograd; the plain version's; the library's
     (forward and forward + backward through ``F.scaled_dot_product_attention``,
-    the backward call ``library_bwd``); the kernel's device times."""
+    the backward call ``library_bwd``); the kernel's and the library's
+    device times."""
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     mask = None if keep is None else keep[:, None, None, :]
 
@@ -1656,10 +1704,12 @@ def _flash_times(torch, F, FA, dname, q, k, v, keep, o, lse, do, scale,
         ms=cuda_time(kernel["fwd"]), device_ms=device_time(kernel["fwd"]),
         plain_ms=cuda_time(plain["fwd"], iters=5),
         library_ms=cuda_time(library["fwd"]),
+        library_device_ms=device_time(library["fwd"]),
         bwd_ms=cuda_time(kernel["bwd"]),
         bwd_device_ms=device_time(kernel["bwd"]),
         bwd_plain_ms=cuda_time(plain["bwd"], iters=5),
         bwd_library_ms=cuda_time(library_bwd),
+        bwd_library_device_ms=device_time(library_bwd),
         fwd_bwd_ms=cuda_time(kernel["fwd_bwd"]),
         fwd_bwd_device_ms=device_time(kernel["fwd_bwd"]),
         fwd_bwd_plain_ms=cuda_time(plain["fwd_bwd"], iters=5),

@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -63,6 +63,7 @@ class GemmArgs(ctypes.Structure):
         ("norm", _I), ("silu", _I), ("geglu", _I), ("problems", _I),
         ("a_dtype", _I), ("b_dtype", _I), ("out_dtype", _I),
         ("res_dtype", _I), ("norm_dtype", _I), ("bias_dtype", _I),
+        ("bn", _I), ("splits", _I),
     ]
 
 
@@ -214,16 +215,75 @@ def norm_stats(x: torch.Tensor, b: int, t: int, c: int, groups: int,
     return mean, rstd
 
 
+# csrc/gemm.cu's tiles: 64 rows, 32-deep K steps; the H100's 132 SMs, each
+# holding three blocks of the tensor-core kernel (~150 registers a thread;
+# two of the GEGLU one)
+GEMM_BM, GEMM_BK, GEMM_SMS, GEMM_MAX_SPLITS = 64, 32, 132, 8
+GEMM_BLOCKS = 3 * GEMM_SMS
+
+
+class GemmPlan(NamedTuple):
+    """How csrc/gemm.cu runs one launch: a ``bm`` x ``bn`` output tile,
+    ``splits`` K-splits (the blocks of one cluster), on tensor cores
+    (bfloat16 weights) or the float32 FMA mainloop."""
+    bm: int
+    bn: int
+    splits: int
+    tensor_cores: bool
+
+
+def gemm_plan(M: int, N: int, K: int, problems: int, geglu: bool,
+              dtype: torch.dtype) -> GemmPlan:
+    """The tile and split-K of one csrc/gemm.cu launch of ``problems``
+    [M, K] x [K, N] products whose weights are ``dtype``; raises on what the
+    kernel does not take.
+
+    Enough blocks to fill the SMs where the shape allows it: a 64-wide tile
+    while 64-wide tiles times the most splits reach 132 blocks, else a
+    32-wide one (tensor cores only); then the fewest splits (a power of two
+    up to 8, at most one per whole 32-deep K step) that reach three blocks
+    an SM (396): a block's K steps wait on their loads, and its SM hides
+    that only behind other blocks."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gemm takes float32 or bfloat16 weights, got {dtype}")
+    if min(M, N, K) < 1:
+        raise ValueError(f"gemm needs M, N, K >= 1, got {M}, {N}, {K}")
+    if not 1 <= problems <= 3 or (geglu and problems != 1):
+        raise ValueError(f"gemm takes 1-3 problems sharing A (GEGLU: 1), "
+                         f"got {problems}")
+    m_tiles = -(-M // GEMM_BM)
+    if m_tiles > 65535 or (M + GEMM_BM) * K >= 2 ** 31:
+        raise ValueError(f"gemm takes M <= {65535 * GEMM_BM} and "
+                         f"(M + {GEMM_BM}) * K < 2**31, got M={M}, K={K}")
+    tensor_cores = dtype == torch.bfloat16
+    max_splits = 1
+    while max_splits * 2 <= min(GEMM_MAX_SPLITS, K // GEMM_BK):
+        max_splits *= 2
+
+    def blocks(bn: int, splits: int) -> int:
+        return m_tiles * -(-N // bn) * problems * splits
+
+    bn = 64
+    if tensor_cores and blocks(64, max_splits) < GEMM_SMS:
+        bn = 32
+    splits = 1
+    while splits < max_splits and blocks(bn, splits) < GEMM_BLOCKS:
+        splits *= 2
+    return GemmPlan(GEMM_BM, bn, splits, tensor_cores)
+
+
 def gemm(a: torch.Tensor, bmats, outs, biases, *, M: int, N: int, T: int,
          Ci: int, taps: int = 1, norm: int = NO_NORM, stats=None,
          norm_w=None, norm_b=None, groups: int = 1, film=None,
          silu: bool = False, geglu: bool = False,
          res: Optional[torch.Tensor] = None) -> None:
-    """One launch of csrc/gemm.cu over ``len(bmats)`` problems sharing A.
-    Each weight is a [Ci, N'] (``taps`` 1) or [3, Ci, N'] (``taps`` 3) view,
+    """One launch of csrc/gemm.cu over ``len(bmats)`` problems sharing A,
+    planned by :func:`gemm_plan` (which raises on what it refuses). Each
+    weight is a [Ci, N'] (``taps`` 1) or [3, Ci, N'] (``taps`` 3) view,
     N' = 2N for GEGLU, whose (tap, ci) index one stride spans; all share
     their strides."""
     n = len(bmats)
+    plan = gemm_plan(M, N, taps * Ci, n, geglu, bmats[0].dtype)
     tap_minor = False
     if taps == 3:
         # a k=3 conv sums over (tap, ci) in the weight's storage order
@@ -258,6 +318,7 @@ def gemm(a: torch.Tensor, bmats, outs, biases, *, M: int, N: int, T: int,
     args.norm_dtype = dtype_flag(norm_w) if norm_w is not None else F32
     bias = next((t for t in biases if t is not None), None)
     args.bias_dtype = dtype_flag(bias) if bias is not None else F32
+    args.bn, args.splits = plan.bn, plan.splits
     check(fn("gemm.cu", "dvt_gemm")(ctypes.byref(args), stream_ptr(a)),
           "gemm")
 

@@ -22,10 +22,16 @@ The Pallas kernel holds a whole [T, C] tile in VMEM; a [400, 1024] float32
 tile is 1.6 MB against 227 KB of shared memory a block on the H100, so the
 GroupNorm statistics come from their own two-pass reduction and the
 normalised, activated, shifted conv input is recomputed inside each GEMM's
-tile loads instead of being written. On the H100 the block is bound by the
-GEMMs' FMA rate in this first version (no tensor cores); the conv input
-and the GN/FiLM/SiLU intermediates never reach device memory, only the
-float32 conv1 output does.
+tile loads instead of being written; the conv input and the GN/FiLM/SiLU
+intermediates never reach device memory, only the float32 conv1 output
+does. What bounds the block on the H100 at the UNet's shapes (M = B*T of
+50-6,400 rows, K = 3*Ci up to 3,072) is not work but the grid and each
+block's K-step latency: a 64-row tile per block leaves most of the 132
+SMs idle while each walks the whole K. So each conv runs on tensor cores
+(bf16, csrc/gemm.cu) with its K split over a thread-block cluster
+(``_cuda.gemm_plan``) until three blocks sit on each SM, the split
+partials summed in shared memory in a fixed order, and the GN / FiLM /
+SiLU prologue runs branch-free inside the tile loads.
 """
 from __future__ import annotations
 

@@ -50,6 +50,7 @@ from diff_vits_tpu_torch.nn.fairseq import EncSALayer
 from diff_vits_tpu_torch.nn.layers import MultiHeadAttention
 from diff_vits_tpu_torch.nn.unet1d import (
     CrossAttention, UNet1DConditionModel, set_use_flash, set_use_fused)
+from diff_vits_tpu_torch.ops import _cuda
 from diff_vits_tpu_torch.ops import flash_attention as FA
 from diff_vits_tpu_torch.ops import fused_resnet as FR
 from diff_vits_tpu_torch.ops import fused_transformer as FT
@@ -110,6 +111,7 @@ def _assert_close(out, ref, dtype):
     (2, 37, 32, 32, 8),     # identity shortcut
     (2, 1, 16, 24, 8),      # T = 1: both conv taps outside the sequence
     (3, 2, 64, 64, 8),
+    (1, 50, 1024, 512, 8),  # denoiser L3 up at b=1: split-K over a cluster
 ])
 def test_resnet_block_kernel_matches_plain(dev, dtype, b, t, ci, co,
                                            groups, module_layout):
@@ -194,7 +196,8 @@ def test_cross_attention_kernel_matches_plain(dev, dtype, b, t, s, ck, heads,
 
 @LAYOUTS
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("b,t,c", [(2, 130, 24), (1, 1, 8), (3, 601, 64)])
+@pytest.mark.parametrize("b,t,c", [(2, 130, 24), (1, 1, 8), (3, 601, 64),
+                                   (1, 50, 512)])   # b=1: split-K GEGLU
 def test_geglu_ff_kernel_matches_plain(dev, dtype, b, t, c, module_layout):
     gen = torch.Generator(device=dev).manual_seed(t + c)
     r = lambda *s, **k: _rand(gen, dev, *s, **k)  # noqa: E731
@@ -241,6 +244,88 @@ def test_kernel_routes_refuse_what_they_do_not_take(dev):
                           _rand(gen, dev, 256), _rand(gen, dev, 128, 32),
                           w[1], compute_dtype=torch.float32)
     assert ops.launch_counts() == before
+
+
+# csrc/gemm.cu alone. Its products are exact in float32 (bf16 x bf16, or
+# float32 FMA), so kernel and plain version differ only in the order of
+# float32 sums of up to 3,072 terms: 1e-4 of the largest output holds them.
+GEMM_TOL = 1e-4
+
+
+def _gemm_case(dev, m, n, k, dtype, layout, geglu=False, seed=0):
+    """A [m, k] float32 activation, a [k, n'] weight (n' = 2n for GEGLU) in
+    ``dtype``, as a view of [n', k] storage (the modules' k-fastest layout)
+    or as it is ([k, n'], the JAX layout), a float32 bias; and the plain
+    result (operands rounded to ``dtype``, float32 sums)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wide = 2 * n if geglu else n
+    a = _rand(gen, dev, m, k)
+    w = _rand(gen, dev, wide, k, scale=k ** -0.5, dtype=dtype)
+    w = w.t() if layout == "module" else w.t().contiguous()
+    bias = _rand(gen, dev, wide, scale=0.1)
+    h = FR.mm(a, w, dtype) + bias
+    ref = h[:, :n] * torch.nn.functional.gelu(h[:, n:]) if geglu else h
+    return a, w, bias, ref
+
+
+def _gemm_run(a, w, bias, n, geglu=False):
+    out = torch.empty(a.shape[0], n, device=a.device)
+    _cuda.gemm(a, [w], [out], [bias], M=a.shape[0], N=n, T=a.shape[0],
+               Ci=a.shape[1], geglu=geglu)
+    torch.cuda.synchronize()
+    return out
+
+
+GEMM_LAYOUTS = pytest.mark.parametrize("layout", ["module", "jax"])
+
+
+@GEMM_LAYOUTS
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("m,n,k,geglu", [
+    (1, 512, 3072, False),     # one row, long K: 8 splits of 32-wide tiles
+    (50, 512, 3072, False),    # K1 conv1 at denoiser L3, b=1
+    (50, 256, 1024, True),     # GEGLU under split-K
+    (400, 128, 384, False),    # denoiser L0 conv at b=1
+    (37, 40, 72, False),       # N not a multiple of 16, K of 32
+    (5, 13, 20, False),        # K, N not multiples of 8: element copies
+    (70, 12, 100, True),       # GEGLU, ragged N and K
+])
+def test_gemm_split_k_matches_plain(dev, dtype, layout, m, n, k, geglu):
+    plan = _cuda.gemm_plan(m, n, k, 1, geglu, dtype)
+    assert plan.tensor_cores == (dtype == torch.bfloat16)
+    if k >= 1024:
+        assert plan.splits > 1, plan
+    a, w, bias, ref = _gemm_case(dev, m, n, k, dtype, layout, geglu)
+    out = _gemm_run(a, w, bias, n, geglu)
+    assert bool(torch.isfinite(out).all())
+    err = (out - ref).abs().max().item()
+    assert err <= GEMM_TOL * ref.abs().max().item(), (plan, err)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("m,n,k,geglu", [(1, 512, 3072, False),
+                                         (50, 256, 1024, True)])
+def test_gemm_split_k_is_deterministic(dev, dtype, m, n, k, geglu):
+    """The S partials are summed in rank order over distributed shared
+    memory, with no atomics: two launches give the same bits."""
+    assert _cuda.gemm_plan(m, n, k, 1, geglu, dtype).splits == 8
+    a, w, bias, _ = _gemm_case(dev, m, n, k, dtype, "module", geglu, seed=5)
+    first = _gemm_run(a, w, bias, n, geglu)
+    assert torch.equal(first, _gemm_run(a, w, bias, n, geglu))
+
+
+def test_gemm_refuses_what_the_plan_refuses(dev):
+    """The wrapper raises before any launch; no shape falls back to another
+    route."""
+    a, w, bias, _ = _gemm_case(dev, 8, 16, 64, torch.bfloat16, "module")
+    out = torch.empty(8, 16, device=dev)
+    with pytest.raises(ValueError, match="problems"):   # GEGLU pair x 2
+        _cuda.gemm(a, [w, w], [out, out], [bias, bias], M=8, N=8, T=8,
+                   Ci=64, geglu=True)
+    with pytest.raises(ValueError, match="M, N, K"):
+        _cuda.gemm(a[:0], [w], [out[:0]], [bias], M=0, N=16, T=1, Ci=64)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        _cuda.gemm(a, [w.half()], [out], [bias], M=8, N=16, T=8, Ci=64)
 
 
 def test_tiny_unet_on_kernels_matches_unfused(dev):

@@ -1,0 +1,239 @@
+#!/usr/bin/env python3
+"""Where the time of the port's GEMM (diff_vits_tpu_torch/csrc/gemm.cu) goes,
+on one CUDA card.
+
+    python3 tools/torch_gemm_probe.py [--out FILE]
+
+Builds copies of csrc/gemm.cu with parts of the kernel compiled out (C
+macros inserted into a copy under build/gemm_probe/; the package's own
+source is not touched), each into its own library, and times every copy in
+its own process at the GEMM shapes of K1 (the k=3 convs, GroupNorm + SiLU
+prologue) and K4 (the GEGLU and output products, LayerNorm prologue) on the
+main path, plus a 3200 x 128 product at one K split and K = 128 / 512 /
+2,048 (the cost of a K step). Times are the kernels' device time per
+launch (torch.profiler), in microseconds. Copies:
+
+  base         the kernel as it is
+  no_prologue  A's norm / FiLM / SiLU left out (the raw values go in)
+  no_aload     A's global loads left out (a constant goes in)
+  no_mma       the mma.sync instructions left out
+  no_bload     the weight tile's copies left out
+  no_cluster   launched without a cluster, each block reading only its own
+               partial tile (right only where the plan has one split)
+  nothing      all five of the above left out: the loop, barriers and
+               epilogue alone
+  noth_noepi   nothing, and no reduction or epilogue
+  noth_1step   nothing, one K step a block
+  noth_bare    noth_1step without the epilogue and the cluster: the launch
+
+Numbers from copies other than ``base`` say what each part costs, not what
+a kernel without it would compute. Needs nvcc (``ops._cuda`` finds it) and
+no network.
+"""
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "diff_vits_tpu_torch" / "csrc"
+OUT = ROOT / "build" / "gemm_probe"
+
+SUBS = [
+    ("  switch (p.norm * 4 + (p.film != nullptr) * 2 + (p.silu != 0)) {",
+     "#ifdef NO_PROLOGUE\n  return;\n#endif\n"
+     "  switch (p.norm * 4 + (p.film != nullptr) * 2 + (p.silu != 0)) {"),
+    ("  asm volatile(\n      \"mma.sync",
+     "#ifndef NO_MMA\n  asm volatile(\n      \"mma.sync"),
+    ("\"r\"(a[0]), \"r\"(a[1]), \"r\"(a[2]), \"r\"(a[3]), \"r\"(b0), \"r\"(b1));\n",
+     "\"r\"(a[0]), \"r\"(a[1]), \"r\"(a[2]), \"r\"(a[3]), \"r\"(b0), \"r\"(b1));\n"
+     "#endif\n"),
+    ("    raw[i] = ok ? (ABF16 ? __bfloat162float(",
+     "#ifdef NO_ALOAD\n    raw[i] = ok ? 0.5f : 0.f;\n#else\n"
+     "    raw[i] = ok ? (ABF16 ? __bfloat162float("),
+    ("                : 0.f;\n    mask |= (unsigned)ok << i;",
+     "                : 0.f;\n#endif\n    mask |= (unsigned)ok << i;"),
+    ("  const long gate = (long)p.N * p.sb_n;  // offset of the gate columns\n"
+     "  if (vec) {",
+     "  const long gate = (long)p.N * p.sb_n;  // offset of the gate columns\n"
+     "#ifdef NO_BLOAD\n  return;\n#endif\n  if (vec) {"),
+    ("  cluster.sync();  // every partial tile is written and visible",
+     "#ifndef NO_CLUSTER\n  cluster.sync();\n#else\n  __syncthreads();\n#endif"),
+    ("  cluster.sync();  // no block leaves while another reads its tile",
+     "#ifndef NO_CLUSTER\n  cluster.sync();\n#endif"),
+    ("      const float* src = cluster.map_shared_rank(cs, s);",
+     "#ifdef NO_CLUSTER\n      const float* src = cs;\n#else\n"
+     "      const float* src = cluster.map_shared_rank(cs, s);\n#endif"),
+    ("  cfg.attrs = attr;\n  cfg.numAttrs = 1;",
+     "  cfg.attrs = attr;\n#ifdef NO_CLUSTER\n  cfg.numAttrs = 0;\n#else\n"
+     "  cfg.numAttrs = 1;\n#endif"),
+    ("  for (int e = threadIdx.x; e < rows * BN / 4; e += kThreads) {",
+     "#ifdef NO_EPI\n  if (rows > BM)\n#endif\n"
+     "  for (int e = threadIdx.x; e < rows * BN / 4; e += kThreads) {"),
+    ("  if (s0 < s1) {\n    b_fetch<BN, GEGLU, NFAST>(p, bmat, vec, s0 * BK, n0, bs);",
+     "#ifdef NO_LOOP\n  s1 = min(s1, s0 + 1);\n#endif\n"
+     "  if (s0 < s1) {\n    b_fetch<BN, GEGLU, NFAST>(p, bmat, vec, s0 * BK, n0, bs);"),
+]
+NOTHING = ["NO_PROLOGUE", "NO_ALOAD", "NO_MMA", "NO_BLOAD"]
+VARIANTS = {
+    "base": [], "no_prologue": ["NO_PROLOGUE"], "no_aload": ["NO_ALOAD"],
+    "no_mma": ["NO_MMA"], "no_bload": ["NO_BLOAD"],
+    "no_cluster": ["NO_CLUSTER"], "nothing": NOTHING,
+    "noth_noepi": NOTHING + ["NO_EPI"], "noth_1step": NOTHING + ["NO_LOOP"],
+    "noth_bare": NOTHING + ["NO_LOOP", "NO_EPI", "NO_CLUSTER"],
+}
+
+
+def patched_source() -> str:
+    s = (SRC / "gemm.cu").read_text()
+    for old, new in SUBS:
+        if s.count(old) != 1:
+            raise SystemExit(f"gemm.cu changed; no unique anchor {old!r}")
+        s = s.replace(old, new)
+    return s
+
+
+def build_variants(cuda) -> None:
+    OUT.mkdir(parents=True, exist_ok=True)
+    src = OUT / "gemm.cu"
+    src.write_text(patched_source())
+    (OUT / "common.cuh").write_text((SRC / "common.cuh").read_text())
+    procs = {name: subprocess.Popen(
+        [cuda._nvcc(), *cuda.NVCC_FLAGS, *[f"-D{m}" for m in macros], "-o",
+         str(OUT / f"{name}.so"), str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for name, macros in VARIANTS.items()}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+
+
+def device_us(torch, fn, iters=20) -> float:
+    """Mean device time of the GEMM kernel per call, microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and "gemm" in e.name]
+    return sum(us) / iters
+
+
+def cases(torch, cuda, dev):
+    """(name, launch, forced plan or None) at the main path's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+
+    def r(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    out = []
+    for b, t, c in ((8, 400, 128), (1, 400, 128), (8, 50, 512)):
+        m = b * t
+        x = r(b, t, c, dt=bf)
+        stats = cuda.norm_stats(x, m, 1, c, 1, 1e-5)
+        w1, b1 = r(8 * c, c, dt=bf).t(), r(8 * c)
+        ln = (r(c), r(c))
+        g = torch.empty(b, t, 4 * c, device=dev, dtype=bf)
+        out.append((f"K4 geglu M={m} N={4 * c} K={c}", lambda x=x, s=stats,
+                    w=w1, bb=b1, g=g, ln=ln, m=m, t=t, c=c: cuda.gemm(
+                        x, [w], [g], [bb], M=m, N=4 * c, T=t, Ci=c,
+                        norm=cuda.LAYER_NORM, stats=s, norm_w=ln[0],
+                        norm_b=ln[1], geglu=True), None))
+        w2 = r(c, 4 * c, dt=bf).t()
+        o = torch.empty(b, t, c, device=dev, dtype=bf)
+        out.append((f"K4 out M={m} N={c} K={4 * c}", lambda g=g, w=w2, o=o,
+                    x=x, m=m, t=t, c=c: cuda.gemm(
+                        g, [w], [o], [None], M=m, N=c, T=t, Ci=4 * c, res=x),
+                    None))
+    for b, t, ci, co in ((8, 400, 128, 128), (1, 400, 128, 128),
+                         (1, 50, 1024, 512), (8, 50, 1024, 512)):
+        m = b * t
+        x = r(b, t, ci, dt=bf)
+        stats = cuda.norm_stats(x, b, t, ci, 8, 1e-5)
+        w = r(co, ci, 3, dt=bf).permute(2, 1, 0)
+        gn = (r(ci), r(ci))
+        h = torch.empty(b, t, co, device=dev)
+        out.append((f"K1 conv M={m} N={co} K={3 * ci}", lambda x=x, s=stats,
+                    w=w, h=h, gn=gn, m=m, t=t, ci=ci, co=co: cuda.gemm(
+                        x, [w], [h], [None], M=m, N=co, T=t, Ci=ci, taps=3,
+                        norm=cuda.GROUP_NORM, stats=s, norm_w=gn[0],
+                        norm_b=gn[1], groups=8, silu=True), None))
+    for k in (128, 512, 2048):
+        a = r(3200, k, dt=bf)
+        w = r(128, k, dt=bf).t()
+        o = torch.empty(3200, 128, device=dev, dtype=bf)
+        out.append((f"one split M=3200 N=128 K={k}", lambda a=a, w=w, o=o,
+                    k=k: cuda.gemm(a, [w], [o], [None], M=3200, N=128,
+                                   T=3200, Ci=k), (64, 64, 1)))
+    return out
+
+
+def run_variant(name: str) -> None:
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from diff_vits_tpu_torch.ops import _cuda
+    _cuda.build()
+    lib = ctypes.CDLL(str(OUT / f"{name}.so"))
+    lib.dvt_gemm.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.dvt_gemm.restype = ctypes.c_int
+    _cuda._libs["gemm.cu"] = lib
+    plan = _cuda.gemm_plan
+    res = {}
+    for case, fn, forced in cases(torch, _cuda, torch.device("cuda")):
+        if forced is not None:
+            _cuda.gemm_plan = lambda *a, f=forced: _cuda.GemmPlan(*f, True)
+        res[case] = device_us(torch, fn)
+        _cuda.gemm_plan = plan
+    print("RESULT " + json.dumps(res), flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--variant":
+        run_variant(sys.argv[2])
+        return 0
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", type=Path, help="also write the table as JSON")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_gemm_probe: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from diff_vits_tpu_torch.ops import _cuda
+    _cuda.build()
+    build_variants(_cuda)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"card: {card}")
+    table = {}
+    for name in VARIANTS:
+        proc = subprocess.run([sys.executable, __file__, "--variant", name],
+                              capture_output=True, text=True, timeout=300)
+        lines = [x for x in proc.stdout.splitlines()
+                 if x.startswith("RESULT ")]
+        if proc.returncode or not lines:
+            print(f"{name}: rc {proc.returncode}\n{proc.stderr[-2000:]}")
+            return 1
+        table[name] = json.loads(lines[-1][7:])
+    print("device us per launch".ljust(30)
+          + "".join(v[:11].rjust(12) for v in table))
+    for case in table["base"]:
+        print(case.ljust(30) + "".join(f"{table[v][case]:12.1f}"
+                                       for v in table))
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(dict(card=card, us=table), indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
