@@ -17,12 +17,18 @@ Phases, each of which fails the run:
    version (max |kernel - plain| / max |plain| <= 1e-3 in float32, 3e-2 in
    bfloat16), with its weights in the layout the UNet modules hand over
    (strided views of nn.Linear / nn.Conv1d parameters, vectors in the
-   compute dtype), K1 and K4 also at B=1 (denoiser L0 and L3, the
-   grid-starved shapes of b=1 serving); kernel, plain and
+   compute dtype), K1-K4 also at B=1 (denoiser L0 and L3 / mid, the
+   grid-starved shapes of b=1 serving), and the attention core of K2 and
+   K3 alone (csrc/attention.cu through ``_cuda.attention``) at each K2/K3
+   case, self and cross, against ``attention_plain``; kernel, plain and
    library-composition times (CUDA events, warmed, mean of many
-   back-to-back calls, the wrapper's host work included), the kernel
+   back-to-back calls, the wrapper's host work included; the core's
+   library call is ``F.scaled_dot_product_attention``), the kernel
    route's and the library composition's device times (torch.profiler,
-   summed device activity per call) and the roofline bound are printed;
+   summed device activity per call), for K2, K3 and the core the core's
+   own device time by kernel name (bf16 must run only
+   ``attention_mma_kernel``, float32 only ``attention_fma_kernel``), and
+   the roofline bound are printed;
    then K5 (rel-pos attention) at B=8, C=256, 2 heads of 128, window 4:
    T=128 and 601 with ragged lengths (kept rows compared) and T=400
    unmasked, float32 and bfloat16, same gates; and K7 (RQ spline) at
@@ -63,17 +69,20 @@ Phases, each of which fails the run:
 6. path (serving): ``BatchSynthesizer`` (bf16 weights, batch 8, mel
    buckets 400 and 800, 30-step UniPC) answers 10 requests at the widths
    of ``configs/reference_parity.json`` with random weights from a seed;
-   every kernel counter must rise by exactly 22/16/16/16 per UNet call,
-   K5's by one per layer of each encoder call (6 per TextEncoder call),
-   and MAS's and K7's by 0;
+   every kernel counter must rise by exactly 22/16/16/16 per UNet call
+   (the attention core's by 32), K5's by one per layer of each encoder
+   call (6 per TextEncoder call), and MAS's and K7's by 0, and no call
+   may reach the core's plain version ``attention_plain``;
 7. parity: one fixed batch in float32 through the kernels and through the
    plain path on the card (same weights, injected initial noise, zero prior
-   noise), max |mel difference| <= 5e-3;
+   noise), max |mel difference| <= 5e-3, the kernel run's attention core
+   only ``attention_fma_kernel`` (profiler);
 8. serving numbers: per-request latency at batch 1 and 8, real-time factor,
    peak device memory; then one more warmed ``synthesize`` at each batch
    under torch.profiler: the device's busy share, device time by kernel
    and the GEMM kernels' launches and time; bf16 serving must show only
-   the tensor-core GEMM (``gemm_mma_kernel``), no FMA mainloop;
+   the tensor-core GEMM (``gemm_mma_kernel``), no FMA mainloop, and only
+   the tensor-core attention core (``attention_mma_kernel``);
 9. train (the training path): ``Trainer`` at ``reference_parity`` widths
    (EMA on, random weights from seed 0, bf16 autocast) takes 2 warm-up
    and 5 timed steps on batches of 32 shaped like the loader's (text 601,
@@ -107,7 +116,8 @@ Phases, each of which fails the run:
    the checks of phase 9 (no K5 or K7 launch: both are inference-only).
 
 The launch counts in the kernel table are those of each kernel's own path:
-serving for K1-K4, training for K6, the variant's serving for K5 and K7,
+serving for K1-K4 and the attention core, training for K6, the variant's
+serving for K5 and K7,
 training with the flash route on for K8 (forward and backward).
 The last line of standard output is one JSON object with the device; the
 line before it the kernel table. Exits non-zero, printing no result, when
@@ -132,6 +142,8 @@ REPLACES = {
     "fused_self_attention": "diff_vits_tpu/ops/fused_transformer.py:139",
     "fused_cross_attention": "diff_vits_tpu/ops/fused_transformer.py:173",
     "fused_geglu_ff": "diff_vits_tpu/ops/fused_transformer.py:246",
+    # the score/softmax/PV core of K2 and K3 (_mha, inside their kernels)
+    "attention": "diff_vits_tpu/ops/fused_transformer.py:41",
     "maximum_path": "diff_vits_tpu/ops/mas_pallas.py:89",
     "fused_rel_self_attention": "diff_vits_tpu/ops/rel_attention.py:90",
     "unconstrained_rqs": "diff_vits_tpu/ops/spline_pallas.py:132",
@@ -143,15 +155,22 @@ SOURCE = {
     "fused_self_attention": "diff_vits_tpu_torch/csrc/attention.cu",
     "fused_cross_attention": "diff_vits_tpu_torch/csrc/attention.cu",
     "fused_geglu_ff": "diff_vits_tpu_torch/csrc/gemm.cu",
+    "attention": "diff_vits_tpu_torch/csrc/attention.cu",
     "maximum_path": "diff_vits_tpu_torch/csrc/mas.cu",
     "fused_rel_self_attention": "diff_vits_tpu_torch/csrc/rel_attention.cu",
     "unconstrained_rqs": "diff_vits_tpu_torch/csrc/spline.cu",
     "flash_attention_forward": "diff_vits_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_backward": "diff_vits_tpu_torch/csrc/flash_attention.cu",
 }
-# per UNet call (nn/unet1d.py: 22 resnets, 16 transformer blocks)
+# per UNet call (nn/unet1d.py: 22 resnets, 16 transformer blocks; the
+# attention core once in each K2 and K3)
 PER_UNET = {"fused_resnet_block": 22, "fused_self_attention": 16,
-            "fused_cross_attention": 16, "fused_geglu_ff": 16}
+            "fused_cross_attention": 16, "fused_geglu_ff": 16,
+            "attention": 32}
+# csrc/attention.cu's kernels by route, as the profiler names them
+CORE_KERNEL = {"bfloat16": "attention_mma_kernel",
+               "float32": "attention_fma_kernel"}
+CORE_USERS = ("fused_self_attention", "fused_cross_attention", "attention")
 # the stochastic duration predictor's reverse drops flow_0 and so runs
 # three of its four ConvFlows (models/duration.py)
 K7_PER_SDP_REVERSE = 3
@@ -198,10 +217,11 @@ def device_by_name(prof):
     return by_name
 
 
-def device_time(fn, iters: int = 10):
+def device_times(fn, iters: int = 10):
     """Mean device milliseconds per ``fn()``: the summed duration of the
-    device activities torch.profiler records over ``iters`` warmed calls.
-    None when three windows in a row record no device activity."""
+    device activities torch.profiler records over ``iters`` warmed calls,
+    and the same by kernel name. (None, {}) when three windows in a row
+    record no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -212,10 +232,24 @@ def device_time(fn, iters: int = 10):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(us for _, us in device_by_name(prof).values())
-        if us > 0:
-            return us / 1e3 / iters
-    return None
+        by_name = {k: us / 1e3 / iters
+                   for k, (_, us) in device_by_name(prof).items()}
+        if sum(by_name.values()) > 0:
+            return sum(by_name.values()), by_name
+    return None, {}
+
+
+def device_time(fn, iters: int = 10):
+    """Mean device milliseconds per ``fn()`` (:func:`device_times`)."""
+    return device_times(fn, iters)[0]
+
+
+def _core_kernels(by_name):
+    """{route: device ms} of csrc/attention.cu's kernels among
+    ``by_name``."""
+    return {route: sum(ms for k, ms in by_name.items() if kernel in k)
+            for route, kernel in CORE_KERNEL.items()
+            if any(kernel in k for k in by_name)}
 
 
 # -- kernel phase -----------------------------------------------------------
@@ -231,10 +265,19 @@ def _module_layout(torch, t, dtype):
     return t.to(dtype)
 
 
+def _attention_core(q, k, v, bias, *, heads, compute_dtype):
+    """The attention core of K2 and K3 alone (csrc/attention.cu through
+    its wrapper, planned by ``_cuda.attention_plan``)."""
+    from diff_vits_tpu_torch.ops import _cuda
+    return _cuda.attention(q, k, v, bias, heads)
+
+
 def _ops(name):
     """(kernel route, plain version) of the fused op ``name``."""
     from diff_vits_tpu_torch.ops import fused_resnet as FR
     from diff_vits_tpu_torch.ops import fused_transformer as FT
+    if name == "attention":
+        return _attention_core, FT.attention_plain
     mod = FR if name == "fused_resnet_block" else FT
     return getattr(mod, name), getattr(mod, name + "_plain")
 
@@ -309,11 +352,12 @@ def _kernel_cases(torch, dtype, gen, dev):
         cases.append(("fused_resnet_block", f"{site} B={b} T={t} Ci={ci} "
                       f"Co={co}", args + sc, kw, lib, flops, nbytes))
 
-    b = 8
-    for site, t, c, ck in [("denoiser L0", 400, 128, 128),
-                           ("denoiser L2", 100, 384, 128),
-                           ("denoiser mid", 50, 512, 128),
-                           ("dp-unet L0", 601, 64, 256)]:
+    for site, b, t, c, ck in [("denoiser L0", 8, 400, 128, 128),
+                              ("denoiser L2", 8, 100, 384, 128),
+                              ("denoiser mid", 8, 50, 512, 128),
+                              ("dp-unet L0", 8, 601, 64, 256),
+                              ("denoiser L0", 1, 400, 128, 128),
+                              ("denoiser mid", 1, 50, 512, 128)]:
         heads, s = 8, 267
         x = act(b, t, c)
         ln = (v(c, one=1.0), v(c))
@@ -367,14 +411,39 @@ def _kernel_cases(torch, dtype, gen, dev):
                       + 2 * m * c * c,
                       esz * (2 * m * c + b * s * ck + 2 * c * c + 2 * ck * c
                              + 3 * c) + 4 * b * s))
+        # the core alone at the same sites: self (S = T) and cross (S
+        # prompt frames, the key bias as [B, S])
+        for kind, sk, kbias in (("self", t, None),
+                                ("cross", s, bias.view(b, s))):
+            qkv = (act(b, t, c), act(b, sk, c), act(b, sk, c), kbias)
+            cases.append(("attention", f"{site} {kind} B={b} T={t} S={sk} "
+                          f"d={c // heads}", qkv, akw,
+                          functools.partial(_library_core, F, qkv, heads),
+                          4 * b * t * sk * c,
+                          esz * (2 * b * t * c + 2 * b * sk * c)
+                          + (4 * b * sk if kbias is not None else 0)))
 
-        cases.append(_geglu_case(torch, F, site, b, t, c, x, ln, w, v, bo,
-                                 dtype, esz))
+        if b == 8:
+            cases.append(_geglu_case(torch, F, site, b, t, c, x, ln, w, v,
+                                     bo, dtype, esz))
     for site, t, c in [("denoiser L0", 400, 128), ("denoiser L3", 50, 512)]:
         cases.append(_geglu_case(torch, F, site, 1, t, c, act(1, t, c),
                                  (v(c, one=1.0), v(c)), w, v, v(c), dtype,
                                  esz))
     return cases
+
+
+def _library_core(F, args, heads):
+    """The attention core as one library call:
+    F.scaled_dot_product_attention on the heads of q, k, v (views), the
+    key bias as an additive mask in their dtype."""
+    q, k, v, bias = args
+
+    def sp(z):
+        return z.unflatten(-1, (heads, -1)).transpose(1, 2)
+    mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
+    return F.scaled_dot_product_attention(sp(q), sp(k), sp(v),
+                                          attn_mask=mask)
 
 
 def _geglu_case(torch, F, site, b, t, c, x, ln, w, v, bo, dtype, esz):
@@ -418,9 +487,14 @@ def kernel_phase(torch, dev, headline_dtype="bfloat16"):
             rel = diff / max(ref.float().abs().max().item(), 1e-30)
             finite = bool(torch.isfinite(out.float()).all())
             good = finite and rel <= TOL[dname]
-            ok &= good
             rows.append(_time_row(torch, name, site, dname, kfn, pfn, lfn,
                                   flops, nbytes, diff, rel, good))
+            if name in CORE_USERS:
+                # bf16 on tensor cores, float32 on the FMA kernel, nothing
+                # else
+                rows[-1]["ok"] = good = good and \
+                    list(rows[-1]["core_device_ms"]) == [dname]
+            ok &= good
             if dname == headline_dtype and name not in summary:
                 summary[name] = dict(rows[-1])
     for name, row in summary.items():
@@ -529,7 +603,9 @@ def _time_row(torch, name, site, dname, kfn, pfn, lfn, flops, nbytes, err,
     """One kernel row: times (kernel, device, plain, library, the library's
     device time) and bound."""
     ms = cuda_time(kfn)
-    device_ms = device_time(kfn)
+    device_ms, by_name = device_times(kfn)
+    if name in CORE_USERS:
+        extra = dict(extra or {}, core_device_ms=_core_kernels(by_name))
     plain_ms = cuda_time(pfn, iters=5)
     lib_ms = cuda_time(lfn) if lfn is not None else None
     lib_device_ms = device_time(lfn) if lfn is not None else None
@@ -546,7 +622,9 @@ def _time_row(torch, name, site, dname, kfn, pfn, lfn, flops, nbytes, err,
         f"{'ok' if good else 'FAIL'} ms={ms:.4f} device_ms={device_ms} "
         f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
         f"library_device_ms={lib_device_ms} "
-        f"bound_ms={bound_ms:.4f} ({bound_by})")
+        f"bound_ms={bound_ms:.4f} ({bound_by})"
+        + (f" core_device_ms={row['core_device_ms']}"
+           if "core_device_ms" in row else ""))
     return row
 
 
@@ -839,11 +917,13 @@ def path_phase(torch, dev, card):
     run, and the serving numbers. Returns ({phase: ok}, launch counts,
     the numbers as a JSON-ready dict)."""
     import numpy as np
+    from torch.profiler import ProfilerActivity, profile
     from diff_vits_tpu_torch import ops
     from diff_vits_tpu_torch.core.config import load_config
     from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
     from diff_vits_tpu_torch.models.diff_vits import DiffVits, synthesize
     from diff_vits_tpu_torch.nn.unet1d import set_use_fused
+    from diff_vits_tpu_torch.ops import fused_transformer as FT
     from diff_vits_tpu_torch.text.symbols import symbols
     from diff_vits_tpu_torch.utils.init import init_random
 
@@ -862,25 +942,38 @@ def path_phase(torch, dev, card):
     reqs = _requests(torch, torch.Generator().manual_seed(1), len(symbols),
                      syn.refer_frames)
     calls, handles = _count_path_calls(syn.model)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    results = syn.synthesize_all(reqs, seed=0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    # the kernel routes never run the core's plain version (the UNet's
+    # fused ops reach it only through their plain versions)
+    plain_calls = [0]
+    orig_plain = FT.attention_plain
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return orig_plain(*a, **kw)
+    FT.attention_plain = counted_plain
+    try:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        results = syn.synthesize_all(reqs, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        FT.attention_plain = orig_plain
     for h in handles:
         h.remove()
     want = _want(calls)
     order_ok = [r[0] for r in results] == [r[0] for r in reqs]
     finite = all(np.isfinite(m).all() and m.ndim == 2 and m.shape[1] == 100
                  and m.shape[0] >= 1 for _, m in results)
-    ok["serve"] = order_ok and finite and counts == want
+    ok["serve"] = (order_ok and finite and counts == want
+                   and plain_calls[0] == 0)
     log(f"serve: {len(results)} requests in {wall:.3f} s (first call of "
         f"each bucket shape included); frames "
         f"{[m.shape[0] for _, m in results]}; UNet calls "
         f"{calls['unet'][0]}, encoder layers {calls['encoder_layers'][0]}; "
         f"launches {counts} (want {want}); order {order_ok}; finite "
-        f"{finite}")
+        f"{finite}; attention_plain calls {plain_calls[0]} (want 0)")
 
     # -- parity: one fp32 batch, kernels vs the plain path on the card ----
     gen = torch.Generator().manual_seed(2)
@@ -890,16 +983,25 @@ def path_phase(torch, dev, card):
     out = {}
     for route in (True, False):
         set_use_fused(model, route)
-        out[route] = synthesize(model, *batch, noise_scale=0.0, max_len=400,
-                                init_noise=noise, device=dev)
+        # the kernel route's device activity: which attention core ran
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out[route] = synthesize(model, *batch, noise_scale=0.0,
+                                    max_len=400, init_noise=noise,
+                                    device=dev)
+            torch.cuda.synchronize()
+        if route:
+            cores = _core_kernels(
+                {k: us / 1e3 for k, (_, us) in device_by_name(prof).items()})
     set_use_fused(model, True)
     (mel_k, len_k), (mel_p, len_p) = out[True], out[False]
     err = (mel_k - mel_p).abs().max().item()
     ok["parity_fp32"] = (bool(torch.equal(len_k, len_p)) and err <= 5e-3
-                         and bool(torch.isfinite(mel_k).all()))
+                         and bool(torch.isfinite(mel_k).all())
+                         and list(cores) == ["float32"])
     log(f"parity fp32 (kernels vs plain, 2 utterances, 400 frames, 30 "
         f"steps): frames {len_k.tolist()} vs {len_p.tolist()}, max |diff| "
-        f"{err:.3e} (gate 5e-3), max |mel| {mel_p.abs().max().item():.3f}")
+        f"{err:.3e} (gate 5e-3), max |mel| {mel_p.abs().max().item():.3f}; "
+        f"attention core device ms by route {cores} (want float32 only)")
     del model
 
     short = [r for r in reqs if len(r[1]) <= 128]
@@ -916,6 +1018,12 @@ def path_phase(torch, dev, card):
                                             for k in names))
     log(f"serving GEMM kernels (profiler names): {sorted(set(names))}; "
         f"tensor cores only: {ok['serve_tensor_cores']}")
+    # and the attention core only on its tensor-core kernel
+    cores = [prof["attention_core_ms"]
+             for prof in numbers["profile"].values()]
+    ok["serve_attention_mma"] = all(list(c) == ["bfloat16"] for c in cores)
+    log(f"serving attention core device ms by route: {cores}; tensor cores "
+        f"only: {ok['serve_attention_mma']}")
     return ok, counts, dict(card=card, serve_wall_s=wall,
                             unet_calls=calls["unet"][0], launches=counts,
                             parity_max_abs=err, numbers=numbers)
@@ -998,6 +1106,8 @@ def profile_summary(prof, wall_us, card, what):
                gemm_launches=sum(n for n, _ in gemm.values()),
                gemm_kernels={k: dict(launches=n, ms=us / 1e3)
                              for k, (n, us) in gemm.items()},
+               attention_core_ms=_core_kernels(
+                   {k: us / 1e3 for k, (_, us) in by_name.items()}),
                top=[dict(name=k[:90], launches=n, ms=us / 1e3)
                     for k, (n, us) in top])
     log(f"profile {what}: wall {res['wall_ms']:.1f} ms, device busy "
@@ -1010,6 +1120,7 @@ def profile_summary(prof, wall_us, card, what):
         f"{res['gemm_launches']} taking {res['gemm_ms']:.1f} ms; card {card}")
     for k, row in res["gemm_kernels"].items():
         log(f"  gemm {row['ms']:9.2f} ms {row['launches']:6d}x {k[:90]}")
+    log(f"  attention core ms by route: {res['attention_core_ms']}")
     for row in res["top"]:
         log(f"  {row['ms']:9.2f} ms {row['launches']:6d}x {row['name']}")
     return res
@@ -1112,7 +1223,8 @@ def grad_phase(torch, dev):
     ok = True
     for name, site, args, kw, *_ in _kernel_cases(torch, torch.float32, gen,
                                                   dev):
-        if not site.startswith("denoiser L0"):
+        # the core alone has no autograd Function: K2 and K3 carry it
+        if not site.startswith("denoiser L0") or name == "attention":
             continue
         op, plain = _ops(name)
         grads, launched = {}, {}

@@ -38,7 +38,9 @@ class TrainConfig:
     clip_after: float = 1.0
     # Fields the JAX package added for its TPU trainer (no reference
     # equivalent). They are kept so that the same JSON loads to the same
-    # dataclass; the port's serving slice reads none of them.
+    # dataclass. The port's Trainer reads compute_dtype, use_ema and
+    # ema_decay, and refuses a remat_policy other than "none" and a
+    # mesh_shape of more than one device, which it does not run yet.
     compute_dtype: str = "bfloat16"
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ("data",)

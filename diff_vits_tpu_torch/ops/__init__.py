@@ -2,12 +2,15 @@
 
 Each op's wrapper counts the times it launched its kernels in an integer
 attribute ``launches``; :func:`launch_counts` and :func:`reset_launches`
-read and zero them all.
+read and zero them all. ``attention`` counts the launches of the attention
+core (``_cuda.attention``, csrc/attention.cu) that K2 and K3 share, one for
+each of their launches.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from diff_vits_tpu_torch.ops import _cuda
 from diff_vits_tpu_torch.ops.flash_attention import (
     flash_attention_backward, flash_attention_forward)
 from diff_vits_tpu_torch.ops.fused_resnet import fused_resnet_block
@@ -20,7 +23,7 @@ from diff_vits_tpu_torch.ops.spline import unconstrained_rqs
 KERNEL_OPS = (fused_resnet_block, fused_self_attention,
               fused_cross_attention, fused_geglu_ff, fused_rel_self_attention,
               maximum_path, unconstrained_rqs, flash_attention_forward,
-              flash_attention_backward)
+              flash_attention_backward, _cuda.attention)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -39,7 +39,8 @@ _SIGNATURES = {
     "dvt_norm_stats": (_P, _I, _P, _P, _I, _I, _I, _I, _F, _P),
     "dvt_gemm": (_P, _P),
     "dvt_gemm_args_size": (),
-    "dvt_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "dvt_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                      _P),
     "dvt_mas": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     "dvt_rel_attention": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                           _I, _F, _P),
@@ -323,15 +324,101 @@ def gemm(a: torch.Tensor, bmats, outs, biases, *, M: int, N: int, T: int,
           "gemm")
 
 
+# csrc/attention.cu's tensor-core kernel: 16 query rows a warp, 1, 2 or 4
+# warps a block; key splits in whole 16-key steps, at most 8 (one cluster),
+# until the grid has a block for each SM
+ATTN_ROWS = (64, 32, 16)
+ATTN_SPLIT_KEYS, ATTN_MAX_SPLITS = 16, 8
+ATTN_HEAD_DIMS = (8, 16, 32, 48, 64)
+ATTN_FMA_ROWS = 64
+ATTN_MIN_BLOCKS = GEMM_SMS
+
+
+class AttentionPlan(NamedTuple):
+    """How csrc/attention.cu runs one launch: ``rows`` queries of one
+    (batch, head) a block, the keys split ``splits`` ways (the blocks of one
+    cluster), on tensor cores (bfloat16) or the float32 FMA kernel."""
+    rows: int
+    splits: int
+    tensor_cores: bool
+
+
+def attention_plan(B: int, T: int, S: int, H: int, D: int,
+                   dtype: torch.dtype) -> AttentionPlan:
+    """The query tile and key splits of one csrc/attention.cu launch over
+    q [B, T, H*D] and k, v [B, S, H*D] in ``dtype``; raises on what the
+    kernel does not take.
+
+    float32 runs the FMA kernel: 64 queries a block, no split. bfloat16:
+    the widest query tile (64, 32, 16 rows) whose grid reaches the 132 SMs
+    with the most splits the keys allow (a power of two up to 8, at most one
+    per 16 keys, so that no split is empty), else 16 rows; then the fewest
+    splits that give every SM a block (``ATTN_MIN_BLOCKS``). A block's key
+    tiles are a latency chain that splits shorten, but each split adds a
+    cluster merge over distributed shared memory, which cost more than it
+    saved beyond one block an SM (tools/torch_attention_probe.py times the
+    main path's shapes at other targets; PERF.md)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention takes float32 or bfloat16, got {dtype}")
+    if min(B, T, S, H) < 1:
+        raise ValueError(f"attention needs B, T, S, H >= 1, got {B}, {T}, "
+                         f"{S}, {H}")
+    if D not in ATTN_HEAD_DIMS:
+        raise ValueError(f"attention kernel takes head dims 8, 16, 32, 48 "
+                         f"or 64; got {D}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"attention takes B, H <= 65535, got {B}, {H}")
+    if dtype == torch.float32:
+        return AttentionPlan(ATTN_FMA_ROWS, 1, False)
+    max_splits = 1
+    while max_splits * 2 <= min(ATTN_MAX_SPLITS, -(-S // ATTN_SPLIT_KEYS)):
+        max_splits *= 2
+
+    def blocks(rows: int, splits: int) -> int:
+        return -(-T // rows) * H * B * splits
+
+    rows = next((r for r in ATTN_ROWS if blocks(r, max_splits) >= GEMM_SMS),
+                ATTN_ROWS[-1])
+    splits = 1
+    while splits < max_splits and blocks(rows, splits) < ATTN_MIN_BLOCKS:
+        splits *= 2
+    return AttentionPlan(rows, splits, True)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor], heads: int) -> torch.Tensor:
-    """csrc/attention.cu on q [B, T, H*D], k/v [B, S, H*D] (one dtype),
-    bias [B, S] float32 or None; returns o like q."""
+    """csrc/attention.cu on q [B, T, H*D], k/v [B, S, H*D] (one dtype,
+    contiguous, on one card), bias [B, S] float32 or None; returns o like
+    q. Planned by :func:`attention_plan`, which raises on what it refuses;
+    bfloat16 runs the tensor-core kernel, float32 the FMA one."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"attention takes q [B, T, C], k and v [B, S, C]; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, t, c = q.shape
     s = k.shape[1]
+    if c % heads:
+        raise ValueError(f"attention: C={c} is not a multiple of {heads} "
+                         f"heads")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype != q.dtype or x.device != q.device \
+                or not x.is_contiguous():
+            raise ValueError(f"attention: {name} must be contiguous, in q's "
+                             f"dtype and on q's device")
+    if bias is not None and (bias.shape != (b, s) or bias.dtype != torch.float32
+                             or bias.device != q.device
+                             or not bias.is_contiguous()):
+        raise ValueError(f"attention: bias must be [B, S] = {(b, s)} float32, "
+                         f"contiguous, on q's device")
+    plan = attention_plan(b, t, s, heads, c // heads, q.dtype)
     o = torch.empty_like(q)
     check(fn("attention.cu", "dvt_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias), o.data_ptr(),
         b, t, s, heads, c // heads, dtype_flag(q), (c // heads) ** -0.5,
-        stream_ptr(q)), "attention")
+        plan.rows, plan.splits, stream_ptr(q)), "attention")
+    attention.launches += 1
     return o
+
+
+attention.launches = 0

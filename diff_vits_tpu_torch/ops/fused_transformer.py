@@ -20,6 +20,8 @@ raises; their gradient is that of the plain version, recomputed
       one launch) -> attention -> gemm(Wo + bo + residual)
   K3: norm_stats(rows) -> gemm(LN; q) -> gemm(ctx; k, v) -> attention(key
       bias) -> gemm(Wo + bo + residual)
+  (attention: ``_cuda.attention``, planned by ``_cuda.attention_plan``;
+  its plain version is :func:`attention_plain`)
   K4: norm_stats(rows) -> gemm(LN; W1 with the GEGLU pair epilogue) ->
       gemm(W2 + b2 + residual)
 
@@ -34,8 +36,9 @@ products run on tensor cores (bf16, csrc/gemm.cu), their K split over a
 thread-block cluster until the grid fills the 132 SMs: at these shapes
 (M = B*T of 50-6,400 rows) the grid and each block's K-step latency, not
 the work, bound them.
-The attention core (csrc/attention.cu) is still bound by its FMA rate: one
-query a thread, head dims of 8-64, no tensor-core tile.
+The attention core (csrc/attention.cu) runs QK^T and PV on tensor cores
+in bf16, 16 queries a warp, its keys split over a cluster where the grid
+is small; float32 (the parity route) keeps exact FMA products.
 """
 from __future__ import annotations
 
@@ -55,20 +58,32 @@ def _layer_norm(x, scale, bias, eps=1e-5):
     return (x - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
-def _mha(h_q, src, wq, wk, wv, wo, bo, bias, heads: int, cdt):
-    q, k, v = mm(h_q, wq, cdt), mm(src, wk, cdt), mm(src, wv, cdt)
+def attention_plain(q, k, v, bias, heads: int, compute_dtype=torch.bfloat16):
+    """Plain PyTorch version of the attention core of K2 and K3
+    (csrc/attention.cu; the score/softmax/PV part of the JAX package's
+    ``_mha`` and ``_xla_mha``): per head, softmax(d**-0.5 q.k^T + bias) v
+    on q [B, T, H*d] and k, v [B, S, H*d], with q, k, v and the
+    probabilities rounded to ``compute_dtype`` before their products, the
+    sums in float32. ``bias``: additive, [B, S] or [B, 1, S], or None.
+    Returns float32 [B, T, H*d]."""
     b, t, inner = q.shape
     d = inner // heads
 
     def split(a):
-        return a.reshape(b, -1, heads, d).transpose(1, 2).to(cdt).float()
+        return a.reshape(b, -1, heads, d).transpose(1, 2).to(
+            compute_dtype).float()
 
     s = torch.matmul(split(q), split(k).transpose(-1, -2)) * d ** -0.5
     if bias is not None:
-        s = s + bias.float()[:, None, :, :]
+        s = s + bias.float().reshape(b, 1, 1, -1)
     p = torch.softmax(s, dim=-1)
-    o = torch.matmul(p.to(cdt).float(), split(v))
-    o = o.transpose(1, 2).reshape(b, t, inner)
+    o = torch.matmul(p.to(compute_dtype).float(), split(v))
+    return o.transpose(1, 2).reshape(b, t, inner)
+
+
+def _mha(h_q, src, wq, wk, wv, wo, bo, bias, heads: int, cdt):
+    q, k, v = mm(h_q, wq, cdt), mm(src, wk, cdt), mm(src, wv, cdt)
+    o = attention_plain(q, k, v, bias, heads, cdt)
     return mm(o, wo, cdt) + bo.float()
 
 
@@ -123,7 +138,7 @@ def _check_x(x: torch.Tensor, name: str) -> None:
 def _check_attn(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads, cdt,
                 ck: int, same_launch_q: bool) -> None:
     c, dev = x.shape[-1], x.device
-    if c % heads or (c // heads) not in (8, 16, 32, 48, 64):
+    if c % heads or (c // heads) not in _cuda.ATTN_HEAD_DIMS:
         raise ValueError(f"attention kernel takes head dims 8, 16, 32, 48 "
                          f"or 64; got C={c} over {heads} heads")
     _check_vecs([("ln_scale", ln_scale), ("ln_bias", ln_bias)], c, cdt, dev)

@@ -91,6 +91,22 @@ def device_batch(batch: Batch, use_refer1: bool, device: torch.device
                 tone=ids(batch.tone), language=ids(batch.language))
 
 
+def _check_unported(cfg: Config) -> None:
+    """Refuse the JAX trainer's options that the port does not run yet,
+    rather than train without them: rematerialisation (ROADMAP Queue 1,
+    item 10, ``torch.utils.checkpoint``) and a device mesh (Queue 1, item
+    7). JAX raises on an unknown policy too (trainer.py:105-112)."""
+    if cfg.train.remat_policy != "none":
+        raise ValueError(
+            f"train.remat_policy {cfg.train.remat_policy!r} is not ported "
+            "(ROADMAP Queue 1, item 10); the port trains with 'none'")
+    if math.prod(cfg.train.mesh_shape) != 1:
+        raise ValueError(
+            f"train.mesh_shape {tuple(cfg.train.mesh_shape)} spans more than "
+            "one device, which the port does not train on yet (ROADMAP "
+            "Queue 1, item 7)")
+
+
 class Trainer:
     """``Trainer(cfg, batches)`` builds the model from ``train.seed`` on
     ``device`` (the card unless given) in training mode; ``train_step``
@@ -99,6 +115,7 @@ class Trainer:
     def __init__(self, cfg: Config, batches: Iterable[Batch], *,
                  device: DeviceLike = None, workdir: Optional[str] = None):
         self.cfg = cfg
+        _check_unported(cfg)
         self.device = resolve_device(device)
         self.model = DiffVits(cfg, len(symbols), device=self.device)
         init_random(self.model, torch.Generator().manual_seed(cfg.train.seed))
@@ -253,11 +270,20 @@ class Trainer:
                                         keep=self.cfg.train.keep_ckpts)
 
     def load(self, path: str) -> None:
+        """Restore a checkpoint of :meth:`save`, or a params-only one
+        (``{"model": ...}``, as converted from the reference): as JAX's
+        ``Trainer.load`` does, the optimizer then starts afresh, the random
+        streams go on as they are, and the EMA starts from the params."""
         step, state = ckpt_lib.load_checkpoint(path, map_location=self.device)
         self.model.load_state_dict(state["model"], strict=True)
-        self.optimizer.load_state_dict(state["optimizer"])
-        self.generator.set_state(state["generator"].cpu())
-        self._py_rng.setstate(state["py_rng"])
+        if "optimizer" in state:
+            self.optimizer.load_state_dict(state["optimizer"])
+        else:
+            self.optimizer = make_optimizer(self.cfg, self.params)
+        if "generator" in state:
+            self.generator.set_state(state["generator"].cpu())
+        if "py_rng" in state:
+            self._py_rng.setstate(state["py_rng"])
         if self.ema is not None:
             src = state.get("ema") or self.params
             self.ema = [e.detach().float().clone() for e in src]

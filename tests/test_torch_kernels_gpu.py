@@ -4,6 +4,14 @@ ones do not reach:
 rows and columns that fill no whole 64-wide tile, reductions shorter than
 one 16-deep step, T = 1 and 2 (both conv taps at the sequence edge),
 every head dim the attention kernel takes, one kept key, no key bias.
+The attention core alone (csrc/attention.cu through ``_cuda.attention``,
+planned by ``_cuda.attention_plan``) against ``attention_plain`` at every
+head dim, T in {1, 37, 50, 400, 601}, S in {1, 70, 267, 400}, B in {1, 8}
+and a key bias of none, ragged lengths, one kept key or every key at
+-10000, in float32 and bfloat16 (1e-3 / 3e-2 of the largest output);
+two launches with cluster key splits bit-identical; bfloat16 on
+``attention_mma_kernel`` and float32 on ``attention_fma_kernel`` only;
+the refusals.
 Each also takes its weights in the layout the UNet modules hand over
 (strided views of nn.Linear [out, in] and nn.Conv1d [out, in, k]
 parameters, norm parameters and biases in the compute dtype) as well as in
@@ -194,6 +202,120 @@ def test_cross_attention_kernel_matches_plain(dev, dtype, b, t, s, ck, heads,
         *args, heads=heads, compute_dtype=dtype), dtype)
 
 
+# csrc/attention.cu alone (the core of K2 and K3), through _cuda.attention
+# with the plan of _cuda.attention_plan, against attention_plain.
+ATTN_T = (1, 37, 50, 400, 601)
+ATTN_S = (1, 70, 267, 400)
+ATTN_BIAS = ("none", "ragged", "one_key", "all_masked")
+ATTN_HEADS = 4
+
+
+def _core_bias(kind, b, s, dev):
+    """[b, s] additive 0/-10000 key bias: none, ragged lengths (item 0
+    full), one kept key, or every key at -10000."""
+    if kind == "none":
+        return None
+    keep = torch.ones(b, s, device=dev)
+    if kind == "ragged":
+        for i in range(1, b):
+            keep[i, max(1, s - (s * i) // b):] = 0.0
+    elif kind == "one_key":
+        keep[:, 1:] = 0.0
+    else:
+        keep.zero_()
+    return ((1 - keep) * -10000.0).contiguous()
+
+
+def _core_inputs(gen, dev, b, t, s, d, dtype, heads=ATTN_HEADS):
+    c = heads * d
+    return (_rand(gen, dev, b, t, c, dtype=dtype),
+            _rand(gen, dev, b, s, c, dtype=dtype),
+            _rand(gen, dev, b, s, c, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", _cuda.ATTN_HEAD_DIMS)
+def test_attention_core_matches_plain(dev, dtype, d):
+    """Every T x S x B x bias case at this head dim and dtype."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    for b in (1, 8):
+        for t in ATTN_T:
+            for s in ATTN_S:
+                q, k, v = _core_inputs(gen, dev, b, t, s, d, dtype)
+                for kind in ATTN_BIAS:
+                    bias = _core_bias(kind, b, s, dev)
+                    before = _cuda.attention.launches
+                    out = _cuda.attention(q, k, v, bias, ATTN_HEADS)
+                    torch.cuda.synchronize()
+                    assert _cuda.attention.launches == before + 1
+                    ref = FT.attention_plain(q, k, v, bias, ATTN_HEADS, dtype)
+                    assert out.dtype == dtype and out.shape == q.shape
+                    assert bool(torch.isfinite(out.float()).all()), \
+                        (b, t, s, kind)
+                    err = (out.float() - ref).abs().max().item()
+                    assert err <= TOL[dtype] * ref.abs().max().item(), \
+                        (b, t, s, kind, _cuda.attention_plan(
+                            b, t, s, ATTN_HEADS, d, dtype), err)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_attention_core_is_deterministic(dev, dtype):
+    """Two launches give the same bits, key splits merged over the cluster
+    included (b=1 denoiser level 0 cross attention: 4 splits)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, t, s, heads, d = 1, 400, 267, 8, 16
+    plan = _cuda.attention_plan(b, t, s, heads, d, dtype)
+    assert plan.splits > 1 if dtype == torch.bfloat16 else plan.splits == 1
+    q, k, v = _core_inputs(gen, dev, b, t, s, d, dtype, heads)
+    bias = _core_bias("ragged", b, s, dev)
+    first = _cuda.attention(q, k, v, bias, heads)
+    second = _cuda.attention(q, k, v, bias, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype,kernel,other", [
+    (torch.bfloat16, "attention_mma_kernel", "attention_fma_kernel"),
+    (torch.float32, "attention_fma_kernel", "attention_mma_kernel"),
+], ids=["bf16-tensor-cores", "f32-fma"])
+def test_attention_core_route_by_dtype(dev, dtype, kernel, other):
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = _core_inputs(gen, dev, 2, 50, 70, 32, dtype)
+    _cuda.attention(q, k, v, None, ATTN_HEADS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _cuda.attention(q, k, v, None, ATTN_HEADS)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert any(kernel in n for n in names), names
+    assert not any(other in n for n in names), names
+
+
+def test_attention_core_refuses_what_it_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    before = _cuda.attention.launches
+    q, k, v = _core_inputs(gen, dev, 2, 9, 11, 10, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):      # d = 10
+        _cuda.attention(q, k, v, None, ATTN_HEADS)
+    q, k, v = _core_inputs(gen, dev, 2, 9, 11, 16, torch.bfloat16)
+    with pytest.raises(TypeError):
+        _cuda.attention(q.half(), k.half(), v.half(), None, ATTN_HEADS)
+    with pytest.raises(ValueError, match="contiguous"):
+        _cuda.attention(q, k.transpose(0, 1).contiguous().transpose(0, 1), v,
+                        None, ATTN_HEADS)
+    with pytest.raises(ValueError, match="bias"):
+        _cuda.attention(q, k, v, torch.zeros(2, 1, 11, device=dev),
+                        ATTN_HEADS)
+    # k one element past a 16-byte boundary: no 16-byte copy fits
+    shifted = torch.empty(k.numel() + 1, device=dev,
+                          dtype=k.dtype)[1:].view(k.shape).copy_(k)
+    with pytest.raises(ValueError, match="refused"):
+        _cuda.attention(q, shifted, v, None, ATTN_HEADS)
+    torch.cuda.synchronize()
+    assert _cuda.attention.launches == before
+
+
 @LAYOUTS
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("b,t,c", [(2, 130, 24), (1, 1, 8), (3, 601, 64),
@@ -349,7 +471,7 @@ def test_tiny_unet_on_kernels_matches_unfused(dev):
             "fused_cross_attention": 16, "fused_geglu_ff": 16,
             "fused_rel_self_attention": 0, "maximum_path": 0,
             "unconstrained_rqs": 0, "flash_attention_forward": 0,
-            "flash_attention_backward": 0}
+            "flash_attention_backward": 0, "attention": 32}
         set_use_fused(model, False)
         ref = model(x, ts, ctx, encoder_attention_mask=keep)
     assert out.shape == (b, t, 4)
