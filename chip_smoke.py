@@ -43,10 +43,15 @@ Phases, each of which fails the run:
    ragged keep masks, in float32 and bfloat16: forward output and
    log-sum-exp against ``sdpa_plain``, dq/dk/dv against autograd of it and
    against ``sdpa_backward_plain`` on the kernel's own o and lse, each
-   gradient in its input view's layout; same gates; the forward, the
+   gradient in its input view's layout; same gates; bfloat16 must run
+   only the tensor-core kernels (``flash_*_mma_kernel``), float32 only the
+   FMA ones (route counters; the profiler's kernel names are printed); the
+   forward, the
    backward and forward + backward timed for the kernel, the plain version
    and the library (``F.scaled_dot_product_attention``; the backward alone
-   as the ATen backward op of the backend it takes, on its own forward);
+   as the ATen backward op of the backend it takes, on its own forward),
+   and, once the route-on training has run, each site's launches a model3
+   step beside its device ms, library device ms and bound;
 4. mas: K6 (MAS) against its plain version at the training shape (B=32,
    Ty=400, Tx=601; ragged lengths, t_x == t_y, t_x == 1) on random and on
    tied integer scores: identical paths (0 mismatched cells); its times,
@@ -61,7 +66,8 @@ Phases, each of which fails the run:
    within rel 1e-4, every parameter gradient within 1e-3 of its leaf's
    scale by its norm, and by its largest entry on every leaf that no ReLU,
    clamp, abs or max separates from the loss; K8 counters equal to the
-   calls through the flash gate; then the route off with every ReLU on
+   calls through the flash gate, every launch on the FMA kernels (route
+   counters and profiler names); then the route off with every ReLU on
    the branches the route-on run took: every gradient within 1e-3 of its
    leaf's largest entry (a ReLU input within rounding of 0 may flip between
    the routes; this shows the flips explain what the kink-free gate
@@ -94,7 +100,10 @@ Phases, each of which fails the run:
    then the same with the flash route on (``set_use_flash``):
    each step also exactly one K8 forward and one K8 backward launch for
    each attention call through the flash gate (counted by hooks on the
-   modules, from their own gate);
+   modules, from their own gate; 40 + 40 for model3), every one of them on
+   the tensor-core kernels (the route counters each step, and in the
+   profiled step the profiler's names: the three ``flash_*_mma_kernel``s
+   and no FMA kernel);
 10. eval parity: ``Trainer.eval_fixed_t_loss`` (eval mode, float32, TF32
    off) through the kernels and through the plain route on the card:
    every value within rel 1e-4, the MAS paths equal, the counters
@@ -171,6 +180,13 @@ PER_UNET = {"fused_resnet_block": 22, "fused_self_attention": 16,
 CORE_KERNEL = {"bfloat16": "attention_mma_kernel",
                "float32": "attention_fma_kernel"}
 CORE_USERS = ("fused_self_attention", "fused_cross_attention", "attention")
+# csrc/flash_attention.cu's kernels by route, as the profiler names them
+# (bf16 at the model's head dims on tensor cores, float32 on FMA)
+FLASH_KERNELS = {"mma": ("flash_fwd_mma_kernel<", "flash_bwd_dq_mma_kernel<",
+                         "flash_bwd_dkdv_mma_kernel<"),
+                 "fma": ("flash_fwd_kernel<", "flash_bwd_dq_kernel<",
+                         "flash_bwd_dkdv_kernel<")}
+FLASH_ROUTE = {"bfloat16": "mma", "float32": "fma"}
 # the stochastic duration predictor's reverse drops flow_0 and so runs
 # three of its four ConvFlows (models/duration.py)
 K7_PER_SDP_REVERSE = 3
@@ -217,16 +233,23 @@ def device_by_name(prof):
     return by_name
 
 
+PROFILER_TRIES = 8
+
+
 def device_times(fn, iters: int = 10):
     """Mean device milliseconds per ``fn()``: the summed duration of the
     device activities torch.profiler records over ``iters`` warmed calls,
-    and the same by kernel name. (None, {}) when three windows in a row
-    record no device activity."""
+    and the same by kernel name. The profiler now and then records no
+    device activity in a window, several in a row: a lost window is taken
+    again after a pause, up to ``PROFILER_TRIES`` windows; (None, {}) when
+    all of them are lost."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(PROFILER_TRIES):
+        if attempt:
+            time.sleep(0.25)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -239,9 +262,50 @@ def device_times(fn, iters: int = 10):
     return None, {}
 
 
+def profiled_run(fn):
+    """(``fn()``'s result, the profiler, wall us) of one ``fn()`` under
+    torch.profiler (CPU and CUDA), ending in a synchronise; a window that
+    recorded no device activity is run again after a pause, as in
+    :func:`device_times` (``fn`` must give the same result each time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(PROFILER_TRIES):
+        if attempt:
+            time.sleep(0.25)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        if device_by_name(prof):
+            break
+    return out, prof, wall_us
+
+
+def device_names(fn):
+    """Names of the device activities of one ``fn()`` (:func:`profiled_run`;
+    [] when every window was lost)."""
+    return list(device_by_name(profiled_run(fn)[1]))
+
+
 def device_time(fn, iters: int = 10):
     """Mean device milliseconds per ``fn()`` (:func:`device_times`)."""
     return device_times(fn, iters)[0]
+
+
+def _flash_kernels(names):
+    """{route: sorted K8 kernel names of that route among ``names``}."""
+    return {route: sorted({k for k in kernels for n in names if k in n})
+            for route, kernels in FLASH_KERNELS.items()}
+
+
+def _flash_route_only(names, route):
+    """Whether ``names`` hold each K8 kernel of ``route`` and none of the
+    other route's."""
+    seen = _flash_kernels(names)
+    return all(len(seen[r]) == (3 if r == route else 0) for r in seen)
 
 
 def _core_kernels(by_name):
@@ -805,6 +869,8 @@ def main(argv=None) -> int:
                   use_flash=True, steps=7, profile=True)
     for name in ("flash_attention_forward", "flash_attention_backward"):
         counts[name] = flash_counts[name]
+    flash_site_table(f_rows, flash_numbers["flash_site_launches_per_step"],
+                     card)
     del trainer
     torch.cuda.empty_cache()
     log(f"training model3, flash off vs on: median step "
@@ -917,7 +983,6 @@ def path_phase(torch, dev, card):
     run, and the serving numbers. Returns ({phase: ok}, launch counts,
     the numbers as a JSON-ready dict)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from diff_vits_tpu_torch import ops
     from diff_vits_tpu_torch.core.config import load_config
     from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
@@ -984,11 +1049,9 @@ def path_phase(torch, dev, card):
     for route in (True, False):
         set_use_fused(model, route)
         # the kernel route's device activity: which attention core ran
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            out[route] = synthesize(model, *batch, noise_scale=0.0,
-                                    max_len=400, init_noise=noise,
-                                    device=dev)
-            torch.cuda.synchronize()
+        out[route], prof, _ = profiled_run(lambda: synthesize(
+            model, *batch, noise_scale=0.0, max_len=400, init_noise=noise,
+            device=dev))
         if route:
             cores = _core_kernels(
                 {k: us / 1e3 for k, (_, us) in device_by_name(prof).items()})
@@ -1068,20 +1131,13 @@ def profile_synthesize(torch, syn, requests, card):
     bucket 400) under torch.profiler: wall time, the device's busy share
     (summed device activity over wall time; one stream, so nothing
     overlaps), device time by kernel name, and kernels launched."""
-    from torch.profiler import ProfilerActivity, profile
     from diff_vits_tpu_torch.models.diff_vits import synthesize
 
     syn.batch_size = len(requests)
     args = syn.pad_batch(requests, 128)
-    gen = torch.Generator().manual_seed(4)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        synthesize(syn.model, *args, generator=gen, max_len=400,
-                   device=syn.device)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    _, prof, wall_us = profiled_run(lambda: synthesize(
+        syn.model, *args, generator=torch.Generator().manual_seed(4),
+        max_len=400, device=syn.device))
     return profile_summary(prof, wall_us, card,
                            f"synthesize b={len(requests)}")
 
@@ -1281,24 +1337,31 @@ def _train_batches(np, b, t_x, t_y, s_max, n_symbols, seed):
                     refer2_lengths=np.array([len(c[2]) for c in cut]))
 
 
-def _flash_calls(model):
+def _flash_calls(model, shapes=None):
     """Forward pre-hooks on every attention module of ``model`` that has a
     flash route (``CrossAttention``, ``EncSALayer``): a one-item list that
     grows by one for each call that passes the module's own gate, i.e. the
     K8 forward launches to expect; each such output enters the loss, so as
-    many backward launches. Returns (the list, hook handles)."""
+    many backward launches. Each such call's (T, S, d) is appended to
+    ``shapes`` when given. Returns (the list, hook handles)."""
     from diff_vits_tpu_torch.nn.fairseq import EncSALayer
     from diff_vits_tpu_torch.nn.unet1d import CrossAttention
     calls = [0]
 
+    def count(gated, t, s, d):
+        calls[0] += gated
+        if gated and shapes is not None:
+            shapes.append((t, s, d))
+
     def cross(m, args, kwargs):
         x = args[0]
         ctx = args[1] if len(args) > 1 else kwargs.get("context")
-        calls[0] += m.uses_flash(x.shape[1], (x if ctx is None
-                                              else ctx).shape[1])
+        s = (x if ctx is None else ctx).shape[1]
+        count(m.uses_flash(x.shape[1], s), x.shape[1], s, m.dim_head)
 
     def enc_sa(m, args, kwargs):
-        calls[0] += m.uses_flash(args[0].shape[1], args[0].shape[2])
+        t, c = args[0].shape[1], args[0].shape[2]
+        count(m.uses_flash(t, c), t, t, c // m.num_heads)
     handles = [m.register_forward_pre_hook(
         cross if isinstance(m, CrossAttention) else enc_sa, with_kwargs=True)
         for m in model.modules() if isinstance(m, (CrossAttention,
@@ -1343,6 +1406,7 @@ def train_run(torch, dev, card, cfg, what, *, use_flash, steps,
     from torch.profiler import ProfilerActivity, profile as profiler
     from diff_vits_tpu_torch import ops
     from diff_vits_tpu_torch.nn.unet1d import set_use_flash
+    from diff_vits_tpu_torch.ops import flash_attention as FA
     from diff_vits_tpu_torch.text.symbols import symbols
     from diff_vits_tpu_torch.train.trainer import Trainer
 
@@ -1357,36 +1421,67 @@ def train_run(torch, dev, card, cfg, what, *, use_flash, steps,
         f"compute {cfg.train.compute_dtype}, flash route {use_flash}")
     params0 = [p.detach().clone() for p in trainer.params]
     ema0 = [e.clone() for e in trainer.ema]
-    calls, handles = _flash_calls(trainer.model)
+    shapes = []
+    calls, handles = _flash_calls(trainer.model, shapes)
+    route = FLASH_ROUTE[cfg.train.compute_dtype]
+    other = "fma" if route == "mma" else "mma"
     it = iter(batches)
     total = {}
     times, losses, per_step_ok, flash_per_step = [], [], [], []
-    profiled = None
+    # the second warm-up step is profiled; a step whose window the profiler
+    # lost (no device activity) is followed by another profiled step
+    profiled, profile_route_ok = None, not profile
     for i in range(steps):
         batch = next(it)
         if i == 2:
             torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         calls[0] = 0
+        shapes.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if i == 1 and profile:
+        profiling = profile and profiled is None and i >= 1
+        if profiling:
             with profiler(activities=[ProfilerActivity.CPU,
                                       ProfilerActivity.CUDA]) as prof:
                 metrics = trainer.train_step(batch)
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
+            by_name = device_by_name(prof)
+        if profiling and not by_name:
+            log(f"{what} step {i + 1}: the profiler recorded no device "
+                f"activity; profiling the next step")
+        elif profiling:
             profiled = profile_summary(prof, wall_us, card,
                                        f"one training step of {what} "
-                                       "(warm-up 2)")
-        else:
+                                       f"(step {i + 1})")
+            seen = _flash_kernels(by_name)
+            profiled["flash_kernels"] = seen
+            profiled["flash_device_ms"] = {
+                r: sum(us for n, (_, us) in by_name.items()
+                       if any(k in n for k in FLASH_KERNELS[r])) / 1e3
+                for r in FLASH_KERNELS}
+            # the route on runs only the compute dtype's K8 kernels
+            profile_route_ok = (_flash_route_only(by_name, route)
+                                if use_flash else not any(seen.values()))
+            log(f"{what}: K8 kernels in the profiled step {seen}, device "
+                f"ms by route {profiled['flash_device_ms']}: "
+                f"{'ok' if profile_route_ok else 'FAIL'}")
+        if not profiling:
             metrics = trainer.train_step(batch)
             torch.cuda.synchronize()
-        if i >= 2:
+        if i >= 2 and not profiling:
             times.append(time.perf_counter() - t0)
         counts = ops.launch_counts()
         want = _want_step(counts, calls[0])
-        per_step_ok.append(counts == want and (calls[0] > 0) == use_flash)
+        routes = FA.route_counts()
+        routes_ok = all(
+            routes[f"{n}.{route}_launches"] == calls[0]
+            and routes[f"{n}.{other}_launches"] == 0
+            and routes[f"{n}.wide_bf16_launches"] == 0
+            for n in ("flash_attention_forward", "flash_attention_backward"))
+        per_step_ok.append(counts == want and routes_ok
+                           and (calls[0] > 0) == use_flash)
         flash_per_step.append(calls[0])
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
@@ -1407,21 +1502,27 @@ def train_run(torch, dev, card, cfg, what, *, use_flash, steps,
                   == p.untyped_storage().data_ptr()
                   for e, p in zip(trainer.ema, trainer.params))
     counters = all(per_step_ok)
+    site_launches = {}
+    for shape in shapes:                     # the last step's gated calls
+        site_launches[shape] = site_launches.get(shape, 0) + 1
     ok = (finite and moved == len(params0) and ema_moved > 0
-          and aliased == 0 and counters)
+          and aliased == 0 and counters and profile_route_ok)
     log(f"{what}: {steps} steps, losses finite {finite}; parameters changed "
         f"{moved}/{len(params0)}, EMA tensors changed {ema_moved}/"
         f"{len(ema0)}, EMA aliasing parameters {aliased}; every step one K6 "
         f"launch, K8 forward and backward launches equal to the calls "
-        f"through the flash gate ({flash_per_step}), no other launch "
-        f"{counters}: {'ok' if ok else 'FAIL'}")
+        f"through the flash gate ({flash_per_step}), all on the {route} "
+        f"kernels, no other launch {counters}: {'ok' if ok else 'FAIL'}")
     log(f"{what} numbers: median step {step_s * 1e3:.1f} ms of "
         f"{[round(t * 1e3, 1) for t in times]} ms, {1 / step_s:.3f} steps/s, "
         f"peak device memory {peak:.2f} GB; card {card}")
     numbers = dict(use_flash=use_flash, step_s=step_s, steps_s=times,
                    steps_per_s=1 / step_s, max_memory_allocated_GB=peak,
                    losses=losses, profile=profiled, n_params=n_params,
-                   flash_calls_per_step=flash_per_step)
+                   flash_calls_per_step=flash_per_step,
+                   flash_site_launches_per_step={
+                       f"T={t} S={s_} d={d}": n
+                       for (t, s_, d), n in site_launches.items()})
     return ok, total, numbers, trainer, next(it)
 
 
@@ -1657,6 +1758,7 @@ def flash_kernel_phase(torch, dev):
     (torch.profiler) and the bounds. Returns (ok, rows, {counter name:
     headline row})."""
     import torch.nn.functional as F
+    from diff_vits_tpu_torch import ops
     from diff_vits_tpu_torch.ops import flash_attention as FA
     ok, rows = True, []
     for dname in ("float32", "bfloat16"):
@@ -1666,11 +1768,19 @@ def flash_kernel_phase(torch, dev):
             q, k, v, keep = _flash_inputs(torch, gen, dev, t, s, d, ragged,
                                           dtype)
             scale = d ** -0.5
+            ops.reset_launches()
             o, lse = FA.flash_attention_forward(q, k, v, keep, scale)
             do = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
             grads = FA.flash_attention_backward(q, k, v, o, lse, do, keep,
                                                 scale)
             torch.cuda.synchronize()
+            # bf16 on the tensor-core kernels, float32 on the FMA ones
+            route = FLASH_ROUTE[dname]
+            routes = FA.route_counts()
+            route_ok = all(routes[f"{n}.{route}_launches"] == 1
+                           and routes[f"{n}.wide_bf16_launches"] == 0
+                           for n in ("flash_attention_forward",
+                                     "flash_attention_backward"))
             ref_o, ref_lse = FA.sdpa_plain(q, k, v, keep, sm_scale=scale,
                                            with_lse=True)
             leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
@@ -1695,6 +1805,8 @@ def flash_kernel_phase(torch, dev):
             good = finite and all(rel <= TOL[dname]
                                   for _, rel in errs.values())
             ok &= good
+            good &= route_ok
+            ok &= route_ok
             row = _flash_times(torch, F, FA, dname, q, k, v, keep, o, lse,
                                do, scale, lib_bwd)
             b, h = FLASH_B, FLASH_H
@@ -1706,6 +1818,7 @@ def flash_kernel_phase(torch, dev):
                             f"{key}flops": flops, f"{key}bytes": nbytes})
             row.update(site=f"{site} B={b} H={h} T={t} S={s} d={d} "
                        + ("ragged" if ragged else "no mask"), dtype=dname,
+                       T=t, S=s, d=d,
                        ok=good, errors={k: v[1] for k, v in errs.items()},
                        library_bwd_err=lib_err,
                        max_abs_err=max(errs[n][0] for n in ("o", "lse")),
@@ -1715,6 +1828,7 @@ def flash_kernel_phase(torch, dev):
                 + " ".join(f"{k}={v[1]:.2e}" for k, v in errs.items()
                            if not k.endswith("layout"))
                 + f" layouts {all(errs[f'd{n}_layout'][1] == 0 for n in 'qkv')}"
+                f" route {route} {route_ok} (profiler: {row['kernels']})"
                 f" {'ok' if good else 'FAIL'}")
             log("  forward ms={ms:.4f} device_ms={device_ms} plain_ms="
                 "{plain_ms:.4f} library_ms={library_ms:.4f} "
@@ -1744,6 +1858,23 @@ def flash_kernel_phase(torch, dev):
         r["name"] = "flash_attention"
     return ok, rows, {"flash_attention_forward": fwd,
                       "flash_attention_backward": bwd}
+
+
+def flash_site_table(rows, site_launches, card):
+    """Each K8 row's launches per model3 step at its site (the route-on
+    training step's gated calls by shape), and one line a row: device ms
+    of the kernel and the library, the bound, forward and backward."""
+    for r in rows:
+        r["launches_per_step"] = site_launches.get(
+            f"T={r['T']} S={r['S']} d={r['d']}", 0)
+        log(f"K8 {r['dtype']:8s} {r['site']:50s} forward dev "
+            f"{r['device_ms']} ms (library {r['library_device_ms']}, bound "
+            f"{r['bound_ms']:.4f} {r['bound_by']}); backward dev "
+            f"{r['bwd_device_ms']} ms (by kernel {r['bwd_kernel_ms']}; "
+            f"library {r['bwd_library_device_ms']}, "
+            f"bound {r['bwd_bound_ms']:.4f} {r['bwd_bound_by']}); "
+            f"{r['launches_per_step']} + {r['launches_per_step']} launches a "
+            f"model3 step; card {card}")
 
 
 def _library_backward(torch, q, k, v, keep, do, scale):
@@ -1812,13 +1943,19 @@ def _flash_times(torch, F, FA, dname, q, k, v, keep, o, lse, do, scale,
                                                    scale=scale),
         fwd_bwd=fwd_bwd(lambda *x: F.scaled_dot_product_attention(
             *x, attn_mask=mask, scale=scale)))
+    fwd_dev, fwd_names = device_times(kernel["fwd"])
+    bwd_dev, bwd_names = device_times(kernel["bwd"])
     return dict(
-        ms=cuda_time(kernel["fwd"]), device_ms=device_time(kernel["fwd"]),
+        ms=cuda_time(kernel["fwd"]), device_ms=fwd_dev,
         plain_ms=cuda_time(plain["fwd"], iters=5),
         library_ms=cuda_time(library["fwd"]),
         library_device_ms=device_time(library["fwd"]),
         bwd_ms=cuda_time(kernel["bwd"]),
-        bwd_device_ms=device_time(kernel["bwd"]),
+        bwd_device_ms=bwd_dev,
+        kernels=_flash_kernels([*fwd_names, *bwd_names]),
+        # the backward's device ms by kernel (dQ, dK/dV)
+        bwd_kernel_ms={n.split("<")[0].split("::")[-1]: ms
+                       for n, ms in bwd_names.items() if "flash_" in n},
         bwd_plain_ms=cuda_time(plain["bwd"], iters=5),
         bwd_library_ms=cuda_time(library_bwd),
         bwd_library_device_ms=device_time(library_bwd),
@@ -1926,6 +2063,7 @@ def flash_grad_phase(torch, dev, card):
     from diff_vits_tpu_torch import ops
     from diff_vits_tpu_torch.models.diff_vits import DiffVits
     from diff_vits_tpu_torch.nn.unet1d import set_use_flash, set_use_fused
+    from diff_vits_tpu_torch.ops import flash_attention as FA
     from diff_vits_tpu_torch.text.symbols import symbols
     from diff_vits_tpu_torch.train.trainer import device_batch
     from diff_vits_tpu_torch.utils.init import init_random
@@ -1946,7 +2084,7 @@ def flash_grad_phase(torch, dev, card):
     noise = torch.randn(inputs["spec"].shape, generator=gen, device=dev)
     calls, handles = _flash_calls(model)
     relus = _ReluBranches(torch, model)
-    res, branches, kinked = {}, {}, set()
+    res, branches, kinked, routes = {}, {}, set(), {}
     for key, flash in (("off", False), ("on", True), ("swap", False)):
         set_use_flash(model, flash)
         model.zero_grad(set_to_none=True)
@@ -1961,6 +2099,7 @@ def flash_grad_phase(torch, dev, card):
             kinked = _behind_kinks(loss, model.named_parameters())
         loss.backward()
         torch.cuda.synchronize()
+        routes[key] = FA.route_counts()
         branches[key] = relus.seen
         grads = {n: p.grad.detach().clone()
                  for n, p in model.named_parameters() if p.grad is not None}
@@ -1968,6 +2107,13 @@ def flash_grad_phase(torch, dev, card):
     relus.remove()
     for h in handles:
         h.remove()
+    # the route-on forward and backward once more, under the profiler: its
+    # K8 kernels by name
+    set_use_flash(model, True)
+    names = device_names(lambda: model(**inputs, t=t, noise=noise)[0]
+                         .backward())
+    routes["profiled"] = _flash_kernels(names)
+    routes["profile_ok"] = _flash_route_only(names, "fma")
     loss_off, g_off, c_off, n_off = res["off"]
     loss_on, g_on, c_on, n_on = res["on"]
     loss_s, g_s, c_s, n_s = res["swap"]
@@ -1997,8 +2143,13 @@ def flash_grad_phase(torch, dev, card):
     counts_ok = (n_on > 0 and n_off == 0 and n_s == 0
                  and all(c_on[n] == n_on for n in k8)
                  and all(c_off[n] == 0 and c_s[n] == 0 for n in k8))
-    ok = (same_leaves and counts_ok and swapped_ok and rel_loss <= 1e-4
-          and by_norm <= 1e-3 and free_max <= 1e-3 and swap_max <= 1e-3)
+    # float32: every K8 launch on the FMA kernels, by counter and by name
+    fma_only = routes["profile_ok"] and all(
+        routes["on"][f"{n}.fma_launches"] == n_on
+        and routes["on"][f"{n}.mma_launches"] == 0 for n in k8)
+    ok = (same_leaves and counts_ok and fma_only and swapped_ok
+          and rel_loss <= 1e-4 and by_norm <= 1e-3 and free_max <= 1e-3
+          and swap_max <= 1e-3)
     log(f"flash gradient parity (model3, B={b}, fp32, eval, fused off): "
         f"loss {loss_on:.6f} (flash) vs {loss_off:.6f}, rel {rel_loss:.2e} "
         f"(gate 1e-4); {len(g_off)} parameter gradients, {len(behind)} of "
@@ -2009,7 +2160,8 @@ def flash_grad_phase(torch, dev, card):
         f"inputs on the other branch; on vs off with the route-on ReLU "
         f"branches (loss {loss_s:.6f}): worst max |diff| / max |grad| "
         f"{swap_max:.2e} ({swap_name}; gate 1e-3); calls through the flash "
-        f"gate {n_on}, launches {c_on} (route off: {c_off}): "
+        f"gate {n_on}, launches {c_on} (route off: {c_off}); K8 kernels by "
+        f"profiler {routes['profiled']}, only FMA {fma_only}: "
         f"{'ok' if ok else 'FAIL'}; card {card}")
     return ok, dict(loss_flash=loss_on, loss_plain=loss_off,
                     loss_plain_flash_branches=loss_s, rel_loss=rel_loss,
@@ -2027,7 +2179,8 @@ def flash_grad_phase(torch, dev, card):
                                                      gaps["swap"][n][0])
                               > 1e-4},
                     flash_calls=n_on, launches_flash=c_on,
-                    launches_plain=c_off)
+                    launches_plain=c_off, flash_routes=routes["on"],
+                    flash_kernels=routes["profiled"])
 
 
 def variant_train_phase(torch, dev, card):

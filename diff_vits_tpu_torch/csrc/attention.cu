@@ -67,15 +67,6 @@ constexpr int kKV = 64;          // keys a shared-memory tile
 constexpr int kStages = 2;       // key tiles in flight: the cp.async ring
 constexpr int kSplitKeys = 16;   // a split's key range: whole PV k-steps
 constexpr int kMaxSplits = 8;    // the portable cluster size
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit (a few ulp; -inf gives +0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // ---------------------------------------------------------------------------
 // Float32 route: one thread per query, FMA.

@@ -81,7 +81,7 @@ class FlashArgs(ctypes.Structure):
         ("dq", View), ("dk", View), ("dv", View),
         ("lse", _P), ("delta", _P), ("keep", _P),
         ("B", _I), ("H", _I), ("T", _I), ("S", _I), ("D", _I), ("dt", _I),
-        ("scale", _F),
+        ("scale", _F), ("qrows", _I), ("krows", _I), ("mma", _I),
     ]
 
 
@@ -422,3 +422,55 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 attention.launches = 0
+
+
+# csrc/flash_attention.cu: bfloat16 at head dims up to 64 on tensor cores
+# (16 rows a warp, 1, 2 or 4 warps a block); float32, and bfloat16 above
+# 64, on the FMA kernels (one row a thread, 128 a block)
+FLASH_ROWS = (64, 32, 16)
+FLASH_MMA_HEAD_DIMS = tuple(range(8, 65, 8))
+FLASH_HEAD_DIMS = tuple(range(8, 129, 8))
+FLASH_FMA_ROWS = 128
+
+
+class FlashPlan(NamedTuple):
+    """How csrc/flash_attention.cu runs one forward or backward: ``q_rows``
+    queries of one (batch, head) a block of the forward and dQ kernels,
+    ``k_rows`` keys a block of the dK/dV kernel, on tensor cores or the
+    FMA kernels."""
+    q_rows: int
+    k_rows: int
+    tensor_cores: bool
+
+
+def flash_plan(B: int, T: int, S: int, H: int, D: int,
+               dtype: torch.dtype) -> FlashPlan:
+    """The row tiles of csrc/flash_attention.cu at q [B, H, T, D], k and v
+    [B, H, S, D] in ``dtype``; raises on what the kernels do not take.
+
+    The route is a rule of shape and dtype: bfloat16 at a head dim in
+    ``FLASH_MMA_HEAD_DIMS`` runs the tensor-core kernels, float32 (the
+    exact parity route) and bfloat16 above 64 the FMA kernels (128 rows a
+    block), whose dK/dV kernel keeps no K, V, dK and dV fragments in
+    registers. On tensor cores each side takes the widest tile (64, 32, 16
+    rows) whose grid reaches the H100's 132 SMs, else 16 rows. The key
+    splits of the attention core are not needed: every gated training
+    site (B=32, 8 heads) has over a thousand blocks."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash attention takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if min(B, T, S, H) < 1:
+        raise ValueError(f"flash attention needs B, T, S, H >= 1, got {B}, "
+                         f"{T}, {S}, {H}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"flash attention takes B, H <= 65535, got {B}, {H}")
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash-attention kernel takes head dims that are "
+                         f"multiples of 8 up to 128, got {D}")
+    if dtype == torch.float32 or D not in FLASH_MMA_HEAD_DIMS:
+        return FlashPlan(FLASH_FMA_ROWS, FLASH_FMA_ROWS, False)
+
+    def rows(n: int) -> int:
+        return next((r for r in FLASH_ROWS if -(-n // r) * H * B >= GEMM_SMS),
+                    FLASH_ROWS[-1])
+    return FlashPlan(rows(T), rows(S), True)

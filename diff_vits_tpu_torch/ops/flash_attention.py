@@ -22,9 +22,24 @@ JAX kernel ships its own backward (nothing plain is recomputed). A kernel
 that does not build or launch raises. ``sdpa_backward_plain`` writes that
 backward out in PyTorch, for the tests.
 
-The route is opt-in, as in JAX (``use_flash`` defaults off there): the
-modules carry a ``use_flash`` flag (``nn/unet1d.set_use_flash``), test
-``flash_ok`` on their shapes and call ``sdpa`` only when it passes.
+Which kernels run is a rule of dtype and head dim (``_cuda.flash_plan``):
+bfloat16 at a head dim up to 64 (``MMA_HEAD_DIMS``; every gated site of
+the training step has 8, 16 or 32) runs the tensor-core kernels
+(``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``,
+``flash_bwd_dkdv_mma_kernel``); float32 (the exact parity route) and
+bfloat16 above 64 run the FMA kernels. The tensor-core kernels read rows
+in 16-byte chunks: a q, k, v or o that does not start 16-byte aligned or
+whose strides are not multiples of 8 elements is refused (ValueError)
+before any launch; the gradient dout is copied instead, since autograd
+hands it over in any layout. Besides ``launches``, each launcher counts
+its launches by route in ``mma_launches`` and ``fma_launches``, and the
+bfloat16 launches the head-dim rule sends to the FMA kernels in
+``wide_bf16_launches`` (:func:`route_counts`).
+
+The route is opt-in in the modules, as in JAX (``use_flash`` defaults off
+there): they carry a ``use_flash`` flag (``nn/unet1d.set_use_flash``),
+test ``flash_ok`` on their shapes and call ``sdpa`` only when it passes;
+``train.trainer.Trainer`` sets the flag on the card.
 """
 from __future__ import annotations
 
@@ -35,7 +50,8 @@ import torch
 
 from diff_vits_tpu_torch.ops import _cuda
 
-HEAD_DIMS = tuple(range(8, 129, 8))
+HEAD_DIMS = _cuda.FLASH_HEAD_DIMS
+MMA_HEAD_DIMS = _cuda.FLASH_MMA_HEAD_DIMS
 MASKED_BIAS = -10000.0
 MIN_SCORES = 128 * 128 * 4     # JAX's gate: T * S below this stays plain
 
@@ -154,7 +170,8 @@ def _view(t: Optional[torch.Tensor]) -> _cuda.View:
 
 
 def _check_qkv(q, k, v):
-    """Shapes, device, dtype and head dim K8 takes; returns (b, h, t, s, d)."""
+    """Shapes, device and dtype K8 takes (the head dim is the plan's);
+    returns (b, h, t, s, d)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, L, d]")
     b, h, t, d = q.shape
@@ -162,9 +179,6 @@ def _check_qkv(q, k, v):
     if tuple(k.shape) != (b, h, s, d) or v.shape != k.shape:
         raise ValueError(f"k and v must be [{b}, {h}, S, {d}], got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash-attention kernel takes head dims that are "
-                         f"multiples of 8 up to 128, got {d}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device or x.device.type != "cuda":
             raise ValueError(f"{name} must be on the CUDA device of q")
@@ -186,7 +200,27 @@ def _keep(keep, b, s, device):
     return keep.to(torch.bool).contiguous()
 
 
-def _args(dims, q, k, v, keep, lse, sm_scale, **views):
+def mma_view_ok(x: torch.Tensor) -> bool:
+    """Whether the tensor-core kernels can read or write ``x``: their
+    16-byte cp.async chunks and bf16-pair loads need a start 16-byte
+    aligned and batch, head and row strides in multiples of 8 elements."""
+    return x.data_ptr() % 16 == 0 and all(st % 8 == 0
+                                          for st in x.stride()[:3])
+
+
+def check_mma_views(**views) -> None:
+    """Raise ValueError on a view :func:`mma_view_ok` refuses."""
+    for name, x in views.items():
+        if not mma_view_ok(x):
+            offset = x.data_ptr() % 16
+            raise ValueError(
+                f"{name}: the tensor-core flash-attention kernels need a "
+                f"16-byte aligned start and batch, head and row strides in "
+                f"multiples of 8 elements; got {offset} bytes past 16 and "
+                f"strides {tuple(x.stride())}")
+
+
+def _args(dims, plan, q, k, v, keep, lse, sm_scale, **views):
     b, h, t, s, d = dims
     a = _cuda.FlashArgs()
     a.q, a.k, a.v = _view(q), _view(k), _view(v)
@@ -196,28 +230,42 @@ def _args(dims, q, k, v, keep, lse, sm_scale, **views):
     a.keep = _cuda.ptr(keep)
     a.B, a.H, a.T, a.S, a.D = b, h, t, s, d
     a.dt, a.scale = _cuda.dtype_flag(q), float(sm_scale)
+    a.qrows, a.krows, a.mma = plan.q_rows, plan.k_rows, int(plan.tensor_cores)
     return a
+
+
+def _count(launcher, plan, dtype) -> None:
+    launcher.launches += 1
+    if plan.tensor_cores:
+        launcher.mma_launches += 1
+    else:
+        launcher.fma_launches += 1
+        launcher.wide_bf16_launches += dtype == torch.bfloat16
 
 
 def flash_attention_forward(q, k, v, keep, sm_scale):
     """One launch of K8's forward: (o like q, lse [B, H, T] float32)."""
-    dims = b, h, t, s, _ = _check_qkv(q, k, v)
+    dims = b, h, t, s, d = _check_qkv(q, k, v)
     keep = _keep(keep, b, s, q.device)
+    plan = _cuda.flash_plan(b, t, s, h, d, q.dtype)
     o = torch.empty_like(q)
+    if plan.tensor_cores:
+        check_mma_views(q=q, k=k, v=v, o=o)
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
-    a = _args(dims, q, k, v, keep, lse, sm_scale, o=o)
+    a = _args(dims, plan, q, k, v, keep, lse, sm_scale, o=o)
     _cuda.check(_cuda.fn("flash_attention.cu", "dvt_flash_forward")(
         ctypes.byref(a), _cuda.stream_ptr(q)),
         f"flash-attention forward at {tuple(q.shape)}, S={s}")
-    flash_attention_forward.launches += 1
+    _count(flash_attention_forward, plan, q.dtype)
     return o, lse
 
 
 def flash_attention_backward(q, k, v, o, lse, do, keep, sm_scale):
     """K8's backward (the dQ kernel, which also writes delta, then the
     dK/dV kernel): (dq, dk, dv) like q, k, v, layouts included."""
-    dims = b, h, t, s, _ = _check_qkv(q, k, v)
+    dims = b, h, t, s, d = _check_qkv(q, k, v)
     keep = _keep(keep, b, s, q.device)
+    plan = _cuda.flash_plan(b, t, s, h, d, q.dtype)
     do = do.to(q.dtype)
     if do.stride(-1) != 1:
         do = do.contiguous()
@@ -227,16 +275,38 @@ def flash_attention_backward(q, k, v, o, lse, do, keep, sm_scale):
         raise ValueError(f"lse must be [{b}, {h}, {t}] float32")
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if plan.tensor_cores:
+        if not mma_view_ok(do):   # autograd's layout: a copy they can read
+            do = do.clone(memory_format=torch.contiguous_format)
+        check_mma_views(q=q, k=k, v=v, o=o, dq=dq, dk=dk, dv=dv)
     delta = torch.empty_like(lse)
-    a = _args(dims, q, k, v, keep, lse, sm_scale, o=o, dout=do, dq=dq,
+    a = _args(dims, plan, q, k, v, keep, lse, sm_scale, o=o, dout=do, dq=dq,
               dk=dk, dv=dv)
     a.delta = delta.data_ptr()
     _cuda.check(_cuda.fn("flash_attention.cu", "dvt_flash_backward")(
         ctypes.byref(a), _cuda.stream_ptr(q)),
         f"flash-attention backward at {tuple(q.shape)}, S={s}")
-    flash_attention_backward.launches += 1
+    _count(flash_attention_backward, plan, q.dtype)
     return dq, dk, dv
+
+
+ROUTE_COUNTERS = ("mma_launches", "fma_launches", "wide_bf16_launches")
+LAUNCHERS = (flash_attention_forward, flash_attention_backward)
+
+
+def route_counts():
+    """{"flash_attention_forward.mma_launches": n, ...}: each launcher's
+    launches by route since the last :func:`reset_route_counts`."""
+    return {f"{fn.__name__}.{c}": getattr(fn, c)
+            for fn in LAUNCHERS for c in ROUTE_COUNTERS}
+
+
+def reset_route_counts() -> None:
+    for fn in LAUNCHERS:
+        for c in ROUTE_COUNTERS:
+            setattr(fn, c, 0)
 
 
 flash_attention_forward.launches = 0
 flash_attention_backward.launches = 0
+reset_route_counts()

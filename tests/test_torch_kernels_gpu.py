@@ -42,13 +42,21 @@ well conditioned, is held off the knots to those tolerances directly.
 K8 (flash attention): forward output and log-sum-exp against the plain
 version, dq/dk/dv against autograd of it and against the backward written
 out on the kernel's own output, at every head dim the kernel takes
-(multiples of 8 up to 128), ragged keep masks, one query and one key,
-lengths past one 128-row block and one shared-memory tile, q/k/v as heads
-split off a [B, L, H*d] projection (the gradients come back in that
-layout) or contiguous; refusals; and the UNet's CrossAttention and the
-prompt encoder's EncSALayer with ``use_flash``, which launch the forward
-and backward kernels once per call and match their plain route, output and
-parameter gradients, in float32 and under bfloat16 autocast.
+(multiples of 8 up to 128), ragged keep masks, an item that keeps no key
+and one that keeps one, one query and one key, T and S below one 16-row
+warp tile and past 64-row tiles and 128-row blocks, q/k/v as heads split
+off a [B, L, H*d] projection (the gradients come back in that layout), as
+``chunk`` views of one [B, L, 3 H*d] projection (EncSALayer's; the
+gradients come back in the same dim order) or contiguous; each launch on
+the route the plan's rule gives (bfloat16 up to d = 64 on the tensor-core
+kernels, float32 and wider bfloat16 on the FMA kernels: the route counters
+and the profiler's kernel names); two launches bit-identical, forward and
+backward; refusals, the misaligned views of the tensor-core route among
+them; and the UNet's CrossAttention and the prompt encoder's EncSALayer
+with ``use_flash``, which launch the forward and backward kernels once per
+call and match their plain route, output and parameter gradients, in
+float32 and under bfloat16 autocast; ``Trainer`` on the card with the
+route on by default, for model3's configuration and the variant's.
 """
 import pytest
 import torch
@@ -801,8 +809,10 @@ def test_spline_kernel_refuses_what_it_does_not_take(dev):
 
 def _flash_case(gen, dev, b, h, t, s, d, dtype, ragged, split):
     """q [B, H, T, d], k and v [B, H, S, d]: heads split off [B, L, H*d]
-    projections (``split``, strided views) or contiguous; a ragged keep
-    mask [B, S] (item 0 all keys, the last one key) or None."""
+    projections (``split``), ``chunk`` views of one [B, L, 3 H*d]
+    projection as EncSALayer makes them (``split="chunk"``, T == S) or
+    contiguous; a ragged keep mask [B, S] (item 0 all keys, the last one
+    key; with ``ragged="none_kept"`` item 1 keeps no key) or None."""
     def make(n):
         if split:
             return _rand(gen, dev, b, n, h * d, dtype=dtype).unflatten(
@@ -813,7 +823,19 @@ def _flash_case(gen, dev, b, h, t, s, d, dtype, ragged, split):
         lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
         lengths[0], lengths[-1] = s, 1
         keep = torch.arange(s, device=dev)[None] < lengths[:, None]
+        if ragged == "none_kept":
+            keep[1] = False
+    if split == "chunk":
+        assert t == s
+        qkv = _rand(gen, dev, b, t, 3 * h * d, dtype=dtype).chunk(3, dim=-1)
+        return (*(x.unflatten(-1, (h, d)).transpose(1, 2) for x in qkv),
+                keep)
     return make(t), make(s), make(s), keep
+
+
+def _flash_route(dtype, d):
+    return "mma" if dtype == torch.bfloat16 and d in FA.MMA_HEAD_DIMS \
+        else "fma"
 
 
 def _check_flash(dev, dtype, b, h, t, s, d, ragged, split):
@@ -821,14 +843,20 @@ def _check_flash(dev, dtype, b, h, t, s, d, ragged, split):
     q, k, v, keep = _flash_case(gen, dev, b, h, t, s, d, dtype, ragged,
                                 split)
     scale = d ** -0.5
-    fwd, bwd = (FA.flash_attention_forward.launches,
-                FA.flash_attention_backward.launches)
+    ops.reset_launches()
     o, lse = FA.flash_attention_forward(q, k, v, keep, scale)
     do = _rand(gen, dev, *o.shape, dtype=dtype)
     grads = FA.flash_attention_backward(q, k, v, o, lse, do, keep, scale)
     torch.cuda.synchronize()
-    assert (FA.flash_attention_forward.launches,
-            FA.flash_attention_backward.launches) == (fwd + 1, bwd + 1)
+    route = _flash_route(dtype, d)
+    other = "fma" if route == "mma" else "mma"
+    wide = int(dtype == torch.bfloat16 and route == "fma")
+    counts = FA.route_counts()
+    for name in ("flash_attention_forward", "flash_attention_backward"):
+        assert getattr(FA, name).launches == 1
+        assert counts[f"{name}.{route}_launches"] == 1
+        assert counts[f"{name}.{other}_launches"] == 0
+        assert counts[f"{name}.wide_bf16_launches"] == wide
     ref_o, ref_lse = FA.sdpa_plain(q, k, v, keep, sm_scale=scale,
                                    with_lse=True)
     _assert_close(o, ref_o, dtype)
@@ -839,7 +867,11 @@ def _check_flash(dev, dtype, b, h, t, s, d, ragged, split):
     manual = FA.sdpa_backward_plain(q, k, v, o, lse, do, keep,
                                     sm_scale=scale)
     for g, ga, gm, x in zip(grads, auto, manual, (q, k, v)):
-        assert g.stride() == x.stride()
+        # the input's layout: its strides where it is dense, else the
+        # dense strides of its dim order (a chunk view's gaps dropped)
+        assert g.stride() == torch.empty_like(x).stride()
+        if split != "chunk":
+            assert g.stride() == x.stride()
         _assert_close(g, ga, dtype)
         _assert_close(g, gm, dtype)
 
@@ -857,10 +889,64 @@ def test_flash_attention_kernel_every_head_dim(dev, dtype, d):
     (2, 8, 300, 5, 32, True, False),
     (3, 2, 70, 257, 128, True, True),     # 32-row tiles at d = 128
     (2, 8, 601, 400, 8, True, True),      # the DP UNet's cross attention
+    (3, 2, 7, 11, 24, True, True),        # T, S below one 16-row warp tile
+    (4, 2, 65, 63, 40, "none_kept", True),    # an item keeping no key
+    (3, 4, 90, 90, 56, "none_kept", "chunk"),  # EncSALayer's chunk views
+    (2, 8, 400, 400, 32, True, "chunk"),  # the prompt encoder's o_proj
+    (2, 1, 17, 600, 64, "none_kept", False),  # many key tiles, few queries
 ])
 def test_flash_attention_kernel_ragged_shapes(dev, dtype, b, h, t, s, d,
                                               ragged, split):
     _check_flash(dev, dtype, b, h, t, s, d, ragged, split)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d,ragged", [(8, False), (16, True), (32, True),
+                                      (72, True)])
+def test_flash_attention_kernel_is_deterministic(dev, dtype, d, ragged):
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, k, v, keep = _flash_case(gen, dev, 4, 8, 601, 400, d, dtype, ragged,
+                                True)
+    do = _rand(gen, dev, *q.shape, dtype=dtype)
+    runs = []
+    for _ in range(2):
+        o, lse = FA.flash_attention_forward(q, k, v, keep, 0.3)
+        runs.append((o, lse, *FA.flash_attention_backward(
+            q, k, v, o, lse, do, keep, 0.3)))
+    torch.cuda.synchronize()
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype,d,kernels,others", [
+    (torch.bfloat16, 16, ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                          "flash_bwd_dkdv_mma_kernel"),
+     ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
+    (torch.float32, 16, ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                         "flash_bwd_dkdv_kernel"),
+     ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+      "flash_bwd_dkdv_mma_kernel")),
+    (torch.bfloat16, 96, ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                          "flash_bwd_dkdv_kernel"),
+     ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+      "flash_bwd_dkdv_mma_kernel")),
+], ids=["bf16", "fp32", "bf16_wide"])
+def test_flash_attention_route_by_dtype_and_head_dim(dev, dtype, d, kernels,
+                                                     others):
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, keep = _flash_case(gen, dev, 2, 2, 130, 70, d, dtype, True, True)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    FA.sdpa(*leaves, keep, sm_scale=0.25, use_flash=True).sum().backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        FA.sdpa(*leaves, keep, sm_scale=0.25, use_flash=True).sum().backward()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    for kernel in kernels:
+        assert any(kernel + "<" in n for n in names), (kernel, names)
+    for kernel in others:
+        assert not any(kernel + "<" in n for n in names), (kernel, names)
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(dev):
@@ -881,7 +967,26 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(dev):
                                    .transpose(2, 3), k, v, keep, 0.25)
     with pytest.raises(ValueError, match="keep"):
         FA.flash_attention_forward(q, k, v, keep[:, :-1], 0.25)
-    assert ops.launch_counts() == before
+    # the tensor-core route: a start 2 bytes past 16, a row stride of 20
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    shifted = torch.empty(qb.numel() + 1, device=dev, dtype=torch.bfloat16)
+    shifted = shifted[1:].view(qb.shape).copy_(qb)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_attention_forward(shifted, kb, vb, keep, 0.25)
+    wide = torch.zeros(2, 2, 7, 20, device=dev, dtype=torch.bfloat16)
+    wide = wide[..., :16].copy_(kb)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_attention_forward(qb, wide, vb, keep, 0.25)
+    # the FMA kernels read element by element: a float32 start 4 bytes
+    # past 16 and a row stride of 20 are theirs
+    q32 = torch.empty(q.numel() + 1, device=dev)[1:].view(q.shape).copy_(q)
+    k32 = torch.zeros(2, 2, 7, 20, device=dev)[..., :16].copy_(k)
+    FA.flash_attention_forward(q32, k32, v, keep, 0.25)
+    after = ops.launch_counts()
+    assert after["flash_attention_forward"] == \
+        before["flash_attention_forward"] + 1
+    assert after["flash_attention_backward"] == \
+        before["flash_attention_backward"]
 
 
 def _route_outputs(module, args, autocast):
@@ -941,3 +1046,23 @@ def test_flash_route_through_the_modules(dev, dtype, which, monkeypatch):
     _assert_close(out, ref, dtype)
     for g, gr in zip(grads, ref_grads):
         _assert_close(g, gr, dtype)
+
+
+def test_trainer_turns_the_flash_route_on_on_the_card(dev):
+    # one rule for every configuration: model3's and the sdp + flow variant
+    import dataclasses
+    from pathlib import Path
+    from diff_vits_tpu_torch.core.config import load_config
+    from diff_vits_tpu_torch.train.trainer import Trainer
+    cfg = load_config(str(Path(__file__).resolve().parents[1] / "configs"
+                          / "reference_parity.json"))
+    variant = dataclasses.replace(cfg, vits=dataclasses.replace(
+        cfg.vits, duration_predictor="sdp", use_flow=True))
+    for c in (cfg, variant):
+        trainer = Trainer(c, [], device=dev)
+        flags = [m.use_flash for m in trainer.model.modules()
+                 if hasattr(m, "use_flash")]
+        assert flags and all(flags)
+        set_use_flash(trainer.model, False)
+        assert not any(m.use_flash for m in trainer.model.modules()
+                       if hasattr(m, "use_flash"))

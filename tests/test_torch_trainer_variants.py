@@ -2,7 +2,8 @@
 duration predictor with the residual-coupling spec flow, EMA on, the
 flash-attention route on (on the CPU ``sdpa`` takes its plain version):
 two CPU steps at the tiny widths of test_torch_variants, finite losses,
-every parameter moved."""
+every parameter moved. On the CPU the trainer leaves the flash route
+off (on the card it turns it on: tests/test_torch_kernels_gpu.py)."""
 import dataclasses
 import math
 
@@ -31,3 +32,12 @@ def test_trainer_takes_steps_on_the_sdp_flow_variant():
     moved = [not torch.equal(p, p0) for p, p0 in zip(trainer.params, before)]
     assert all(moved), sum(moved)
     assert trainer.step == 2
+
+
+def test_trainer_leaves_the_flash_route_off_on_the_cpu():
+    _, cfg = tiny_configs()
+    trainer = Trainer(cfg, [], device="cpu")
+    flags = [m.use_flash for m in trainer.model.modules()
+             if hasattr(m, "use_flash")]
+    assert flags and not any(flags)
+

@@ -2,7 +2,7 @@
 """Where the time of the port's GEMM (diff_vits_tpu_torch/csrc/gemm.cu) goes,
 on one CUDA card.
 
-    python3 tools/torch_gemm_probe.py [--out FILE]
+    python3 tools/torch_gemm_probe.py [--out FILE] [--same-process]
 
 Builds copies of csrc/gemm.cu with parts of the kernel compiled out (C
 macros inserted into a copy under build/gemm_probe/; the package's own
@@ -29,6 +29,13 @@ launch (torch.profiler), in microseconds. Copies:
 Numbers from copies other than ``base`` say what each part costs, not what
 a kernel without it would compute. Needs nvcc (``ops._cuda`` finds it) and
 no network.
+
+``--same-process`` runs the copies as they once failed with an
+"unspecified launch failure": first ``base`` alone in its own process,
+then every copy, ``base`` first, loaded one after another into one process;
+after each copy the process synchronises and names the first copy whose
+launches fault (a fault ends the process's CUDA context, so nothing after
+it is timed).
 """
 import argparse
 import ctypes
@@ -176,31 +183,72 @@ def cases(torch, cuda, dev):
     return out
 
 
-def run_variant(name: str) -> None:
+def run_variants(names) -> None:
+    """Time the copies ``names`` one after another in this process; print
+    one RESULT line per copy, or FAULT naming the copy whose launches
+    failed (and stop: the CUDA context is gone)."""
     import torch
     sys.path.insert(0, str(ROOT))
     from diff_vits_tpu_torch.ops import _cuda
     _cuda.build()
-    lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-    lib.dvt_gemm.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.dvt_gemm.restype = ctypes.c_int
-    _cuda._libs["gemm.cu"] = lib
     plan = _cuda.gemm_plan
-    res = {}
-    for case, fn, forced in cases(torch, _cuda, torch.device("cuda")):
-        if forced is not None:
-            _cuda.gemm_plan = lambda *a, f=forced: _cuda.GemmPlan(*f, True)
-        res[case] = device_us(torch, fn)
-        _cuda.gemm_plan = plan
-    print("RESULT " + json.dumps(res), flush=True)
+    for name in names:
+        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
+        lib.dvt_gemm.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.dvt_gemm.restype = ctypes.c_int
+        _cuda._libs["gemm.cu"] = lib
+        res = {}
+        try:
+            for case, fn, forced in cases(torch, _cuda, torch.device("cuda")):
+                if forced is not None:
+                    _cuda.gemm_plan = (lambda *a, f=forced:
+                                       _cuda.GemmPlan(*f, True))
+                res[case] = device_us(torch, fn)
+                _cuda.gemm_plan = plan
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            print(f"FAULT {name}: {str(e).splitlines()[0]}", flush=True)
+            return
+        print(f"RESULT {name} " + json.dumps(res), flush=True)
+
+
+def _results(stdout):
+    """{copy: times} of the RESULT lines, and the FAULT line or None."""
+    res, fault = {}, None
+    for line in stdout.splitlines():
+        if line.startswith("RESULT "):
+            name, body = line[7:].split(" ", 1)
+            res[name] = json.loads(body)
+        elif line.startswith("FAULT "):
+            fault = line[6:]
+    return res, fault
+
+
+def same_process() -> dict:
+    """``base`` alone in a process, then every copy in one process."""
+    out = {}
+    for what, names in (("base alone", ["base"]),
+                        ("all copies, one process", list(VARIANTS))):
+        proc = subprocess.run([sys.executable, __file__, "--variants",
+                               ",".join(names)], capture_output=True,
+                              text=True, timeout=600)
+        res, fault = _results(proc.stdout)
+        out[what] = dict(rc=proc.returncode, ran=list(res), fault=fault,
+                         stderr=proc.stderr[-1500:] if proc.returncode
+                         else "")
+        print(f"{what}: rc {proc.returncode}, copies run cleanly "
+              f"{list(res)}, fault {fault}", flush=True)
+    return out
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--variant":
-        run_variant(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--variants":
+        run_variants(sys.argv[2].split(","))
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write the table as JSON")
+    ap.add_argument("--same-process", action="store_true",
+                    help="base alone, then every copy in one process")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -214,16 +262,22 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}")
+    if args.same_process:
+        out = same_process()
+        if args.out:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps(dict(card=card, **out), indent=1))
+        return 0
     table = {}
     for name in VARIANTS:
-        proc = subprocess.run([sys.executable, __file__, "--variant", name],
+        proc = subprocess.run([sys.executable, __file__, "--variants", name],
                               capture_output=True, text=True, timeout=300)
-        lines = [x for x in proc.stdout.splitlines()
-                 if x.startswith("RESULT ")]
-        if proc.returncode or not lines:
-            print(f"{name}: rc {proc.returncode}\n{proc.stderr[-2000:]}")
+        res, fault = _results(proc.stdout)
+        if proc.returncode or name not in res:
+            print(f"{name}: rc {proc.returncode}, fault {fault}\n"
+                  f"{proc.stderr[-2000:]}")
             return 1
-        table[name] = json.loads(lines[-1][7:])
+        table[name] = res[name]
     print("device us per launch".ljust(30)
           + "".join(v[:11].rjust(12) for v in table))
     for case in table["base"]:
