@@ -31,7 +31,10 @@ Phases, each of which fails the run:
    the roofline bound are printed;
    then K5 (rel-pos attention) at B=8, C=256, 2 heads of 128, window 4:
    T=128 and 601 with ragged lengths (kept rows compared) and T=400
-   unmasked, float32 and bfloat16, same gates; and K7 (RQ spline) at
+   unmasked, float32 and bfloat16, same gates, its core's own device time
+   (bf16 must run only ``rel_attention_mma_kernel``, float32 only the FMA
+   ``rel_attention_kernel``) and a bound that counts what the lengths
+   need (kept rows against kept keys, masked rows against all); and K7 (RQ spline) at
    N=4808 (8 x 601), inverse and forward in float32 (outputs atol/rtol
    1e-5, log|det| 1e-4) and inverse in bfloat16 (outputs rtol 1e-2, one
    bf16 rounding); K5 against its plain route at B=1 and 8, T=128 and
@@ -55,7 +58,7 @@ Phases, each of which fails the run:
 4. mas: K6 (MAS) against its plain version at the training shape (B=32,
    Ty=400, Tx=601; ragged lengths, t_x == t_y, t_x == 1) on random and on
    tied integer scores: identical paths (0 mismatched cells); its times,
-   device time and bound;
+   device time, bound and serial depth;
 5. grad: gradients of sum(out * r) through each of K1-K4's kernel route
    (the autograd Function) at denoiser level 0, B=8, float32, against
    plain autograd, for x and every weight and vector passed as the UNet
@@ -77,8 +80,9 @@ Phases, each of which fails the run:
    of ``configs/reference_parity.json`` with random weights from a seed;
    every kernel counter must rise by exactly 22/16/16/16 per UNet call
    (the attention core's by 32), K5's by one per layer of each encoder
-   call (6 per TextEncoder call), and MAS's and K7's by 0, and no call
-   may reach the core's plain version ``attention_plain``;
+   call (6 per TextEncoder call), all on the tensor-core K5 kernel (its
+   route counters), and MAS's and K7's by 0, and no call may reach the
+   core's plain version ``attention_plain``;
 7. parity: one fixed batch in float32 through the kernels and through the
    plain path on the card (same weights, injected initial noise, zero prior
    noise), max |mel difference| <= 5e-3, the kernel run's attention core
@@ -114,8 +118,9 @@ Phases, each of which fails the run:
    residual-coupling spec flow (``duration_predictor="sdp"``,
    ``use_flow=True``; random weights from seed 0, bf16, batch 8, mel
    buckets 400 and 800, the K5 route on): counters exactly 22/16/16/16
-   per UNet call, 6 K5 launches per TextEncoder call and 3 K7 launches per
-   stochastic-duration reverse (its three ConvFlow reverses); then the
+   per UNet call, 6 K5 launches per TextEncoder call (all on the
+   tensor-core kernel) and 3 K7 launches per stochastic-duration reverse
+   (its three ConvFlow reverses); then the
    variant in float32, kernels against the plain route on the card with
    injected duration and initial noise (equal frame counts, max |mel
    difference| <= 5e-3), and its latency at batch 1 and 8, real-time
@@ -180,6 +185,9 @@ PER_UNET = {"fused_resnet_block": 22, "fused_self_attention": 16,
 CORE_KERNEL = {"bfloat16": "attention_mma_kernel",
                "float32": "attention_fma_kernel"}
 CORE_USERS = ("fused_self_attention", "fused_cross_attention", "attention")
+# csrc/rel_attention.cu's kernels (K5's core) by route
+REL_KERNEL = {"bfloat16": "rel_attention_mma_kernel<",
+              "float32": "rel_attention_kernel<"}
 # csrc/flash_attention.cu's kernels by route, as the profiler names them
 # (bf16 at the model's head dims on tensor cores, float32 on FMA)
 FLASH_KERNELS = {"mma": ("flash_fwd_mma_kernel<", "flash_bwd_dq_mma_kernel<",
@@ -308,11 +316,11 @@ def _flash_route_only(names, route):
     return all(len(seen[r]) == (3 if r == route else 0) for r in seen)
 
 
-def _core_kernels(by_name):
-    """{route: device ms} of csrc/attention.cu's kernels among
-    ``by_name``."""
+def _core_kernels(by_name, kernels=CORE_KERNEL):
+    """{route: device ms} of csrc/attention.cu's kernels (or another
+    route table's) among ``by_name``."""
     return {route: sum(ms for k, ms in by_name.items() if kernel in k)
-            for route, kernel in CORE_KERNEL.items()
+            for route, kernel in kernels.items()
             if any(kernel in k for k in by_name)}
 
 
@@ -636,14 +644,17 @@ def _rel_library(torch, args):
     return F.linear(out.transpose(1, 2).flatten(2), wo.t(), bo)
 
 
-def _rel_cost(b, t, esz):
-    """(flops, bytes) of K5 at [b, t, 256]: the four projections, the
-    [T, T] score and PV products and the band, every row (a masked row
-    attends uniformly, as in the reference); x, the weights, vectors and
-    tables read once, the output written once."""
+def _rel_cost(b, t, esz, lengths=None):
+    """(flops, bytes) of K5 at [b, t, 256]: the four projections, the score
+    and PV products that these lengths need (a kept row against the
+    item's kept keys, a masked row against all t, as the reference has a
+    masked row attend uniformly) and the band, every row; x, the weights,
+    vectors and tables read once, the output written once."""
     c, h, w = REL_C, REL_HEADS, REL_WINDOW
     d = c // h
-    flops = (2 * b * t * c * 4 * c + 4 * b * h * t * t * d
+    lens = [t] * b if lengths is None else [min(int(n), t) for n in lengths]
+    pairs = sum(n * n + (t - n) * t for n in lens)
+    flops = (2 * b * t * c * 4 * c + 4 * h * d * pairs
              + 4 * b * h * t * (2 * w + 1) * d)
     nbytes = esz * (2 * b * t * c + 4 * c * c + 4 * c
                     + 2 * (2 * w + 1) * d) + 4 * b
@@ -670,6 +681,9 @@ def _time_row(torch, name, site, dname, kfn, pfn, lfn, flops, nbytes, err,
     device_ms, by_name = device_times(kfn)
     if name in CORE_USERS:
         extra = dict(extra or {}, core_device_ms=_core_kernels(by_name))
+    if name == "fused_rel_self_attention":
+        extra = dict(extra or {},
+                     core_device_ms=_core_kernels(by_name, REL_KERNEL))
     plain_ms = cuda_time(pfn, iters=5)
     lib_ms = cuda_time(lfn) if lfn is not None else None
     lib_device_ms = device_time(lfn) if lfn is not None else None
@@ -717,15 +731,21 @@ def vits_kernel_phase(torch, dev, headline_dtype="bfloat16"):
             ref = pfn()
             diff, rel, finite = _kept_err(torch, out, ref, args[1])
             lib_diff, lib_rel, _ = _kept_err(torch, lfn(), ref, args[1])
-            good = finite and rel <= TOL[dname]
-            ok &= good
-            flops, nbytes = _rel_cost(b, t, torch.finfo(dtype).bits // 8)
+            flops, nbytes = _rel_cost(b, t, torch.finfo(dtype).bits // 8,
+                                      args[1])
             site = (f"B={b} T={t} C={REL_C} H={REL_HEADS} w={REL_WINDOW} "
                     + ("ragged" if ragged else "no mask"))
-            rows.append(_time_row(torch, name, site, dname, kfn, pfn, lfn,
-                                  flops, nbytes, diff, rel, good,
-                                  dict(library_rel_err=lib_rel)))
-            log(f"  library composition vs plain: rel err {lib_rel:.2e}")
+            row = _time_row(torch, name, site, dname, kfn, pfn, lfn, flops,
+                            nbytes, diff, rel, finite and rel <= TOL[dname],
+                            dict(library_rel_err=lib_rel))
+            # bf16 on rel_attention_mma_kernel, float32 on the FMA kernel,
+            # nothing else
+            row["ok"] = good = row["ok"] and \
+                list(row["core_device_ms"]) == [dname]
+            ok &= good
+            rows.append(row)
+            log(f"  library composition vs plain: rel err {lib_rel:.2e}; "
+                f"core routes {row['core_device_ms']} (want {dname} only)")
             if dname == headline_dtype and t == 601:
                 summary[name] = dict(rows[-1])
 
@@ -989,6 +1009,7 @@ def path_phase(torch, dev, card):
     from diff_vits_tpu_torch.models.diff_vits import DiffVits, synthesize
     from diff_vits_tpu_torch.nn.unet1d import set_use_fused
     from diff_vits_tpu_torch.ops import fused_transformer as FT
+    from diff_vits_tpu_torch.ops import rel_attention as RA
     from diff_vits_tpu_torch.text.symbols import symbols
     from diff_vits_tpu_torch.utils.init import init_random
 
@@ -1023,6 +1044,7 @@ def path_phase(torch, dev, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        rel_routes = RA.route_counts()
     finally:
         FT.attention_plain = orig_plain
     for h in handles:
@@ -1039,6 +1061,8 @@ def path_phase(torch, dev, card):
         f"{calls['unet'][0]}, encoder layers {calls['encoder_layers'][0]}; "
         f"launches {counts} (want {want}); order {order_ok}; finite "
         f"{finite}; attention_plain calls {plain_calls[0]} (want 0)")
+    ok["serve_rel_attention_mma"] = _rel_mma_only(
+        rel_routes, counts["fused_rel_self_attention"], "serve")
 
     # -- parity: one fp32 batch, kernels vs the plain path on the card ----
     gen = torch.Generator().manual_seed(2)
@@ -1090,6 +1114,17 @@ def path_phase(torch, dev, card):
     return ok, counts, dict(card=card, serve_wall_s=wall,
                             unet_calls=calls["unet"][0], launches=counts,
                             parity_max_abs=err, numbers=numbers)
+
+
+def _rel_mma_only(routes, launches, what):
+    """Whether bf16 serving ran every K5 launch (at least one) on
+    rel_attention_mma_kernel, by the wrapper's route counters."""
+    good = launches > 0 and routes == {
+        "fused_rel_self_attention.mma_launches": launches,
+        "fused_rel_self_attention.fma_launches": 0}
+    log(f"{what}: K5 launches by route {routes} of {launches}; tensor cores "
+        f"only: {good}")
+    return good
 
 
 def serving_numbers(torch, syn, short, card, what="serving"):
@@ -1164,6 +1199,9 @@ def profile_summary(prof, wall_us, card, what):
                              for k, (n, us) in gemm.items()},
                attention_core_ms=_core_kernels(
                    {k: us / 1e3 for k, (_, us) in by_name.items()}),
+               rel_attention_core_ms=_core_kernels(
+                   {k: us / 1e3 for k, (_, us) in by_name.items()},
+                   REL_KERNEL),
                top=[dict(name=k[:90], launches=n, ms=us / 1e3)
                     for k, (n, us) in top])
     log(f"profile {what}: wall {res['wall_ms']:.1f} ms, device busy "
@@ -1176,7 +1214,8 @@ def profile_summary(prof, wall_us, card, what):
         f"{res['gemm_launches']} taking {res['gemm_ms']:.1f} ms; card {card}")
     for k, row in res["gemm_kernels"].items():
         log(f"  gemm {row['ms']:9.2f} ms {row['launches']:6d}x {k[:90]}")
-    log(f"  attention core ms by route: {res['attention_core_ms']}")
+    log(f"  attention core ms by route: {res['attention_core_ms']}; K5's "
+        f"core: {res['rel_attention_core_ms']}")
     for row in res["top"]:
         log(f"  {row['ms']:9.2f} ms {row['launches']:6d}x {row['name']}")
     return res
@@ -1605,6 +1644,7 @@ def variant_phase(torch, dev, card):
     from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
     from diff_vits_tpu_torch.models.diff_vits import DiffVits, synthesize
     from diff_vits_tpu_torch.nn.unet1d import set_use_fused
+    from diff_vits_tpu_torch.ops import rel_attention as RA
     from diff_vits_tpu_torch.text.symbols import symbols
     from diff_vits_tpu_torch.utils.init import init_random
 
@@ -1632,6 +1672,7 @@ def variant_phase(torch, dev, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    rel_routes = RA.route_counts()
     for h in handles:
         h.remove()
     want = _want(calls)
@@ -1647,6 +1688,8 @@ def variant_phase(torch, dev, card):
         f"{calls['unet'][0]}, encoder layers {calls['encoder_layers'][0]}, "
         f"duration-predictor reverses {calls['sdp_reverse'][0]}; launches "
         f"{counts} (want {want}); order {order_ok}; finite {finite}")
+    ok["variant_serve_rel_attention_mma"] = _rel_mma_only(
+        rel_routes, counts["fused_rel_self_attention"], "variant serve")
 
     # -- parity: one fp32 batch, kernels vs the plain path on the card ----
     gen = torch.Generator().manual_seed(2)

@@ -45,8 +45,8 @@
 //     of one query tile are one cluster: each keeps (max, sum, unnormalised
 //     output) for its key range in its shared memory, and after a cluster
 //     barrier rank r merges rows [r*R/S, (r+1)*R/S) over distributed shared
-//     memory in rank order, so every launch gives the same bits. A split
-//     without a key (max -inf) merges with weight 0: no exp(-inf - -inf).
+//     memory in rank order (csrc/split_merge.cuh, shared with the rel-pos
+//     attention core), so every launch gives the same bits.
 //   * float32 (the parity route): attention_fma_kernel, exact float32 FMA
 //     products (no TF32), one thread per query holding its q row and
 //     accumulator in registers, K and V tiles of 64 keys in shared memory
@@ -54,19 +54,15 @@
 // The [T, S] scores never reach memory.
 #include <stdint.h>
 
-#include <cooperative_groups.h>
-
 #include "common.cuh"
 #include "mma.cuh"
-
-namespace cg = cooperative_groups;
+#include "split_merge.cuh"
 
 namespace dvt {
 
 constexpr int kKV = 64;          // keys a shared-memory tile
 constexpr int kStages = 2;       // key tiles in flight: the cp.async ring
 constexpr int kSplitKeys = 16;   // a split's key range: whole PV k-steps
-constexpr int kMaxSplits = 8;    // the portable cluster size
 
 // ---------------------------------------------------------------------------
 // Float32 route: one thread per query, FMA.
@@ -423,38 +419,16 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cluster.sync();  // every partial is written and visible
   const int rows = L::rows / splits, lo = split * rows;
-  for (int r = tid; r < rows; r += L::threads) {
-    float mx = -INFINITY;
-    for (int sp = 0; sp < splits; ++sp)
-      mx = fmaxf(mx, cluster.map_shared_rank(pm, sp)[lo + r]);
-    float sum = 0.f;
-    for (int sp = 0; sp < splits; ++sp) {  // rank order
-      const float ms = cluster.map_shared_rank(pm, sp)[lo + r];
-      const float w = ms == -INFINITY ? 0.f : fast_exp2(ms - mx);
-      sum += w * cluster.map_shared_rank(pl, sp)[lo + r];
-      wts[r * kMaxSplits + sp] = w;
-    }
-    const float inv = sum > 0.f ? 1.f / sum : 0.f;
-    for (int sp = 0; sp < splits; ++sp) wts[r * kMaxSplits + sp] *= inv;
-  }
+  merge_weights(cluster, pm, pl, wts, nullptr, nullptr, lo, rows, splits);
   __syncthreads();
-  for (int e = tid; e < rows * (D / 4); e += L::threads) {
-    const int r = e / (D / 4), c = (e - r * (D / 4)) * 4;
-    const int t = qt * L::rows + lo + r;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int sp = 0; sp < splits; ++sp) {  // rank order: the same sum
-      const float w = wts[r * kMaxSplits + sp];
-      const float4 x = *reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(part, sp) + (lo + r) * L::pld + c);
-      a.x += w * x.x;
-      a.y += w * x.y;
-      a.z += w * x.z;
-      a.w += w * x.w;
-    }
-    if (t < T)
-      *reinterpret_cast<uint2*>(o + ((long)b * T + t) * C + (long)h * D + c) =
-          make_uint2(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w));
-  }
+  merge_rows<D>(cluster, part, L::pld, wts, lo, rows, splits,
+                [&](int r, int c, float4 a) {
+                  const int t = qt * L::rows + lo + r;
+                  if (t < T)
+                    *reinterpret_cast<uint2*>(o + ((long)b * T + t) * C +
+                                              (long)h * D + c) =
+                        make_uint2(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w));
+                });
   cluster.sync();  // no block leaves while another reads its partial
 }
 

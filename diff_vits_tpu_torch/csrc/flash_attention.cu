@@ -309,11 +309,6 @@ constexpr int kStages = 2;   // tiles in flight: the cp.async ring
 constexpr int kMmaMaxD = 64;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// A fragments of a warp's rows over a head dim of D: 16-deep steps, and an
-// 8-deep one (registers 0 and 1 of the last entry) when D % 16 == 8.
-template <int D>
-constexpr int kSteps = D / 16 + (D % 16 != 0);
-
 // Shared memory of the mma kernels: a ring of kStages buffers, each two
 // bf16 tiles [kTile][ld] (K and V, or Q and dO) and two float vectors
 // [kTile] (the keys' bias, or the queries' lse and delta). ld is an odd
@@ -369,73 +364,6 @@ __device__ __forceinline__ void store_c(__nv_bfloat16* x, long sl, int r,
     if (r + 8 < n)
       *reinterpret_cast<uint32_t*>(x + (long)(r + 8) * sl + j * 8 + c2) =
           pack_bf16(acc[j][2] * s1, acc[j][3] * s1);
-  }
-}
-
-// s[j] += a . X[8j .. 8j+7, 0:D]^T for the NT 8-row groups of a shared
-// tile X (row stride ld): a warp's 16 rows against NT * 8 rows of X, over
-// D (ldmatrix: X's rows are the product's columns).
-template <int D, int NT>
-__device__ __forceinline__ void mma_rows(float (&s)[NT][4],
-                                         const uint32_t (&a)[kSteps<D>][4],
-                                         const __nv_bfloat16* x, int ld,
-                                         int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-    for (int jp = 0; jp < NT / 2; ++jp) {
-      uint32_t r[4];
-      ldmatrix_x4(r, x + (jp * 16 + (lane & 7) + (lane >> 4) * 8) * ld +
-                         kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_m16n8k16(s[2 * jp], a[kk], r[0], r[1]);
-      mma_m16n8k16(s[2 * jp + 1], a[kk], r[2], r[3]);
-    }
-  if constexpr (D % 16 == 8) {  // the last 8 columns: one matrix a group
-    constexpr int kk = D / 16;
-#pragma unroll
-    for (int j4 = 0; j4 < NT / 4; ++j4) {
-      uint32_t r[4];
-      ldmatrix_x4(r, x + (j4 * 32 + lane) * ld + kk * 16);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        mma_m16n8k8(s[j4 * 4 + i], a[kk][0], a[kk][1], r[i]);
-    }
-    if constexpr (NT % 4 == 2) {
-      uint32_t r[2];
-      ldmatrix_x2(r, x + ((NT - 2) * 8 + (lane & 15)) * ld + kk * 16);
-      mma_m16n8k8(s[NT - 2], a[kk][0], a[kk][1], r[0]);
-      mma_m16n8k8(s[NT - 1], a[kk][0], a[kk][1], r[1]);
-    }
-  }
-}
-
-// acc[j] += p . X[0:16, 8j .. 8j+7] for every 8-wide column group j of a
-// shared tile X (16 rows from x, row stride ld, D columns): p is a warp's
-// A fragment over X's 16 rows in its two bf16 parts (c_to_a_split), each
-// multiplied with the same X fragments (ldmatrix.trans: X's rows are the
-// depth).
-template <int D>
-__device__ __forceinline__ void mma_cols(float (&acc)[D / 8][4],
-                                         const uint32_t (&p)[2][4],
-                                         const __nv_bfloat16* x, int ld,
-                                         int lane) {
-#pragma unroll
-  for (int jp = 0; jp < D / 16; ++jp) {
-    uint32_t r[4];
-    ldmatrix_x4_trans(r, x + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld +
-                             jp * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int part = 0; part < 2; ++part) {
-      mma_m16n8k16(acc[2 * jp], p[part], r[0], r[1]);
-      mma_m16n8k16(acc[2 * jp + 1], p[part], r[2], r[3]);
-    }
-  }
-  if constexpr (D % 16 == 8) {
-    uint32_t r[2];
-    ldmatrix_x2_trans(r, x + (lane & 15) * ld + D - 8);
-#pragma unroll
-    for (int part = 0; part < 2; ++part)
-      mma_m16n8k16(acc[D / 8 - 1], p[part], r[0], r[1]);
   }
 }
 

@@ -44,6 +44,9 @@ _SIGNATURES = {
     "dvt_mas": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     "dvt_rel_attention": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                           _I, _F, _P),
+    "dvt_rel_attention_mma": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                              _I, _F, _I, _I, _P),
+    "dvt_round_kv": (_P, _P, _P, _P, _L, _P),
     "dvt_spline": (_P, _I, _P, _L, _P, _L, _P, _L, _I, _P, _P, _L, _I, _I, _F,
                    _F, _F, _F, _P),
     "dvt_flash_forward": (_P, _P),
@@ -370,6 +373,15 @@ def attention_plan(B: int, T: int, S: int, H: int, D: int,
         raise ValueError(f"attention takes B, H <= 65535, got {B}, {H}")
     if dtype == torch.float32:
         return AttentionPlan(ATTN_FMA_ROWS, 1, False)
+    return AttentionPlan(*_split_plan(B, T, S, H), True)
+
+
+def _split_plan(B: int, T: int, S: int, H: int):
+    """(rows, splits) of a tensor-core attention launch (csrc/attention.cu
+    and csrc/rel_attention.cu): the widest query tile (64, 32, 16 rows)
+    whose grid reaches the 132 SMs with the most splits the keys allow (a
+    power of two up to 8, at most one per 16 keys), else 16 rows; then the
+    fewest splits that give every SM a block."""
     max_splits = 1
     while max_splits * 2 <= min(ATTN_MAX_SPLITS, -(-S // ATTN_SPLIT_KEYS)):
         max_splits *= 2
@@ -382,7 +394,7 @@ def attention_plan(B: int, T: int, S: int, H: int, D: int,
     splits = 1
     while splits < max_splits and blocks(rows, splits) < ATTN_MIN_BLOCKS:
         splits *= 2
-    return AttentionPlan(rows, splits, True)
+    return rows, splits
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -422,6 +434,47 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 attention.launches = 0
+
+
+# csrc/rel_attention.cu: bfloat16 on tensor cores at every head dim K5
+# takes (rows and key splits by the attention core's rule), float32 on the
+# FMA kernel (16 queries a block, no split); windows up to 15 (2w+1 <= 31
+# band slots a row)
+REL_HEAD_DIMS = (8, 16, 32, 64, 128)
+REL_MAX_WINDOW = 15
+REL_FMA_ROWS = 16
+
+
+class RelAttentionPlan(NamedTuple):
+    """How csrc/rel_attention.cu runs one launch: ``rows`` queries of one
+    (batch, head) a block, the keys split ``splits`` ways (the blocks of one
+    cluster), on tensor cores (bfloat16) or the float32 FMA kernel."""
+    rows: int
+    splits: int
+    tensor_cores: bool
+
+
+def rel_attention_plan(B: int, T: int, H: int, D: int,
+                       dtype: torch.dtype) -> RelAttentionPlan:
+    """The query tile and key splits of one csrc/rel_attention.cu launch
+    over q, k, v [B, T, H*D] in compute dtype ``dtype``; raises on what the
+    kernels do not take. bfloat16 follows :func:`attention_plan`'s rule
+    with S = T (a query tile whose rows are all kept then splits only the
+    keys up to the item's last kept one); float32 runs the FMA kernel."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rel attention takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if min(B, T, H) < 1:
+        raise ValueError(f"rel attention needs B, T, H >= 1, got {B}, {T}, "
+                         f"{H}")
+    if D not in REL_HEAD_DIMS:
+        raise ValueError(f"rel-attention kernel takes head dims "
+                         f"{REL_HEAD_DIMS}; got {D}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"rel attention takes B, H <= 65535, got {B}, {H}")
+    if dtype == torch.float32:
+        return RelAttentionPlan(REL_FMA_ROWS, 1, False)
+    return RelAttentionPlan(*_split_plan(B, T, T, H), True)
 
 
 # csrc/flash_attention.cu: bfloat16 at head dims up to 64 on tensor cores

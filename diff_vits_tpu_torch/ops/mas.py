@@ -14,9 +14,11 @@ edge rules are those of ``ops/mas.py:10-16``:
 
 On a CPU tensor the plain PyTorch version below runs (vectorised over
 (B, Tx), a loop over Ty). On a CUDA tensor ``csrc/mas.cu`` runs, one block
-per batch element, or the call raises; its design note says what bounds
-it. In PyTorch eager the plain version is two loops of Ty steps with
-several launches each, so the kernel is the port's MAS on the card.
+per batch element (the DP row in the registers of a few warps, the scores
+staged ahead by the block's other warps, the path zeroed by a second block
+of the item's cluster), or the call raises; its design note says what
+bounds it. In PyTorch eager the plain version is two loops of Ty steps
+with several launches each, so the kernel is the port's MAS on the card.
 """
 from __future__ import annotations
 

@@ -19,11 +19,23 @@ the port's ``MultiHeadAttention`` (the [T, 2w+1] band of relative logits
 placed on the score diagonals and read back off the probabilities), with
 the operands rounded to the compute dtype where the JAX kernel casts them.
 It is also the module's training route (autograd, dropout). On a CUDA
-tensor the kernels run, or the call raises: ``csrc/gemm.cu`` for the q/k/v
-projections (one launch, three problems sharing x, float32 outputs),
-``csrc/rel_attention.cu`` for the banded online-softmax attention, and
-``csrc/gemm.cu`` again for the output projection. K5 has no backward, as in
-the JAX package.
+tensor the kernels run, or the call raises, on the route
+``_cuda.rel_attention_plan`` gives:
+
+  * both: one ``csrc/gemm.cu`` launch for the q, k and v projections
+    (three problems sharing x, float32 outputs), then the core of
+    ``csrc/rel_attention.cu``, then ``csrc/gemm.cu`` for the output
+    projection;
+  * bfloat16 (serving): ``round_kv_kernel`` rounds k and v to bf16 once
+    (the reference's cast; it beat a second projection launch writing
+    them in bf16, PERF.md), and ``rel_attention_mma_kernel`` (tensor
+    cores, key splits over a cluster) reads them by cp.async, rounds
+    scale * q itself and writes o in bf16;
+  * float32 (the parity route): ``rel_attention_kernel`` (FMA).
+
+Besides ``launches``, the wrapper counts its launches by route in
+``mma_launches`` and ``fma_launches`` (:func:`route_counts`). K5 has no
+backward, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -35,7 +47,7 @@ from diff_vits_tpu_torch.ops import _cuda
 from diff_vits_tpu_torch.ops.fused_resnet import (
     _check, _check_vecs, _check_weight, mm)
 
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = _cuda.REL_HEAD_DIMS
 
 
 def band_embeddings(emb: torch.Tensor, length: int, window: int):
@@ -118,7 +130,8 @@ def fused_rel_self_attention(x, lengths, wq, bq, wk, bk, wv, bv, wo, bo,
     CUDA route: x float32 or bfloat16, contiguous; weights in
     ``compute_dtype``, wq/wk/wv with one set of strides; biases float32 or
     ``compute_dtype``, one dtype for bq/bk/bv; tables float32 or
-    ``compute_dtype``; head dim in HEAD_DIMS; 2w+1 <= 31."""
+    ``compute_dtype``; head dim in HEAD_DIMS; 2w+1 <= 31 (what
+    ``_cuda.rel_attention_plan`` refuses raises ValueError or TypeError)."""
     kw = dict(heads=heads, window=window, compute_dtype=compute_dtype)
     args = (x, lengths, wq, bq, wk, bk, wv, bv, wo, bo, emb_rel_k, emb_rel_v)
     if x.device.type == "cpu":
@@ -144,7 +157,7 @@ def _kernels(x, lengths, wq, bq, wk, bk, wv, bv, wo, bo, emb_rel_k,
         raise ValueError(f"rel-attention kernel takes head dims {HEAD_DIMS}; "
                          f"got C={c} over {heads} heads")
     d, co = c // heads, wo.shape[-1]
-    if not 0 <= window <= 15:
+    if not 0 <= window <= _cuda.REL_MAX_WINDOW:
         raise ValueError(f"rel-attention kernel takes windows 0-15, got "
                          f"{window}")
     for name, w in (("wq", wq), ("wk", wk), ("wv", wv)):
@@ -164,23 +177,55 @@ def _kernels(x, lengths, wq, bq, wk, bk, wv, bv, wo, bo, emb_rel_k,
                              f"{tuple(lengths.shape)} on {lengths.device}")
         lens = lengths.to(torch.int32).contiguous()
 
+    plan = _cuda.rel_attention_plan(b, t, heads, d, cdt)
     m = b * t
     q, k, v = (torch.empty((b, t, c), device=dev, dtype=f32)
                for _ in range(3))
     _cuda.gemm(x, [wq, wk, wv], [q, k, v], [bq, bk, bv], M=m, N=c, T=t, Ci=c)
-    o = torch.empty((b, t, c), device=dev, dtype=f32)
-    # csrc/rel_attention.cu refuses a head dim or window it has no instance
-    # for (checked above) and a grid it cannot launch
-    _cuda.check(_cuda.fn("rel_attention.cu", "dvt_rel_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _cuda.ptr(lens),
-        emb_rel_k.data_ptr(), emb_rel_v.data_ptr(),
-        _cuda.dtype_flag(emb_rel_k), o.data_ptr(), b, t, heads, d, window,
-        _cuda.dtype_flag(wq), d ** -0.5, _cuda.stream_ptr(x)),
-        f"rel-attention kernel at B={b}, T={t}, H={heads}, d={d}")
+    common = (_cuda.ptr(lens), emb_rel_k.data_ptr(), emb_rel_v.data_ptr(),
+              _cuda.dtype_flag(emb_rel_k))
+    what = f"rel-attention kernel at B={b}, T={t}, H={heads}, d={d}"
+    stream = _cuda.stream_ptr(x)
+    # the kernels refuse (ValueError) what the plan refuses and misaligned
+    # pointers; a failed launch raises RuntimeError
+    if plan.tensor_cores:
+        k16, v16 = (torch.empty_like(z, dtype=cdt) for z in (k, v))
+        _cuda.check(_cuda.fn("rel_attention.cu", "dvt_round_kv")(
+            k.data_ptr(), v.data_ptr(), k16.data_ptr(), v16.data_ptr(),
+            m * c, stream), what)
+        o = torch.empty((b, t, c), device=dev, dtype=cdt)
+        _cuda.check(_cuda.fn("rel_attention.cu", "dvt_rel_attention_mma")(
+            q.data_ptr(), k16.data_ptr(), v16.data_ptr(), *common,
+            o.data_ptr(), b, t, heads, d, window, d ** -0.5, plan.rows,
+            plan.splits, stream), what)
+        fused_rel_self_attention.mma_launches += 1
+    else:
+        o = torch.empty((b, t, c), device=dev, dtype=f32)
+        _cuda.check(_cuda.fn("rel_attention.cu", "dvt_rel_attention")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *common, o.data_ptr(),
+            b, t, heads, d, window, _cuda.dtype_flag(wq), d ** -0.5,
+            stream), what)
+        fused_rel_self_attention.fma_launches += 1
     out = torch.empty((b, t, co), device=dev, dtype=x.dtype)
     _cuda.gemm(o, [wo], [out], [bo], M=m, N=co, T=t, Ci=c)
     fused_rel_self_attention.launches += 1
     return out
 
 
+ROUTE_COUNTERS = ("mma_launches", "fma_launches")
+
+
+def route_counts():
+    """{"fused_rel_self_attention.mma_launches": n, ...}: K5's launches by
+    route since the last :func:`reset_route_counts`."""
+    return {f"fused_rel_self_attention.{c}": getattr(
+        fused_rel_self_attention, c) for c in ROUTE_COUNTERS}
+
+
+def reset_route_counts() -> None:
+    for c in ROUTE_COUNTERS:
+        setattr(fused_rel_self_attention, c, 0)
+
+
 fused_rel_self_attention.launches = 0
+reset_route_counts()

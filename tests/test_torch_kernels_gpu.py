@@ -20,12 +20,19 @@ launch counts, a tiny UNet on the kernels against its unfused
 formulation, and gradients through the kernel routes' autograd Function
 (landing on the nn.Parameters, equal to plain autograd's within 1e-3).
 K6 (MAS): paths identical to the plain version's (tolerance 0) on random
-and tied scores, ragged lengths, more text columns than one thread a
-column covers, bfloat16 scores, and a refusal of what does not fit.
+and tied scores, ragged lengths, Tx up to 4096 and at every edge of the
+kernel's column runs, t_x = t_y and t_x = 1, the
+training shape [32, 400, 601], bfloat16 scores, and a refusal of what does
+not fit.
 K5 (rel-pos attention): ragged lengths (kept rows compared) and no mask,
 T shorter than the band, not a multiple of the 16-query or 32-key tiles,
 every head dim the kernel takes, through the wrapper and through the
-routed MultiHeadAttention; a refusal. K7 (RQ spline): forward and inverse,
+routed MultiHeadAttention; ragged batches whose kept query tiles stop at
+the last kept key, key splits over a cluster, windows 0 and 15, an item
+with no kept row (every row finite, all rows against plain); two launches
+bit-identical; bfloat16 only on rel_attention_mma_kernel and float32 only
+on the FMA kernel at every head dim (profiler names, route counters);
+refusals, a misaligned k among them. K7 (RQ spline): forward and inverse,
 inputs on the bin edges and at and beyond the tails, parameters as strided
 slices of one projection. The kernel and the plain version sum the bin
 fractions in another order and contract other products into FMAs, so
@@ -637,6 +644,34 @@ def test_mas_kernel_bfloat16_and_refusals(dev):
     assert mas.maximum_path.launches == before
 
 
+@pytest.mark.parametrize("t_x", [1, 31, 32, 33, 255, 256, 257, 601, 767,
+                                 768, 769, 2049, 4096])
+def test_mas_kernel_column_run_boundaries(dev, t_x):
+    """Tx at the edges of the DP lanes' and warps' column runs (8 columns a
+    lane, 256 a warp), random and tied scores, items with t_x = t_y and
+    t_x = 1."""
+    for tied in (False, True):
+        neg, mask = _mas_case(dev, 4, 64 if t_x < 1000 else 24, t_x, tied,
+                              seed=t_x + tied)
+        mask[3, :, 1:] = 0.0                          # t_x = 1
+        out = mas.maximum_path(neg, mask)
+        torch.cuda.synchronize()
+        ref = mas.maximum_path_plain(neg, mask)
+        assert int((out != ref).sum()) == 0, (t_x, tied)
+
+
+def test_mas_kernel_training_shape_tied_and_random(dev):
+    """[32, 400, 601] as the training step hands it over: ragged lengths,
+    t_x = t_y and t_x = 1 among them; exact paths on random and tied
+    scores."""
+    for tied in (False, True):
+        neg, mask = _mas_case(dev, 32, 400, 601, tied, seed=9 + tied)
+        mask[2, :, 1:] = 0.0
+        out = mas.maximum_path(neg, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(out, mas.maximum_path_plain(neg, mask)), tied
+
+
 def _rel_args(gen, dev, b, t, heads, d, dtype, window=4, co=None):
     """x, lengths (ragged, item 0 full) and the weights of one rel-pos MHA
     in the module layout (weights as views of [out, in] storage)."""
@@ -723,6 +758,102 @@ def test_rel_attention_kernel_refuses_what_it_does_not_take(dev):
         RA.fused_rel_self_attention(*args, heads=2, window=4,
                                     compute_dtype=torch.bfloat16)
     assert RA.fused_rel_self_attention.launches == before
+
+
+REL_KERNELS = {torch.bfloat16: "rel_attention_mma_kernel<",
+               torch.float32: "rel_attention_kernel<"}
+
+
+def _rel_call(args, lengths, dtype, window=4, heads=2):
+    return RA.fused_rel_self_attention(args[0], lengths, *args[2:],
+                                       heads=heads, window=window,
+                                       compute_dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,t,d,window,lengths", [
+    (4, 601, 128, 4, (601, 300, 70, 1)),     # tiles stop at 300 and 70
+    (1, 601, 128, 4, (400,)),                # 8 key splits over 400 keys
+    (3, 200, 64, 0, (200, 129, 64)),         # no band
+    (2, 150, 32, 15, (150, 17)),             # the widest window
+    (8, 128, 128, 4, (128, 121, 110, 96, 80, 64, 20, 0)),   # no kept row
+], ids=["b4-ragged", "b1-splits", "w0", "w15", "b8-t128"])
+def test_rel_attention_kernel_ragged_rows(dev, dtype, b, t, d, window,
+                                          lengths):
+    """Kept rows against plain (the gate); every row finite; masked rows,
+    which attend uniformly, against plain too."""
+    gen = torch.Generator(device=dev).manual_seed(t + d + window)
+    args = _rel_args(gen, dev, b, t, 2, d, dtype, window=window)
+    lengths = torch.tensor(lengths, device=dev)
+    out = _rel_call(args, lengths, dtype, window)
+    torch.cuda.synchronize()
+    ref = RA.fused_rel_self_attention_plain(
+        args[0], lengths, *args[2:], heads=2, window=window,
+        compute_dtype=dtype)
+    assert bool(torch.isfinite(out.float()).all())
+    _assert_rows_close(out, ref, lengths, dtype)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype] * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,t", [(1, 601), (1, 128), (8, 601)])
+def test_rel_attention_kernel_is_deterministic(dev, dtype, b, t):
+    """Two launches give the same bits, key splits merged over the cluster
+    included (b=1: 8 splits in bfloat16)."""
+    gen = torch.Generator(device=dev).manual_seed(b * t)
+    args = _rel_args(gen, dev, b, t, 2, 128, dtype)
+    plan = _cuda.rel_attention_plan(b, t, 2, 128, dtype)
+    assert plan.splits > 1 if dtype == torch.bfloat16 and b == 1 \
+        else plan.splits == 1
+    first = _rel_call(args, args[1], dtype)
+    second = _rel_call(args, args[1], dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", RA.HEAD_DIMS)
+def test_rel_attention_route_by_dtype(dev, dtype, d):
+    """bfloat16 runs only rel_attention_mma_kernel, float32 only the FMA
+    kernel, at every head dim (profiler names and the route counters)."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(d)
+    args = _rel_args(gen, dev, 2, 70, 2, d, dtype)
+    _rel_call(args, args[1], dtype)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _rel_call(args, args[1], dtype)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    other = REL_KERNELS[torch.float32 if dtype == torch.bfloat16
+                        else torch.bfloat16]
+    assert any(REL_KERNELS[dtype] in n for n in names), names
+    assert not any(other in n for n in names), names
+    mma = int(dtype == torch.bfloat16)
+    assert RA.route_counts() == {
+        "fused_rel_self_attention.mma_launches": mma,
+        "fused_rel_self_attention.fma_launches": 1 - mma}
+
+
+def test_rel_attention_mma_refuses_misaligned_inputs(dev):
+    """The tensor-core route's C entry refuses k or v off a 16-byte
+    boundary (the wrapper allocates them aligned)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, t, c = 1, 33, 256
+    q = torch.randn(b, t, c, device=dev, generator=gen)
+    k = torch.randn(b, t, c, device=dev, generator=gen).bfloat16()
+    shifted = torch.empty(k.numel() + 1, device=dev,
+                          dtype=k.dtype)[1:].view(k.shape).copy_(k)
+    e = torch.randn(9, 128, device=dev, generator=gen)
+    o = torch.empty_like(k)
+    plan = _cuda.rel_attention_plan(b, t, 2, 128, torch.bfloat16)
+    with pytest.raises(ValueError, match="refused"):
+        _cuda.check(_cuda.fn("rel_attention.cu", "dvt_rel_attention_mma")(
+            q.data_ptr(), shifted.data_ptr(), k.data_ptr(), None,
+            e.data_ptr(), e.data_ptr(), 0, o.data_ptr(), b, t, 2, 128, 4,
+            0.088, plan.rows, plan.splits, _cuda.stream_ptr(q)), "rel")
 
 
 def _spline_case(dev, n, num_bins, tail_bound, inverse, dtype, seed):

@@ -11,7 +11,9 @@ checkout's ``chip_smoke.py`` (``configs/reference_parity.json`` widths,
 random weights from seed 0, ``BatchSynthesizer`` in bf16) and its
 ``serving_numbers``: per-request latency of ``synthesize`` at batch 1 and 8
 (text bucket 128, mel bucket 400, 30 UniPC steps), the median of 3 warmed
-calls. Prints every run and the median over runs per checkout and batch.
+calls; then the device busy time of one profiled ``synthesize`` at batch
+8 (``profile_synthesize``: the summed device activity). Prints every run
+and the median over runs per checkout and batch.
 """
 import argparse
 import json
@@ -43,9 +45,12 @@ def child(root: Path) -> None:
                         syn.refer_frames)
     short = [r for r in reqs if len(r[1]) <= 128]
     numbers = cs.serving_numbers(torch, syn, short, card)
+    prof = cs.profile_synthesize(
+        torch, syn, [short[i % len(short)] for i in range(8)], card)
     print("RESULT " + json.dumps(dict(
         card=card, b1=numbers["b1"]["latency_s"],
-        b8=numbers["b8"]["latency_s"])), flush=True)
+        b8=numbers["b8"]["latency_s"],
+        b8_busy=prof["device_busy_ms"] / 1e3)), flush=True)
 
 
 def main() -> int:
@@ -73,9 +78,11 @@ def main() -> int:
             res = dict(json.loads(lines[-1][7:]), tree=name)
             runs.append(res)
             print(f"{name}: b=1 {res['b1'] * 1e3:.1f} ms, b=8 "
-                  f"{res['b8'] * 1e3:.1f} ms; card {res['card']}", flush=True)
+                  f"{res['b8'] * 1e3:.1f} ms, b=8 device busy "
+                  f"{res['b8_busy'] * 1e3:.2f} ms; card {res['card']}",
+                  flush=True)
     for name in ("parent", "change"):
-        for b in ("b1", "b8"):
+        for b in ("b1", "b8", "b8_busy"):
             vals = [r[b] * 1e3 for r in runs if r["tree"] == name]
             print(f"{name} {b}: median {statistics.median(vals):.1f} ms of "
                   f"{[round(v, 1) for v in vals]}")
