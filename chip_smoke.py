@@ -75,25 +75,36 @@ Phases, each of which fails the run:
    leaf's largest entry (a ReLU input within rounding of 0 may flip between
    the routes; this shows the flips explain what the kink-free gate
    leaves out);
-6. path (serving): ``BatchSynthesizer`` (bf16 weights, batch 8, mel
-   buckets 400 and 800, 30-step UniPC) answers 10 requests at the widths
-   of ``configs/reference_parity.json`` with random weights from a seed;
+6. vocoder: ``Vocos`` at the published widths (100 mels, dim 512,
+   intermediate 1536, 8 layers, n_fft 1024, hop 256), random weights from
+   a seed written as a published-layout (charactr/vocos-mel-24khz) state
+   dict and loaded on the card by ``load_vocoder``; a b=8, 400-frame mel
+   decoded in float32 against the same module on the CPU (finite, 399 x
+   256 samples, max |diff| <= 1e-3 x max(1, max |wav|)); the decode's
+   device ms, wall ms and peak memory;
+7. path (serving): ``BatchSynthesizer`` (bf16 weights, batch 8, mel
+   buckets 400 and 800, 30-step UniPC, the vocoder of phase 6) answers 10
+   requests at the widths of ``configs/reference_parity.json`` with
+   random weights from a seed, each with a finite waveform of n x hop
+   samples (or the bucket's (T - 1) x hop where that is shorter);
    every kernel counter must rise by exactly 22/16/16/16 per UNet call
    (the attention core's by 32), K5's by one per layer of each encoder
    call (6 per TextEncoder call), all on the tensor-core K5 kernel (its
    route counters), and MAS's and K7's by 0, and no call may reach the
    core's plain version ``attention_plain``;
-7. parity: one fixed batch in float32 through the kernels and through the
+8. parity: one fixed batch in float32 through the kernels and through the
    plain path on the card (same weights, injected initial noise, zero prior
    noise), max |mel difference| <= 5e-3, the kernel run's attention core
    only ``attention_fma_kernel`` (profiler);
-8. serving numbers: per-request latency at batch 1 and 8, real-time factor,
-   peak device memory; then one more warmed ``synthesize`` at each batch
-   under torch.profiler: the device's busy share, device time by kernel
-   and the GEMM kernels' launches and time; bf16 serving must show only
-   the tensor-core GEMM (``gemm_mma_kernel``), no FMA mainloop, and only
-   the tensor-core attention core (``attention_mma_kernel``);
-9. train (the training path): ``Trainer`` at ``reference_parity`` widths
+9. serving numbers: per-request latency at batch 1 and 8, real-time factor,
+   peak device memory, each run's mel also decoded by the vocoder (its
+   wall time apart, the real-time factor with it); then one more warmed
+   ``synthesize`` at each batch under torch.profiler: the device's busy
+   share, device time by kernel and the GEMM kernels' launches and time;
+   bf16 serving must show only the tensor-core GEMM (``gemm_mma_kernel``),
+   no FMA mainloop, and only the tensor-core attention core
+   (``attention_mma_kernel``);
+10. train (the training path): ``Trainer`` at ``reference_parity`` widths
    (EMA on, random weights from seed 0, bf16 autocast) takes 2 warm-up
    and 5 timed steps on batches of 32 shaped like the loader's (text 601,
    mel 400, prompts 267 cut by ``random_slice``): finite losses, every
@@ -108,26 +119,27 @@ Phases, each of which fails the run:
    the tensor-core kernels (the route counters each step, and in the
    profiled step the profiler's names: the three ``flash_*_mma_kernel``s
    and no FMA kernel);
-10. eval parity: ``Trainer.eval_fixed_t_loss`` (eval mode, float32, TF32
+11. eval parity: ``Trainer.eval_fixed_t_loss`` (eval mode, float32, TF32
    off) through the kernels and through the plain route on the card:
    every value within rel 1e-4, the MAS paths equal, the counters
    22/16/16/16 per UNet call, 6 K5 launches per TextEncoder call and 1 per
    MAS call;
-11. variant serving: the same ``BatchSynthesizer`` run for the VITS variant
+12. variant serving: the same ``BatchSynthesizer`` run for the VITS variant
    of ``reference_parity`` with the stochastic duration predictor and the
    residual-coupling spec flow (``duration_predictor="sdp"``,
    ``use_flow=True``; random weights from seed 0, bf16, batch 8, mel
    buckets 400 and 800, the K5 route on): counters exactly 22/16/16/16
    per UNet call, 6 K5 launches per TextEncoder call (all on the
    tensor-core kernel) and 3 K7 launches per stochastic-duration reverse
-   (its three ConvFlow reverses); then the
+   (its three ConvFlow reverses); the same run again under
+   torch.profiler, every K7 launch on ``spline_group_kernel``; then the
    variant in float32, kernels against the plain route on the card with
    injected duration and initial noise (equal frame counts, max |mel
    difference| <= 5e-3), and its latency at batch 1 and 8, real-time
    factor and peak memory;
-12. variant training: the variant trained by the same ``Trainer`` (B=32,
+13. variant training: the variant trained by the same ``Trainer`` (B=32,
    bf16, 2 warm-up and 3 timed steps) with the flash route off and on, with
-   the checks of phase 9 (no K5 or K7 launch: both are inference-only).
+   the checks of phase 10 (no K5 or K7 launch: both are inference-only).
 
 The launch counts in the kernel table are those of each kernel's own path:
 serving for K1-K4 and the attention core, training for K6, the variant's
@@ -872,10 +884,14 @@ def main(argv=None) -> int:
     phases["grad"] = grad_phase(torch, dev)
     phases["flash_grad"], flash_grad = flash_grad_phase(torch, dev, card)
 
+    phases["vocoder"], vocoder, vocoder_numbers = vocoder_phase(torch, dev,
+                                                                card)
     # each path's counts are read from its own run: serving for K1-K4,
     # training for K6, the variant's serving for K5 and K7, training with
     # the flash route on for K8
-    p_ok, counts, details = path_phase(torch, dev, card)
+    p_ok, counts, details = path_phase(torch, dev, card, vocoder)
+    details["vocoder"] = vocoder_numbers
+    del vocoder
     phases.update(p_ok)
     phases["train"], train_counts, train_numbers, trainer, eval_batch = \
         train_phase(torch, dev, card)
@@ -998,10 +1014,11 @@ def _want(calls, mas: int = 0, k5: bool = True):
     return want
 
 
-def path_phase(torch, dev, card):
-    """Serving run through the kernels, the fp32 kernels-vs-plain parity
-    run, and the serving numbers. Returns ({phase: ok}, launch counts,
-    the numbers as a JSON-ready dict)."""
+def path_phase(torch, dev, card, vocoder):
+    """Serving run through the kernels, with ``vocoder`` decoding every
+    bucket batch, the fp32 kernels-vs-plain parity run, and the serving
+    numbers (with and without the vocoder). Returns ({phase: ok}, launch
+    counts, the numbers as a JSON-ready dict)."""
     import numpy as np
     from diff_vits_tpu_torch import ops
     from diff_vits_tpu_torch.core.config import load_config
@@ -1023,8 +1040,8 @@ def path_phase(torch, dev, card):
 
     # -- serving: BatchSynthesizer, bf16, batch 8, mel buckets 400/800 ----
     syn = BatchSynthesizer(cfg, model.state_dict(), batch_size=8,
-                           mel_buckets=(400, 800), dtype=torch.bfloat16,
-                           device=dev)
+                           mel_buckets=(400, 800), vocoder=vocoder,
+                           dtype=torch.bfloat16, device=dev)
     reqs = _requests(torch, torch.Generator().manual_seed(1), len(symbols),
                      syn.refer_frames)
     calls, handles = _count_path_calls(syn.model)
@@ -1052,12 +1069,16 @@ def path_phase(torch, dev, card):
     want = _want(calls)
     order_ok = [r[0] for r in results] == [r[0] for r in reqs]
     finite = all(np.isfinite(m).all() and m.ndim == 2 and m.shape[1] == 100
-                 and m.shape[0] >= 1 for _, m in results)
+                 and m.shape[0] >= 1 for _, m, _ in results)
+    wav_ok = _wavs_ok(np, results, cfg.data.hop_length, syn.mel_buckets)
     ok["serve"] = (order_ok and finite and counts == want
                    and plain_calls[0] == 0)
+    ok["serve_vocoder"] = wav_ok
     log(f"serve: {len(results)} requests in {wall:.3f} s (first call of "
-        f"each bucket shape included); frames "
-        f"{[m.shape[0] for _, m in results]}; UNet calls "
+        f"each bucket shape included, the vocoder's decodes too); frames "
+        f"{[m.shape[0] for _, m, _ in results]}; wav samples "
+        f"{[len(w) for _, _, w in results]} (n x hop, or the bucket's "
+        f"(T - 1) x hop where shorter, finite: {wav_ok}); UNet calls "
         f"{calls['unet'][0]}, encoder layers {calls['encoder_layers'][0]}; "
         f"launches {counts} (want {want}); order {order_ok}; finite "
         f"{finite}; attention_plain calls {plain_calls[0]} (want 0)")
@@ -1116,6 +1137,19 @@ def path_phase(torch, dev, card):
                             parity_max_abs=err, numbers=numbers)
 
 
+def _wavs_ok(np, results, hop, mel_buckets):
+    """Every (utt, mel, wav) has a finite float32 wav of n x hop samples
+    for its n frames, or (n - 1) x hop where n filled its mel bucket (the
+    decode of T frames gives (T - 1) x hop samples)."""
+    def good(m, w):
+        n = m.shape[0]
+        want = {n * hop} | ({(n - 1) * hop} if n in mel_buckets else set())
+        return (w.ndim == 1 and w.dtype == np.float32 and len(w) in want
+                and bool(np.isfinite(w).all()))
+    return len(results) > 0 and all(len(r) == 3 and good(r[1], r[2])
+                                    for r in results)
+
+
 def _rel_mma_only(routes, launches, what):
     """Whether bf16 serving ran every K5 launch (at least one) on
     rel_attention_mma_kernel, by the wrapper's route counters."""
@@ -1130,7 +1164,11 @@ def _rel_mma_only(routes, launches, what):
 def serving_numbers(torch, syn, short, card, what="serving"):
     """Per-request latency (median of 3 warmed runs) and real-time factor
     of ``synthesize`` at batch 1 and 8 (text bucket 128, mel bucket 400),
-    and the peak device memory over them."""
+    and the peak device memory over them. With ``syn.vocoder``, each run
+    also decodes its mel (float32, the whole batch, as BatchSynthesizer
+    does), timed apart on the host clock: the decode's wall time (the
+    counterpart of the JAX bench's vocoder_overhead_s) and the real-time
+    factor with it."""
     from diff_vits_tpu_torch.models.diff_vits import synthesize
     numbers = {}
     audio_s = 400 * syn.cfg.data.hop_length / syn.cfg.data.sampling_rate
@@ -1139,14 +1177,20 @@ def serving_numbers(torch, syn, short, card, what="serving"):
         syn.batch_size = b
         args = syn.pad_batch([short[i % len(short)] for i in range(b)], 128)
         gen = torch.Generator().manual_seed(3)
-        runs = []
+        runs, decodes = [], []
         for _ in range(4):      # first run warms the allocator
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            synthesize(syn.model, *args, generator=gen, max_len=400,
-                       device=syn.device)
+            mel, _ = synthesize(syn.model, *args, generator=gen, max_len=400,
+                                device=syn.device)
             torch.cuda.synchronize()
             runs.append(time.perf_counter() - t0)
+            if syn.vocoder is not None:
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    syn.vocoder(mel.float())
+                torch.cuda.synchronize()
+                decodes.append(time.perf_counter() - t0)
         lat = sorted(runs[1:])[1]
         numbers[f"b{b}"] = dict(latency_s=lat, runs_s=runs,
                                 rtf=b * audio_s / lat)
@@ -1154,6 +1198,17 @@ def serving_numbers(torch, syn, short, card, what="serving"):
             f"(median of {runs[1:]}), real-time factor "
             f"{b * audio_s / lat:.1f}x ({b} x {audio_s:.2f} s of audio); "
             f"card {card}")
+        if decodes:
+            both = sorted(r + d for r, d in zip(runs[1:], decodes[1:]))[1]
+            dec = sorted(decodes[1:])[1]
+            numbers[f"b{b}"].update(
+                vocoder_s=dec, vocoder_runs_s=decodes,
+                latency_with_vocoder_s=both,
+                rtf_with_vocoder=b * audio_s / both)
+            log(f"{what} b={b} with the vocoder: decode {dec * 1e3:.2f} ms "
+                f"(median of {decodes[1:]}), mel + decode {both * 1e3:.1f} "
+                f"ms, real-time factor {b * audio_s / both:.1f}x against "
+                f"{b * audio_s / lat:.1f}x without; card {card}")
     numbers["max_memory_allocated_GB"] = \
         torch.cuda.max_memory_allocated() / 1e9
     log(f"{what} peak device memory "
@@ -1219,6 +1274,115 @@ def profile_summary(prof, wall_us, card, what):
     for row in res["top"]:
         log(f"  {row['ms']:9.2f} ms {row['launches']:6d}x {row['name']}")
     return res
+
+
+# -- vocoder: Vocos at the published widths, mel -> waveform ---------------
+
+VOCODER_BATCH, VOCODER_FRAMES = 8, 400
+# card vs CPU ``istft`` on a spectrum of N(0, 1) parts: their float32 FFTs
+# agree to ~4e-8 on an H100, where keeping the imaginary parts of DC and
+# Nyquist put the decode 6e-3 off
+ISTFT_TOL = 1e-5
+
+
+def _published_layout(state):
+    """A port ``Vocos`` state dict in charactr/vocos-mel-24khz's torch
+    layout (the inverse of ``convert_torch_vocos``'s renaming)."""
+    top = {"embed": "backbone.embed", "norm": "backbone.norm",
+           "final_norm": "backbone.final_layer_norm", "out": "head.out"}
+    out = {}
+    for k, v in state.items():
+        head, rest = k.split(".", 1)
+        if head.startswith("convnext_"):
+            name = f"backbone.convnext.{head[len('convnext_'):]}.{rest}"
+        else:
+            name = f"{top[head]}.{rest}"
+        out[name] = v.detach().cpu().clone()
+    return out
+
+
+def vocoder_phase(torch, dev, card):
+    """Vocos at the published widths (100 mels, dim 512, intermediate 1536,
+    8 layers, n_fft 1024, hop 256) with random weights from seed 5,
+    written as a published-layout state dict and loaded on the card by
+    ``load_vocoder`` (the converter's route); a b=8, 400-frame mel decoded
+    on the card in float32 against the same module on the CPU: finite,
+    (400 - 1) x 256 samples, max |diff| <= 1e-3 x max(1, max |wav|) (the
+    JAX vocoder test's bound); ``istft`` alone on a random half-spectrum
+    within ISTFT_TOL of its CPU run; the decode's device ms (profiler),
+    wall ms (median of 3 warmed runs) and peak memory. Returns (ok, the
+    vocoder on the card, numbers)."""
+    from diff_vits_tpu_torch.core.config import load_config
+    from diff_vits_tpu_torch.models.vocoder import Vocos, istft, load_vocoder
+    from diff_vits_tpu_torch.utils.init import init_random
+
+    cfg = load_config(str(ROOT / "configs" / "reference_parity.json"))
+    ref = init_random(Vocos(device="cpu"), torch.Generator().manual_seed(5))
+    path = ROOT / "build" / "vocos_published_layout.bin"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(_published_layout(ref.state_dict()), path)
+    voc = load_vocoder(cfg, str(path), device=dev)
+    loaded = all(torch.equal(p.cpu(), q) for p, q in zip(
+        voc.state_dict().values(), ref.state_dict().values()))
+    n_params = sum(p.numel() for p in voc.parameters())
+    mel = torch.randn(VOCODER_BATCH, VOCODER_FRAMES, 100,
+                      generator=torch.Generator().manual_seed(6)) * 2.0 - 4.0
+    mel_dev = mel.to(dev)
+
+    def decode():
+        with torch.inference_mode():
+            return voc(mel_dev)
+    wav = decode()
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        want = ref.eval()(mel)
+    scale = max(1.0, want.abs().max().item())
+    err = (wav.cpu() - want).abs().max().item()
+    # the ISTFT alone on one random half-spectrum whose DC and Nyquist bins
+    # have imaginary parts, which both must drop (cuFFT's C2R keeps them)
+    spec = torch.randn(2, 2, 40, 513, generator=torch.Generator()
+                       .manual_seed(7))
+    istft_err = (istft(*spec.to(dev)).cpu() - istft(*spec)).abs().max() \
+        .item()
+    shape_ok = tuple(wav.shape) == (VOCODER_BATCH, (VOCODER_FRAMES - 1)
+                                    * cfg.data.hop_length)
+    finite = bool(torch.isfinite(wav).all())
+    ok = (loaded and shape_ok and finite and err <= 1e-3 * scale
+          and istft_err <= ISTFT_TOL)
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(4):          # the first run warms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    wall_ms = sorted(runs[1:])[1] * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    device_ms, by_name = device_times(decode, iters=5)
+    audio_s = VOCODER_BATCH * (VOCODER_FRAMES - 1) * cfg.data.hop_length \
+        / cfg.data.sampling_rate
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    numbers = dict(card=card, n_params=n_params, batch=VOCODER_BATCH,
+                   frames=VOCODER_FRAMES, wav_shape=list(wav.shape),
+                   max_abs_diff_vs_cpu=err, max_abs_wav=scale,
+                   istft_max_abs_diff_vs_cpu=istft_err,
+                   device_ms=device_ms, wall_ms=wall_ms,
+                   wall_runs_s=runs, max_memory_allocated_GB=peak_gb,
+                   audio_s=audio_s, top=[dict(name=k[:90], ms=ms)
+                                         for k, ms in top])
+    log(f"vocoder: Vocos {n_params} parameters (published widths, random "
+        f"weights seed 5, loaded from a published-layout state dict: "
+        f"{loaded}); b={VOCODER_BATCH} x {VOCODER_FRAMES} frames float32 -> "
+        f"wav {tuple(wav.shape)}, finite {finite}; card vs CPU max |diff| "
+        f"{err:.3e} (gate {1e-3 * scale:.3e}), the ISTFT alone "
+        f"{istft_err:.2e} (gate {ISTFT_TOL:.0e}); decode device "
+        f"{device_ms} ms, wall {wall_ms:.2f} ms (median of "
+        f"{runs[1:]}), {audio_s:.2f} s of audio, peak {peak_gb:.3f} GB; "
+        f"{'ok' if ok else 'FAIL'}; card {card}")
+    for k, ms in top:
+        log(f"  {ms:9.4f} ms {k[:90]}")
+    return ok, voc, numbers
 
 
 # -- training slice: K6, gradients through K1-K4, the training step ------
@@ -1690,6 +1854,8 @@ def variant_phase(torch, dev, card):
         f"{counts} (want {want}); order {order_ok}; finite {finite}")
     ok["variant_serve_rel_attention_mma"] = _rel_mma_only(
         rel_routes, counts["fused_rel_self_attention"], "variant serve")
+    ok["variant_serve_k7_kernel"], k7_names = _k7_by_name(
+        torch, lambda: syn.synthesize_all(reqs, seed=0), want)
 
     # -- parity: one fp32 batch, kernels vs the plain path on the card ----
     gen = torch.Generator().manual_seed(2)
@@ -1725,9 +1891,42 @@ def variant_phase(torch, dev, card):
     numbers = serving_numbers(torch, syn, short, card, "variant serving")
     return ok, counts, dict(card=card, serve_wall_s=wall, n_params=n_params,
                             calls={k: v[0] for k, v in calls.items()},
-                            launches=counts, want=want,
+                            launches=counts, want=want, k7_kernels=k7_names,
                             frames=[int(m.shape[0]) for _, m in results],
                             parity_max_abs=err, numbers=numbers)
+
+
+K7_KERNEL = "spline_group_kernel<"
+
+
+def _k7_by_name(torch, run, want):
+    """The variant's serving run again under torch.profiler (device
+    activity only; a window that recorded none is taken again): every
+    spline kernel it ran is ``spline_group_kernel``, as many launches as
+    the wrapper counted, which equal ``want``'s. Returns (ok, {kernel
+    name: launches})."""
+    from diff_vits_tpu_torch import ops
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(PROFILER_TRIES):
+        if attempt:
+            time.sleep(0.25)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        by_name = device_by_name(prof)
+        if by_name:
+            break
+    launched = ops.launch_counts()["unconstrained_rqs"]
+    names = {k: n for k, (n, _) in by_name.items() if "spline" in k}
+    good = (launched == want["unconstrained_rqs"] > 0
+            and all(K7_KERNEL in k for k in names)
+            and sum(names.values()) == launched)
+    log(f"variant serve under the profiler: K7 launches {launched} (want "
+        f"{want['unconstrained_rqs']}), spline kernels by profiler name "
+        f"{names}; all {K7_KERNEL}...>: {good}")
+    return good, names
 
 
 # -- K8: flash attention, the training step's attention with the route on --

@@ -1,2 +1,2 @@
-"""Training batches of the port (the dataset and loader come with the
-audio and text slice)."""
+"""Training batches and host-side audio IO and features of the port (the
+dataset and loader come with the text slice)."""

@@ -13,10 +13,14 @@ refer mel [S, 100])``:
   stochastic duration predictor draws there from a seeded generator other
   than the synthesis's, so its count gets 10% headroom;
 * each (text bucket, mel bucket) batch is one ``synthesize`` call;
-* results come back in request order, trimmed to their frame counts.
+* results come back in request order, trimmed to their frame counts;
+* with a vocoder (``models.vocoder.Vocos``), each bucket batch's mel is
+  decoded whole, at its static shape, in float32, and each utterance's
+  waveform trimmed to its frame count times the hop.
 
-Weights are held in bfloat16 by default, as the JAX server casts them.
-The text frontend, wav -> mel, the vocoder and the command line are the
+Weights are held in bfloat16 by default, as the JAX server casts them;
+the vocoder stays in float32, as the JAX server keeps it. The text
+frontend, reading prompts from wav files and the command line are the
 next slice.
 """
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from diff_vits_tpu_torch.core.config import Config
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
@@ -53,7 +58,10 @@ class BatchSynthesizer:
 
     ``state_dict`` is a port ``DiffVits`` state dict (for instance from
     ``utils.convert.from_flax_params``); the model is built on ``device``
-    (the card unless given) in ``dtype``.
+    (the card unless given) in ``dtype``. ``vocoder`` (a
+    ``models.vocoder.Vocos``, e.g. from ``load_vocoder``) is moved to that
+    device in float32 and set to eval mode; with it ``synthesize_all``
+    also returns waveforms.
     """
 
     def __init__(self, cfg: Config, state_dict, *, batch_size: int = 8,
@@ -63,6 +71,7 @@ class BatchSynthesizer:
                  refer_frames: Optional[int] = None,
                  max_len: Optional[int] = None,
                  mel_buckets: Optional[Sequence[int]] = None,
+                 vocoder: Optional[nn.Module] = None,
                  dtype: torch.dtype = torch.bfloat16,
                  device: DeviceLike = None):
         self.cfg = cfg
@@ -84,6 +93,8 @@ class BatchSynthesizer:
         else:
             self.mel_buckets = tuple(sorted(mel_buckets)) if mel_buckets \
                 else (m, 2 * m, 4 * m)
+        self.vocoder = None if vocoder is None else vocoder.to(
+            self.device, torch.float32).eval()
 
     def pad_batch(self, requests: Sequence[Request], t_bucket: int):
         """``synthesize``'s six inputs for up to ``batch_size`` requests:
@@ -138,8 +149,9 @@ class BatchSynthesizer:
         return assign
 
     def synthesize_all(self, requests: Sequence[Request], *, seed: int = 0
-                       ) -> List[Tuple[str, np.ndarray]]:
-        """[(utt_id, mel [T, n_mels] float32)] in request order."""
+                       ) -> List[Tuple]:
+        """[(utt_id, mel [T, n_mels] float32)] in request order, or
+        [(utt_id, mel, wav [T * hop] float32)] with a vocoder."""
         by_text: Dict[int, list] = {}
         for i, r in enumerate(requests):
             by_text.setdefault(pick_bucket(len(r[1]), self.text_buckets),
@@ -151,7 +163,8 @@ class BatchSynthesizer:
                 m_bucket = mel_assign.get(i, self.mel_buckets[0])
                 by_shape.setdefault((t_bucket, m_bucket), []).append((i, r))
 
-        out: List[Optional[Tuple[str, np.ndarray]]] = [None] * len(requests)
+        out: List[Optional[Tuple]] = [None] * len(requests)
+        hop = self.cfg.data.hop_length
         for (t_bucket, m_bucket), group in sorted(by_shape.items()):
             for off in range(0, len(group), self.batch_size):
                 chunk = group[off:off + self.batch_size]
@@ -165,8 +178,15 @@ class BatchSynthesizer:
                     noise_scale=self.noise_scale,
                     length_scale=self.length_scale, max_len=m_bucket,
                     device=self.device)
+                wav = None
+                if self.vocoder is not None:
+                    # the whole bucket batch at its static shape
+                    with torch.inference_mode():
+                        wav = self.vocoder(mel.float()).cpu().numpy()
                 mel = mel.float().cpu().numpy()
                 lens = out_lengths.cpu().numpy()
                 for j, (i, r) in enumerate(chunk):
-                    out[i] = (r[0], mel[j, :int(lens[j])])
+                    n = int(lens[j])
+                    out[i] = (r[0], mel[j, :n]) if wav is None else (
+                        r[0], mel[j, :n], wav[j, :min(n * hop, wav.shape[1])])
         return [o for o in out if o is not None]

@@ -1,1 +1,2 @@
-"""Model assemblies of the port: prior, duration, diffusion decoder."""
+"""Model assemblies of the port: prior, duration, diffusion decoder, and
+the Vocos vocoder (mel -> waveform)."""

@@ -47,8 +47,7 @@ _SIGNATURES = {
     "dvt_rel_attention_mma": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                               _I, _F, _I, _I, _P),
     "dvt_round_kv": (_P, _P, _P, _P, _L, _P),
-    "dvt_spline": (_P, _I, _P, _L, _P, _L, _P, _L, _I, _P, _P, _L, _I, _I, _F,
-                   _F, _F, _F, _P),
+    "dvt_spline": (_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _L, _I, _I, _P, _P),
     "dvt_flash_forward": (_P, _P),
     "dvt_flash_backward": (_P, _P),
     "dvt_flash_args_size": (),
@@ -189,7 +188,9 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of CUDA tensor ``t``'s device, as a raw pointer
+    (no Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def dtype_flag(t: torch.Tensor) -> int:

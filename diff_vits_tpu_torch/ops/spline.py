@@ -11,11 +11,13 @@ linear-tail spline on the sampling path, ``unconstrained_rqs_pallas`` of
 ``unconstrained_rqs`` is K7's wrapper: on a CPU tensor it runs the plain
 spline in float32 (the Pallas kernel computes in float32 whatever its
 inputs, spline_pallas.py:35-38); on a CUDA tensor ``csrc/spline.cu`` runs,
-one thread per element with its bins in registers, or the call raises.
+one group of lanes per element, or the call raises.
 Output in the input's dtype, log|det| in float32.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -169,61 +171,98 @@ def unconstrained_rqs(inputs, unnormalized_widths, unnormalized_heights,
     knots). Returns (outputs like ``inputs``, log|det| float32).
 
     CUDA route: float32 or bfloat16 tensors on one device, the parameters'
-    last dim of stride 1 and their leading dims viewable as rows (slices
-    of one [..., 3 * num_bins - 1] projection are taken as they are)."""
-    kw = dict(inverse=inverse, tail_bound=tail_bound,
-              min_bin_width=min_bin_width, min_bin_height=min_bin_height,
-              min_derivative=min_derivative)
+    last dim of stride 1. Tensors whose leading dims walk with one stride
+    (strided slices of one [..., 3 * num_bins - 1] projection, ``inputs`` a
+    slice of a wider tensor) are taken as they are; others are copied."""
     if inputs.device.type == "cpu":
         return unconstrained_rqs_plain(
             inputs, unnormalized_widths, unnormalized_heights,
-            unnormalized_derivatives, **kw)
+            unnormalized_derivatives, inverse=inverse, tail_bound=tail_bound,
+            min_bin_width=min_bin_width, min_bin_height=min_bin_height,
+            min_derivative=min_derivative)
     if inputs.device.type != "cuda":
         raise ValueError(f"unconstrained_rqs runs on cpu or cuda, not "
                          f"{inputs.device}")
     return _kernel(inputs, unnormalized_widths, unnormalized_heights,
-                   unnormalized_derivatives, **kw)
+                   unnormalized_derivatives, inverse, tail_bound,
+                   min_bin_width, min_bin_height, min_derivative)
+
+
+def _flat_stride(shape, strides):
+    """The one stride that walks the dims ``shape`` in order as a flat
+    index (dims of size 1 ignored), or None when there is none."""
+    step = None
+    for size, stride in zip(reversed(shape), reversed(strides)):
+        if size == 1:
+            continue
+        if step is None:
+            step = stride
+        elif stride != span:
+            return None
+        span = stride * size
+    return 0 if step is None else step
 
 
 def _rows(t: torch.Tensor, n: int, width: int, name: str, device):
-    """``t`` as an [n, width] view with unit stride along the bins; its
-    row stride."""
+    """``t`` viewed as ``n`` rows of ``width`` with unit stride along them,
+    or a copy where its leading dims have no one stride; the row stride."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, inputs on {device}")
-    if t.shape[-1] != width or t.numel() != n * width:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
+    shape = t.shape
+    if shape[-1] != width or t.numel() != n * width:
+        raise ValueError(f"{name} has shape {tuple(shape)}, want "
                          f"[..., {width}] over {n} elements")
-    _cuda.dtype_flag(t)
-    rows = t.reshape(n, width)
-    if width > 1 and rows.stride(1) != 1:
+    strides = t.stride()
+    if width > 1 and strides[-1] != 1:
         raise ValueError(f"{name} must have unit stride along the bins")
-    return rows, rows.stride(0)
+    step = _flat_stride(shape[:-1], strides[:-1])
+    if step is None:
+        t = t.reshape(n, width)
+        step = t.stride(0)
+    return t, step
 
 
-def _kernel(inputs, uw, uh, ud, *, inverse, tail_bound, min_bin_width,
+@functools.lru_cache(maxsize=16)
+def _constants(tail_bound, min_w, min_h, min_d):
+    """(host float array, its address) of csrc/spline.cu's constants:
+    tail_bound, the three floors and the knot derivative at both ends,
+    min_d + softplus of the pad constant, as the plain version computes it
+    in float32."""
+    pad = torch.tensor(math.log(math.exp(1 - min_d) - 1), dtype=torch.float32)
+    d_edge = float(min_d + F.softplus(pad))
+    arr = (ctypes.c_float * 5)(tail_bound, min_w, min_h, min_d, d_edge)
+    return arr, ctypes.addressof(arr)
+
+
+def _kernel(inputs, uw, uh, ud, inverse, tail_bound, min_bin_width,
             min_bin_height, min_derivative):
     """The kernel route: check every input, then launch."""
     num_bins = uw.shape[-1]
     n = inputs.numel()
     dev = inputs.device
-    x_dt = _cuda.dtype_flag(inputs)
-    w_rows, sw = _rows(uw, n, num_bins, "unnormalized_widths", dev)
-    h_rows, sh = _rows(uh, n, num_bins, "unnormalized_heights", dev)
-    d_rows, sd = _rows(ud, n, num_bins - 1, "unnormalized_derivatives", dev)
-    if len({uw.dtype, uh.dtype, ud.dtype}) > 1:
+    if not uw.dtype == uh.dtype == ud.dtype:
         raise TypeError("the spline parameters must share one dtype")
-    x = inputs.contiguous()
-    out = torch.empty_like(x)
-    logdet = torch.empty(x.shape, device=dev, dtype=torch.float32)
+    flags = (_cuda.dtype_flag(inputs) | _cuda.dtype_flag(uw) << 1
+             | int(inverse) << 2)
+    shape = inputs.shape
+    sx = _flat_stride(shape, inputs.stride())
+    if sx is None:
+        inputs = inputs.reshape(-1)
+        sx = 1
+    uw, sw = _rows(uw, n, num_bins, "unnormalized_widths", dev)
+    uh, sh = _rows(uh, n, num_bins, "unnormalized_heights", dev)
+    ud, sd = _rows(ud, n, num_bins - 1, "unnormalized_derivatives", dev)
+    out = torch.empty(shape, device=dev, dtype=inputs.dtype)
+    logdet = torch.empty(shape, device=dev, dtype=torch.float32)
     if n == 0:
         return out, logdet
-    # csrc/spline.cu refuses a bin count it has no instance for
+    consts = _constants(float(tail_bound), float(min_bin_width),
+                        float(min_bin_height), float(min_derivative))[1]
     _cuda.check(_cuda.fn("spline.cu", "dvt_spline")(
-        x.data_ptr(), x_dt, w_rows.data_ptr(), sw, h_rows.data_ptr(), sh,
-        d_rows.data_ptr(), sd, _cuda.dtype_flag(uw), out.data_ptr(),
-        logdet.data_ptr(), n, num_bins, int(inverse), float(tail_bound),
-        float(min_bin_width), float(min_bin_height), float(min_derivative),
-        _cuda.stream_ptr(x)), f"spline kernel with {num_bins} bins")
+        inputs.data_ptr(), sx, uw.data_ptr(), sw, uh.data_ptr(), sh,
+        ud.data_ptr(), sd, out.data_ptr(), logdet.data_ptr(), n, num_bins,
+        flags, consts, _cuda.stream_ptr(out)),
+        f"spline kernel with {num_bins} bins")
     unconstrained_rqs.launches += 1
     return out, logdet
 

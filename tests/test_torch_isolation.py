@@ -49,6 +49,14 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert bad == []
 
 
+def test_walk_covers_the_audio_modules():
+    """The vocoder and the audio front end are in the walk above."""
+    names = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    assert {"diff_vits_tpu_torch/models/vocoder.py",
+            "diff_vits_tpu_torch/ops/stft.py",
+            "diff_vits_tpu_torch/data/audio.py"} <= names
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
     from diff_vits_tpu_torch.models.diff_vits import synthesize

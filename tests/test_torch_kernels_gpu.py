@@ -34,7 +34,11 @@ bit-identical; bfloat16 only on rel_attention_mma_kernel and float32 only
 on the FMA kernel at every head dim (profiler names, route counters);
 refusals, a misaligned k among them. K7 (RQ spline): forward and inverse,
 inputs on the bin edges and at and beyond the tails, parameters as strided
-slices of one projection. The kernel and the plain version sum the bin
+slices of one projection, every bin instance (4, 8, 10, 16), N = 1 and
+N that fills no whole block, tied parameters and repeated inputs,
+ConvFlow's views taken without copies (and leading dims with no one
+stride copied), the profiler name ``spline_group_kernel``. The kernel and
+the plain version sum the bin
 fractions in another order and contract other products into FMAs, so
 their knots lie a few ulp apart, and the inverse's root moves by ulp /
 (bin width x knot derivative): with unscaled N(0, 1) parameters some
@@ -879,21 +883,15 @@ def _spline_case(dev, n, num_bins, tail_bound, inverse, dtype, seed):
     return x.to(dtype), uw.to(dtype), uh.to(dtype), ud.to(dtype), on_edge
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
-@pytest.mark.parametrize("n,num_bins,tail_bound", [
-    (4808, 10, 5.0), (37, 10, 1.0), (1, 8, 5.0), (1000, 4, 2.0)])
-def test_spline_kernel_matches_plain(dev, dtype, inverse, n, num_bins,
-                                     tail_bound):
-    x, uw, uh, ud, on_edge = _spline_case(dev, n, num_bins, tail_bound,
-                                          inverse, dtype, seed=n + num_bins)
+def _assert_spline_close(x, uw, uh, ud, on_edge, out, ld, inverse,
+                         tail_bound, dtype):
+    """The kernel's (out, ld) against the plain version: off the knots
+    directly (forward), and everywhere within the plain values over inputs
+    +-8 ulp of tail_bound away (backward error); identity outside."""
     kw = dict(inverse=inverse, tail_bound=tail_bound)
-    before = spline.unconstrained_rqs.launches
-    out, ld = spline.unconstrained_rqs(x, uw, uh, ud, **kw)
-    torch.cuda.synchronize()
-    assert spline.unconstrained_rqs.launches == before + 1
     ref, ref_ld = spline.unconstrained_rqs_plain(x, uw, uh, ud, **kw)
     assert out.dtype == x.dtype and ld.dtype == torch.float32
+    assert out.shape == x.shape and ld.shape == x.shape
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     off = ~on_edge
     if not inverse:
@@ -901,7 +899,6 @@ def test_spline_kernel_matches_plain(dev, dtype, inverse, n, num_bins,
                                    atol=tol, rtol=tol)
         torch.testing.assert_close(ld[off], ref_ld[off], atol=1e-4,
                                    rtol=1e-4)
-    # backward error: within the plain values over inputs +-8 ulp away
     tb = torch.tensor(tail_bound)
     eps = 8 * (torch.nextafter(tb, tb + 1) - tb).item()
     env = [spline.unconstrained_rqs_plain(x.float() + s, uw.float(),
@@ -914,9 +911,119 @@ def test_spline_kernel_matches_plain(dev, dtype, inverse, n, num_bins,
         assert bool(((got >= lo - t - t * lo.abs())
                      & (got <= hi + t + t * hi.abs())).all())
     outside = x.float().abs() > tail_bound
-    assert outside.any() or n < 16
     assert torch.equal(out[outside], x[outside])
     assert not ld[outside].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("n,num_bins,tail_bound", [
+    (4808, 10, 5.0), (37, 10, 1.0), (1, 8, 5.0), (1000, 4, 2.0),
+    (77, 16, 3.0), (300, 8, 5.0), (1, 16, 1.0), (4808, 16, 5.0),
+    (4805, 10, 5.0)])
+def test_spline_kernel_matches_plain(dev, dtype, inverse, n, num_bins,
+                                     tail_bound):
+    """Every bin instance, N = 1 and N that fills no whole block."""
+    x, uw, uh, ud, on_edge = _spline_case(dev, n, num_bins, tail_bound,
+                                          inverse, dtype, seed=n + num_bins)
+    kw = dict(inverse=inverse, tail_bound=tail_bound)
+    before = spline.unconstrained_rqs.launches
+    out, ld = spline.unconstrained_rqs(x, uw, uh, ud, **kw)
+    torch.cuda.synchronize()
+    assert spline.unconstrained_rqs.launches == before + 1
+    _assert_spline_close(x, uw, uh, ud, on_edge, out, ld, inverse,
+                         tail_bound, dtype)
+    outside = x.float().abs() > tail_bound
+    assert outside.any() or n < 16
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("num_bins", [4, 10, 16])
+def test_spline_kernel_tied_parameters_and_inputs(dev, dtype, inverse,
+                                                  num_bins):
+    """Tied bins (every unnormalised width, height and derivative equal:
+    uniform edges, equal knot derivatives) in half the rows, the inputs
+    repeated: each value on every edge, the tails, beyond them and between
+    edges, for rows of tied and of random parameters alike."""
+    tb = 3.0
+    edges = torch.linspace(-tb, tb, num_bins + 1, device=dev)
+    between = (edges[1:] + edges[:-1]) / 2
+    vals = torch.cat([edges, between, torch.tensor([-4 * tb, 1.5 * tb],
+                                                   device=dev)])
+    reps = 9
+    x = vals.repeat(reps)
+    n = x.numel()
+    gen = torch.Generator(device=dev).manual_seed(num_bins)
+    proj = torch.randn(n, 3 * num_bins - 1, generator=gen, device=dev)
+    proj[: n // 2] = 0.5
+    uw, uh = proj[:, :num_bins], proj[:, num_bins:2 * num_bins]
+    ud = proj[:, 2 * num_bins:]
+    on_edge = torch.zeros(n, dtype=torch.bool, device=dev)
+    on_edge[: n // 2] = torch.isin(x[: n // 2], edges)
+    x, uw, uh, ud = (t.to(dtype) for t in (x, uw, uh, ud))
+    out, ld = spline.unconstrained_rqs(x, uw, uh, ud, inverse=inverse,
+                                       tail_bound=tb)
+    torch.cuda.synchronize()
+    _assert_spline_close(x, uw, uh, ud, on_edge, out, ld, inverse, tb, dtype)
+    # a tied row maps each uniform edge onto itself
+    tied_edges = torch.isin(x[: n // 2].float(), edges)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out[: n // 2][tied_edges].float(),
+                               x[: n // 2][tied_edges].float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_spline_kernel_takes_convflow_views_without_copies(dev, dtype):
+    """The layout ConvFlow hands over (x a slice of [B, T, 2], widths and
+    heights [B, T, 1, nb] quotients, derivatives a strided slice of the
+    [B, T, 1, 3 nb - 1] projection) equals the same values made
+    contiguous, bit for bit; leading dims with no one stride (a permuted
+    batch) are copied first and give the same values too."""
+    b, t, nb = 3, 50, 10
+    gen = torch.Generator(device=dev).manual_seed(5)
+    z = (torch.randn(b, t, 2, generator=gen, device=dev) * 3).to(dtype)
+    h = torch.randn(b, t, 1, 3 * nb - 1, generator=gen, device=dev).to(dtype)
+    x1 = z[..., 1:]
+    uw, uh, ud = h[..., :nb] / 4.0, h[..., nb:2 * nb] / 4.0, h[..., 2 * nb:]
+    assert not x1.is_contiguous() and not ud.is_contiguous()
+    kw = dict(inverse=True, tail_bound=5.0)
+    out, ld = spline.unconstrained_rqs(x1, uw, uh, ud, **kw)
+    ref = spline.unconstrained_rqs(*(a.contiguous() for a in (x1, uw, uh,
+                                                              ud)), **kw)
+    assert out.shape == ld.shape == (b, t, 1)
+    assert torch.equal(out, ref[0]) and torch.equal(ld, ref[1])
+    perm = [a.transpose(0, 1) for a in (x1, uw, uh, ud)]
+    p_out, p_ld = spline.unconstrained_rqs(*perm, **kw)
+    assert torch.equal(p_out, out.transpose(0, 1))
+    assert torch.equal(p_ld, ld.transpose(0, 1))
+    plain = spline.unconstrained_rqs_plain(x1, uw, uh, ud, **kw)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), plain[0].float(), atol=tol,
+                               rtol=tol)
+
+
+def test_spline_kernel_runs_the_group_kernel(dev):
+    """Each launch is one spline_group_kernel<nb> (profiler name)."""
+    from torch.profiler import ProfilerActivity, profile
+    x, uw, uh, ud, _ = _spline_case(dev, 4808, 10, 5.0, True, torch.float32,
+                                    1)
+    spline.unconstrained_rqs(x, uw, uh, ud, inverse=True, tail_bound=5.0)
+    torch.cuda.synchronize()
+    # the profiler now and then records no device activity in a window
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                spline.unconstrained_rqs(x, uw, uh, ud, inverse=True,
+                                         tail_bound=5.0)
+            torch.cuda.synchronize()
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if "spline" in e.key}
+        if counts:
+            break
+    assert counts and all("spline_group_kernel<10>" in k for k in counts)
+    assert sum(counts.values()) == 3
 
 
 def test_spline_kernel_refuses_what_it_does_not_take(dev):
