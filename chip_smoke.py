@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py [--out DIR]
 
-``--out DIR`` also writes the kernel rows, the serving numbers, the
-training numbers (flash route off and on) and the variant's serving and
-training numbers as ``DIR/kernels.json``, ``DIR/path.json``,
-``DIR/train.json`` and ``DIR/variant.json``.
+``--out DIR`` also writes the kernel rows, the serving numbers (the
+command lines' and the samplers' under ``cli``), the training numbers
+(flash route off and on) and the variant's serving and training numbers
+as ``DIR/kernels.json``, ``DIR/path.json``, ``DIR/train.json`` and
+``DIR/variant.json``.
 
 Phases, each of which fails the run:
 
@@ -104,7 +105,25 @@ Phases, each of which fails the run:
    bf16 serving must show only the tensor-core GEMM (``gemm_mma_kernel``),
    no FMA mainloop, and only the tensor-core attention core
    (``attention_mma_kernel``);
-10. train (the training path): ``Trainer`` at ``reference_parity`` widths
+10. cli (serving from text and wav): random ``reference_parity`` weights
+   from seed 3 written as a port checkpoint, a seeded ~3 s 24 kHz prompt
+   wav and a manifest of 10 English rows (5 short, 5 long);
+   ``infer.tts_infer.main`` (one row, 30-step UniPC, bf16, the vocoder
+   phase's published-layout Vocos file) and ``infer.serve.main`` (batch
+   8, mel buckets 400 and 800, both used, the same vocoder) run in
+   process: every mel [n, 100] finite and every wav of (n - 1) x hop or
+   n x hop samples written; then DPM-Solver++ and DDIM (30 steps, b=8,
+   mel bucket 400) and DDPM (b=1, 1000 steps) on the same weights; every
+   run's counters exactly 22/16/16/16 per UNet call (the core 32; the UNet
+   calls counted by hooks, the duration predictor's included) and one K5
+   launch an encoder layer, all on the tensor-core K5 kernel, bf16 weights
+   (the tensor-core GEMM and attention routes), no ``attention_plain``
+   call, K6, K7 and K8 at 0; DPM-Solver++ and DDIM also in float32,
+   kernels against the plain route on the card with injected initial
+   noise and zero prior noise (max |mel difference| <= 5e-3), and their
+   latency and real-time factor at batch 1 and 8 (median of 3 warmed
+   runs); DDPM's one run timed;
+11. train (the training path): ``Trainer`` at ``reference_parity`` widths
    (EMA on, random weights from seed 0, bf16 autocast) takes 2 warm-up
    and 5 timed steps on batches of 32 shaped like the loader's (text 601,
    mel 400, prompts 267 cut by ``random_slice``): finite losses, every
@@ -119,12 +138,12 @@ Phases, each of which fails the run:
    the tensor-core kernels (the route counters each step, and in the
    profiled step the profiler's names: the three ``flash_*_mma_kernel``s
    and no FMA kernel);
-11. eval parity: ``Trainer.eval_fixed_t_loss`` (eval mode, float32, TF32
+12. eval parity: ``Trainer.eval_fixed_t_loss`` (eval mode, float32, TF32
    off) through the kernels and through the plain route on the card:
    every value within rel 1e-4, the MAS paths equal, the counters
    22/16/16/16 per UNet call, 6 K5 launches per TextEncoder call and 1 per
    MAS call;
-12. variant serving: the same ``BatchSynthesizer`` run for the VITS variant
+13. variant serving: the same ``BatchSynthesizer`` run for the VITS variant
    of ``reference_parity`` with the stochastic duration predictor and the
    residual-coupling spec flow (``duration_predictor="sdp"``,
    ``use_flow=True``; random weights from seed 0, bf16, batch 8, mel
@@ -137,9 +156,9 @@ Phases, each of which fails the run:
    injected duration and initial noise (equal frame counts, max |mel
    difference| <= 5e-3), and its latency at batch 1 and 8, real-time
    factor and peak memory;
-13. variant training: the variant trained by the same ``Trainer`` (B=32,
+14. variant training: the variant trained by the same ``Trainer`` (B=32,
    bf16, 2 warm-up and 3 timed steps) with the flash route off and on, with
-   the checks of phase 10 (no K5 or K7 launch: both are inference-only).
+   the checks of phase 11 (no K5 or K7 launch: both are inference-only).
 
 The launch counts in the kernel table are those of each kernel's own path:
 serving for K1-K4 and the attention core, training for K6, the variant's
@@ -893,6 +912,8 @@ def main(argv=None) -> int:
     details["vocoder"] = vocoder_numbers
     del vocoder
     phases.update(p_ok)
+    cli_ok, details["cli"] = cli_phase(torch, dev, card)
+    phases.update(cli_ok)
     phases["train"], train_counts, train_numbers, trainer, eval_batch = \
         train_phase(torch, dev, card)
     counts["maximum_path"] = train_counts["maximum_path"]
@@ -1161,10 +1182,12 @@ def _rel_mma_only(routes, launches, what):
     return good
 
 
-def serving_numbers(torch, syn, short, card, what="serving"):
+def serving_numbers(torch, syn, short, card, what="serving",
+                    sample_method="unipc"):
     """Per-request latency (median of 3 warmed runs) and real-time factor
-    of ``synthesize`` at batch 1 and 8 (text bucket 128, mel bucket 400),
-    and the peak device memory over them. With ``syn.vocoder``, each run
+    of ``synthesize`` (``sample_method``, ``syn.steps`` steps) at batch 1
+    and 8 (text bucket 128, mel bucket 400), and the peak device memory
+    over them. With ``syn.vocoder``, each run
     also decodes its mel (float32, the whole batch, as BatchSynthesizer
     does), timed apart on the host clock: the decode's wall time (the
     counterpart of the JAX bench's vocoder_overhead_s) and the real-time
@@ -1182,6 +1205,8 @@ def serving_numbers(torch, syn, short, card, what="serving"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             mel, _ = synthesize(syn.model, *args, generator=gen, max_len=400,
+                                sampling_steps=syn.steps,
+                                sample_method=sample_method,
                                 device=syn.device)
             torch.cuda.synchronize()
             runs.append(time.perf_counter() - t0)
@@ -1793,6 +1818,307 @@ def eval_phase(torch, trainer, batch):
         f"(want {want[True]}), plain route {counts[False]}: "
         f"{'ok' if ok else 'FAIL'}")
     return ok, dict(kernel=res[True], plain=res[False], max_rel=rel)
+
+
+# -- cli: serving from text and wav through the command lines ---------------
+
+CLI_TEXTS = [
+    # five short rows (text bucket 64 / 128, mel bucket 400) ...
+    "Hello world.",
+    "The quick brown fox jumps over the lazy dog.",
+    "Please call Stella, and ask her to bring these things.",
+    "It was a bright cold day in April.",
+    "Six spoons of fresh snow peas, five thick slabs of blue cheese.",
+    # ... and five long ones (text bucket 601, mel bucket 800)
+    "We also need a small plastic snake and a big toy frog for the kids, "
+    "and she can scoop these things into three red bags, and we will go "
+    "meet her on Wednesday at the train station near the old market "
+    "square.",
+    "When the sunlight strikes raindrops in the air, they act as a prism "
+    "and form a rainbow; the rainbow is a division of white light into "
+    "many beautiful colors, which take the shape of a long round arch with "
+    "its path high above.",
+    "There is, according to legend, a boiling pot of gold at one end of "
+    "the rainbow, and people look but no one ever finds it, so when a man "
+    "looks for something beyond his reach, his friends say he is looking "
+    "for the pot of gold.",
+    "Throughout the centuries people have explained the rainbow in various "
+    "ways; some have accepted it as a miracle without physical "
+    "explanation, while to the Hebrews it was a token that there would be "
+    "no more universal floods.",
+    "The Greeks used to imagine that it was a sign from the gods to "
+    "foretell war or heavy rain, and the Norsemen considered the rainbow "
+    "as a bridge over which the gods passed from earth to their home in "
+    "the sky.",
+]
+CLI_STEPS = 30
+DDPM_CALLS = 1000       # cfg.train.timesteps denoiser calls
+
+
+def _write_prompt_wav(np, path, seconds=3.0, sr=24000, seed=8):
+    """A seeded ~3 s 24 kHz int16 prompt: a gliding tone with harmonics
+    under noise."""
+    from diff_vits_tpu_torch.data import audio
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 140.0 + 40.0 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    wav = sum(0.25 / k * np.sin(k * phase) for k in range(1, 6))
+    wav = wav + 0.02 * rng.normal(size=t.shape)
+    audio.write_wav(str(path), wav.astype(np.float32), sr)
+    return str(path)
+
+
+class _CountNewModels:
+    """Within the block, every ``DiffVits`` built gets the path-call hooks
+    of :func:`_count_path_calls` (the CLIs build their model inside
+    ``main``); :meth:`calls` sums them over the models."""
+
+    def __init__(self):
+        from diff_vits_tpu_torch.models import diff_vits as DV
+        self.cls, self.made, self.handles, self.models = DV.DiffVits, [], [], []
+
+    def __enter__(self):
+        orig = self.orig = self.cls.__init__
+
+        def init(model, *a, **kw):
+            orig(model, *a, **kw)
+            calls, handles = _count_path_calls(model)
+            self.made.append(calls)
+            self.handles += handles
+            self.models.append(model)
+        self.cls.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__ = self.orig
+        for h in self.handles:
+            h.remove()
+
+    def calls(self):
+        return {k: [sum(c[k][0] for c in self.made)]
+                for k in ("unet", "encoder_layers", "sdp_reverse")}
+
+
+def _counted(torch, fn):
+    """(``fn()``, launch counts, K5 route counts, attention_plain calls)
+    with every counter zeroed just before."""
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.ops import fused_transformer as FT
+    from diff_vits_tpu_torch.ops import rel_attention as RA
+    plain_calls = [0]
+    orig_plain = FT.attention_plain
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return orig_plain(*a, **kw)
+    FT.attention_plain = counted_plain
+    try:
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, ops.launch_counts(), RA.route_counts(), plain_calls[0]
+    finally:
+        FT.attention_plain = orig_plain
+
+
+def _cli_counts_ok(torch, what, calls, counts, routes, plain, models=()):
+    """The counters of a run against its counted calls: exactly 22/16/16/16
+    a UNet call (the core 32), one K5 launch an encoder layer, all on the
+    tensor-core K5 kernel, K6, K7 and K8 at 0, no call of the core's plain
+    version, every floating parameter of ``models`` in bfloat16 (the
+    tensor-core GEMM and attention routes)."""
+    want = _want(calls)
+    bf16 = all(p.dtype == torch.bfloat16 for m in models
+               for p in m.parameters() if p.is_floating_point())
+    good = counts == want and plain == 0 and bf16 and calls["unet"][0] > 0
+    log(f"{what}: UNet calls {calls['unet'][0]}, encoder layers "
+        f"{calls['encoder_layers'][0]}; launches {counts} (want {want}); "
+        f"attention_plain calls {plain} (want 0); bf16 weights {bf16}")
+    return _rel_mma_only(routes, counts["fused_rel_self_attention"],
+                         what) and good
+
+
+def cli_phase(torch, dev, card):
+    """Serving from text and wav through the port's command lines at
+    ``reference_parity`` widths (random weights from seed 3 written as a
+    port checkpoint; the vocoder phase's published-layout Vocos file),
+    then the samplers other than UniPC. Returns ({phase: ok}, numbers)."""
+    import tempfile
+    import numpy as np
+    from diff_vits_tpu_torch.core.config import load_config
+    from diff_vits_tpu_torch.data import audio
+    from diff_vits_tpu_torch.infer import serve, tts_infer
+    from diff_vits_tpu_torch.models.diff_vits import DiffVits, synthesize
+    from diff_vits_tpu_torch.nn.unet1d import set_use_fused
+    from diff_vits_tpu_torch.text.symbols import symbols
+    from diff_vits_tpu_torch.train.checkpoint import (
+        load_model_state_dict, save_checkpoint)
+    from diff_vits_tpu_torch.utils.init import init_random
+
+    ok, numbers = {}, dict(card=card)
+    cfg_path = str(ROOT / "configs" / "reference_parity.json")
+    cfg = load_config(cfg_path)
+    hop = cfg.data.hop_length
+    voc_path = str(ROOT / "build" / "vocos_published_layout.bin")
+    tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    d = Path(tmp.name)
+    model = DiffVits(cfg, len(symbols), device="cpu")
+    init_random(model, torch.Generator().manual_seed(3))
+    ckpt = save_checkpoint(str(d / "run"), 0, {"model": model.state_dict()})
+    del model
+    wav_path = _write_prompt_wav(np, d / "prompt.wav")
+    rows = [(f"utt{i:02d}", t) for i, t in enumerate(CLI_TEXTS)]
+    manifest = d / "utts.tsv"
+    manifest.write_text("".join(f"{u}\t{t}\tEN\t{wav_path}\n"
+                                for u, t in rows), encoding="utf-8")
+    common = ["-c", cfg_path, "-m", ckpt, "--steps", str(CLI_STEPS),
+              "--dtype", "bfloat16"]
+
+    # -- tts_infer: one utterance, b=1, no mel bucket --------------------
+    text = CLI_TEXTS[2]
+    with _CountNewModels() as made:
+        t0 = time.perf_counter()
+        _, counts, routes, plain = _counted(torch, lambda: tts_infer.main(
+            ["--text", text, "--lang", "EN", "--refer", wav_path,
+             "--vocoder", "jax", "--vocoder_ckpt", voc_path, "--out_dir",
+             str(d / "tts"), *common]))
+        wall = time.perf_counter() - t0
+    counted = _cli_counts_ok(torch, "cli tts_infer", made.calls(), counts,
+                             routes, plain, made.models)
+    base = d / "tts" / "tts_prompt.wav"
+    mel_file, wav_file = Path(f"{base}.mel.npy"), Path(f"{base}.wav")
+    good = mel_file.exists() and wav_file.exists()
+    n = n_wav = -1
+    if good:
+        mel = np.load(mel_file)
+        wav, sr = audio.read_wav(str(wav_file))
+        n, n_wav = mel.shape[0], len(wav)
+        good = (mel.ndim == 2 and mel.shape[1] == 100 and n >= 1
+                and bool(np.isfinite(mel).all()) and sr == 24000
+                and n_wav in ((n - 1) * hop, n * hop))
+    ok["cli_tts_infer"] = good and counted
+    numbers["tts_infer"] = dict(wall_s=wall, frames=n, wav_samples=n_wav,
+                                unet_calls=made.calls()["unet"][0],
+                                launches=counts)
+    log(f"cli tts_infer (EN, {CLI_STEPS}-step unipc, bf16, vocoder from "
+        f"{Path(voc_path).name}): {wall:.2f} s wall (model built and loaded "
+        f"from the checkpoint, kernels warm); mel [{n}, 100], wav {n_wav} "
+        f"samples (want {(n - 1) * hop} or {n * hop}); files {good}; card "
+        f"{card}")
+
+    # -- serve: the manifest, batch 8, mel buckets 400 and 800 -----------
+    with _CountNewModels() as made:
+        t0 = time.perf_counter()
+        _, counts, routes, plain = _counted(torch, lambda: serve.main(
+            ["--manifest", str(manifest), "--batch_size", "8",
+             "--mel_buckets", "400,800", "--vocoder_ckpt", voc_path,
+             "--out_dir", str(d / "serve"), *common]))
+        wall = time.perf_counter() - t0
+    counted = _cli_counts_ok(torch, "cli serve", made.calls(), counts,
+                             routes, plain, made.models)
+    frames, samples, good = [], [], True
+    for utt, _ in rows:
+        m, w = d / "serve" / f"{utt}.mel.npy", d / "serve" / f"{utt}.wav"
+        if not (m.exists() and w.exists()):
+            good = False
+            continue
+        mel = np.load(m)
+        wav, _ = audio.read_wav(str(w))
+        frames.append(mel.shape[0])
+        samples.append(len(wav))
+        nf = mel.shape[0]
+        want = {nf * hop} | ({(nf - 1) * hop} if nf in (400, 800) else set())
+        good = good and (mel.shape[1] == 100 and bool(np.isfinite(mel).all())
+                         and len(wav) in want)
+    buckets = {400 if f <= 400 else 800 for f in frames}
+    ok["cli_serve"] = (good and counted and len(frames) == len(rows)
+                       and buckets == {400, 800})
+    numbers["serve"] = dict(wall_s=wall, frames=frames, wav_samples=samples,
+                            unet_calls=made.calls()["unet"][0],
+                            launches=counts)
+    log(f"cli serve ({len(rows)} EN rows, one prompt wav, batch 8, mel "
+        f"buckets 400/800, bf16, vocoder): {wall:.2f} s wall (model built "
+        f"and loaded, the prompt read once); frames {frames}, wav samples "
+        f"{samples}; every row's mel and wav: {good}; buckets used "
+        f"{sorted(buckets)}; card {card}")
+
+    # -- the other samplers on the same weights --------------------------
+    state = load_model_state_dict(ckpt, cfg)
+    syn = serve.BatchSynthesizer(cfg, state, batch_size=8, steps=CLI_STEPS,
+                                 mel_buckets=(400, 800),
+                                 dtype=torch.bfloat16, device=dev)
+    reqs = syn._tokenise([dict(utt_id=u, text=t, lang="EN", refer=wav_path)
+                          for u, t in rows])
+    short = [r for r in reqs if len(r[1]) <= 128]
+    model32 = DiffVits(cfg, len(symbols), device=dev)
+    model32.load_state_dict(state, strict=True)
+    del state
+    syn.batch_size = 8
+    batch8 = syn.pad_batch([short[i % len(short)] for i in range(8)], 128)
+    noise = torch.randn(8, 400, 100,
+                        generator=torch.Generator().manual_seed(9)).to(dev)
+    for method in ("dpmsolver", "ddim"):
+        calls, handles = _count_path_calls(syn.model)
+        (mel, lens), counts, routes, plain = _counted(torch, lambda: synthesize(
+            syn.model, *batch8, generator=torch.Generator().manual_seed(10),
+            sampling_steps=CLI_STEPS, sample_method=method, max_len=400,
+            device=dev))
+        for h in handles:
+            h.remove()
+        counted = _cli_counts_ok(torch, f"{method} b=8", calls, counts,
+                                 routes, plain, [syn.model])
+        finite = bool(torch.isfinite(mel).all())
+        out = {}
+        for route in (True, False):
+            set_use_fused(model32, route)
+            out[route] = synthesize(model32, *batch8, noise_scale=0.0,
+                                    sampling_steps=CLI_STEPS,
+                                    sample_method=method, max_len=400,
+                                    init_noise=noise, device=dev)
+        set_use_fused(model32, True)
+        (mel_k, len_k), (mel_p, len_p) = out[True], out[False]
+        err = (mel_k - mel_p).abs().max().item()
+        parity = bool(torch.equal(len_k, len_p)) and err <= 5e-3
+        log(f"{method} parity fp32 (kernels vs plain, b=8, 400 frames, "
+            f"{CLI_STEPS} steps, injected noise): frames {len_k.tolist()} vs "
+            f"{len_p.tolist()}, max |diff| {err:.3e} (gate 5e-3), max |mel| "
+            f"{mel_p.abs().max().item():.3f}")
+        timing = serving_numbers(torch, syn, short, card, what=method,
+                                 sample_method=method)
+        ok[f"cli_{method}"] = counted and finite and parity
+        numbers[method] = dict(unet_calls=calls["unet"][0], launches=counts,
+                               parity_max_abs=err, **timing)
+    del model32
+
+    # -- ddpm: b=1, mel bucket 400, cfg.train.timesteps UNet calls --------
+    syn.batch_size = 1
+    batch1 = syn.pad_batch(short[:1], 128)
+    calls, handles = _count_path_calls(syn.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (mel, _), counts, routes, plain = _counted(torch, lambda: synthesize(
+        syn.model, *batch1, generator=torch.Generator().manual_seed(11),
+        sample_method="ddpm", max_len=400, device=dev))
+    wall = time.perf_counter() - t0
+    for h in handles:
+        h.remove()
+    counted = _cli_counts_ok(torch, "ddpm b=1", calls, counts, routes, plain,
+                             [syn.model])
+    audio_s = 400 * hop / cfg.data.sampling_rate
+    # the denoiser's DDPM_CALLS and the duration predictor's one
+    ok["cli_ddpm"] = (counted and calls["unet"][0] == DDPM_CALLS + 1
+                      and bool(torch.isfinite(mel).all()))
+    numbers["ddpm"] = dict(unet_calls=calls["unet"][0], launches=counts,
+                           latency_s=wall, rtf=audio_s / wall)
+    log(f"ddpm b=1 (mel bucket 400, bf16): {calls['unet'][0]} UNet calls "
+        f"(want {DDPM_CALLS} denoiser + 1 duration predictor), {wall:.2f} s "
+        f"({wall / calls['unet'][0] * 1e3:.1f} ms a call, one run), "
+        f"real-time factor {audio_s / wall:.3f}x; card {card}")
+    del syn
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return ok, numbers
 
 
 # -- the VITS variant: stochastic duration predictor + residual spec flow --

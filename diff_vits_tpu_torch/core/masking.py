@@ -1,9 +1,12 @@
 """Mask and alignment-path utilities, channel-last [B, T, C].
 
 Port of ``diff_vits_tpu/core/masking.py:18-85``: the masks and paths of
-inference and the KL terms of the training loss.
+inference and the KL terms of the training loss, and ``intersperse`` of
+the text frontend.
 """
 from __future__ import annotations
+
+from typing import List, Sequence, TypeVar
 
 import torch
 import torch.nn.functional as F
@@ -47,3 +50,13 @@ def kl_loss(z_p, logs_q, m_p, logs_p, z_mask):
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * (z_p - m_p) ** 2 * torch.exp(-2.0 * logs_p)
     return torch.sum(kl * z_mask) / torch.sum(z_mask)
+
+
+T = TypeVar("T")
+
+
+def intersperse(lst: Sequence[T], item: T) -> List[T]:
+    """Insert ``item`` between (and around) every element."""
+    result = [item] * (len(lst) * 2 + 1)
+    result[1::2] = list(lst)
+    return result

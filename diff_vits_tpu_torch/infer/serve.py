@@ -1,6 +1,10 @@
-"""Batched serving: tokenised requests -> bucketed batches -> mel.
+"""Batched serving: manifest rows or tokenised requests -> bucketed
+batches -> mel (-> wav).
 
-Port of ``BatchSynthesizer`` of ``diff_vits_tpu/infer/serve.py`` on
+Port of ``BatchSynthesizer``, ``read_manifest`` and the CLI of
+``diff_vits_tpu/infer/serve.py``. ``synthesize_all`` takes manifest rows
+``{utt_id, text, lang, refer}`` (the text through the frontend, each
+prompt wav read once and its mel reused by every row that names it) or
 already-tokenised requests ``(utt_id, phone ids, tone ids, language ids,
 refer mel [S, 100])``:
 
@@ -19,13 +23,21 @@ refer mel [S, 100])``:
   waveform trimmed to its frame count times the hop.
 
 Weights are held in bfloat16 by default, as the JAX server casts them;
-the vocoder stays in float32, as the JAX server keeps it. The text
-frontend, reading prompts from wav files and the command line are the
-next slice.
+the vocoder stays in float32, as the JAX server keeps it.
+
+Manifest: one utterance per line, tab-separated:
+    utt_id <TAB> text <TAB> language(ZH|EN|JA) <TAB> refer_wav_path
+
+Usage:
+  python -m diff_vits_tpu_torch.infer.serve --manifest utts.tsv \
+      -c config.json -m logs/tts/<run>/model-<step>.ckpt --batch_size 8 \
+      [--mel_buckets 400,800,1600] [--vocoder_ckpt vocos.bin]
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import argparse
+import os
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,11 +45,36 @@ from torch import nn
 
 from diff_vits_tpu_torch.core.config import Config
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
-from diff_vits_tpu_torch.models.diff_vits import DiffVits, synthesize
+from diff_vits_tpu_torch.data import audio as audio_lib
+from diff_vits_tpu_torch.infer.tts_infer import (
+    DTYPES, load_cli_config, load_refer_mel, preprocess_text)
+from diff_vits_tpu_torch.models.diff_vits import (
+    SAMPLE_METHODS, DiffVits, synthesize)
+from diff_vits_tpu_torch.models.vocoder import load_vocoder
 from diff_vits_tpu_torch.text.symbols import symbols
+from diff_vits_tpu_torch.train.checkpoint import load_model_state_dict
 
 # (utt_id, phone ids [T], tone ids [T], language ids [T], refer mel [S, 100])
 Request = Tuple[str, np.ndarray, np.ndarray, np.ndarray, np.ndarray]
+# {"utt_id", "text", "lang", "refer"}: a line of the manifest
+Row = Mapping[str, str]
+
+
+def read_manifest(path: str) -> List[Dict[str, str]]:
+    """The rows of a tab-separated manifest (blank and # lines skipped)."""
+    rows = []
+    with open(path, encoding="utf-8") as f:
+        for ln, line in enumerate(f, 1):
+            line = line.rstrip("\n")
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split("\t")
+            if len(parts) != 4:
+                raise ValueError(
+                    f"{path}:{ln}: expected 4 tab-separated fields "
+                    f"(id, text, lang, refer), got {len(parts)}")
+            rows.append(dict(zip(("utt_id", "text", "lang", "refer"), parts)))
+    return rows
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -148,10 +185,39 @@ class BatchSynthesizer:
                     assign[i] = pick_bucket(min(n, top), self.mel_buckets)
         return assign
 
-    def synthesize_all(self, requests: Sequence[Request], *, seed: int = 0
-                       ) -> List[Tuple]:
+    def _prep_text(self, text: str, lang: str):
+        """Phone, tone and language ids [T] of one text."""
+        phone, tone, language = preprocess_text(text, lang,
+                                                self.cfg.data.add_blank)
+        return phone[0], tone[0], language[0]
+
+    def _prep_refer(self, path: str) -> np.ndarray:
+        """The prompt mel [S, n_mels] of one wav (``pad_batch`` cuts or
+        pads it to ``refer_frames``)."""
+        return load_refer_mel(path, self.cfg)[0]
+
+    def _tokenise(self, rows: Sequence[Union[Row, Request]]
+                  ) -> List[Request]:
+        """Manifest rows as requests (each wav read once); requests as
+        they are."""
+        mels: Dict[str, np.ndarray] = {}
+        out = []
+        for r in rows:
+            if not isinstance(r, Mapping):
+                out.append(r)
+                continue
+            if r["refer"] not in mels:
+                mels[r["refer"]] = self._prep_refer(r["refer"])
+            out.append((r["utt_id"], *self._prep_text(r["text"], r["lang"]),
+                        mels[r["refer"]]))
+        return out
+
+    def synthesize_all(self, requests: Sequence[Union[Row, Request]], *,
+                       seed: int = 0) -> List[Tuple]:
         """[(utt_id, mel [T, n_mels] float32)] in request order, or
-        [(utt_id, mel, wav [T * hop] float32)] with a vocoder."""
+        [(utt_id, mel, wav [T * hop] float32)] with a vocoder. A request
+        is a manifest row or a tokenised ``Request``."""
+        requests = self._tokenise(requests)
         by_text: Dict[int, list] = {}
         for i, r in enumerate(requests):
             by_text.setdefault(pick_bucket(len(r[1]), self.text_buckets),
@@ -190,3 +256,72 @@ class BatchSynthesizer:
                     out[i] = (r[0], mel[j, :n]) if wav is None else (
                         r[0], mel[j, :n], wav[j, :min(n * hop, wav.shape[1])])
         return [o for o in out if o is not None]
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--manifest", type=str, required=True)
+    p.add_argument("-c", "--config_path", type=str, default="config.json")
+    p.add_argument("-m", "--model_path", type=str, required=True)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--sample_method", type=str, default="unipc",
+                   choices=SAMPLE_METHODS)
+    p.add_argument("--noise_scale", type=float, default=0.667)
+    p.add_argument("--length_scale", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out_dir", type=str, default="output")
+    p.add_argument("--text_buckets", type=str, default=None,
+                   help="comma-separated, e.g. 64,128,256")
+    p.add_argument("--mel_buckets", type=str, default=None,
+                   help="comma-separated mel-frame buckets, e.g. "
+                        "400,800,1600 (default: max_mel_len x {1,2,4}); "
+                        "long utterances pick a bigger bucket from a cheap "
+                        "duration pass instead of truncating")
+    p.add_argument("--vocoder_ckpt", type=str, default=None,
+                   help="Vocos weights (a torch .bin/.pt in the published "
+                        "layout, or the JAX package's .ckpt); enables .wav "
+                        "output")
+    p.add_argument("--dtype", type=str, default="bfloat16",
+                   choices=list(DTYPES),
+                   help="serving precision (bfloat16 weights; float32 for "
+                        "parity runs)")
+    p.add_argument("--dp", action="store_true",
+                   help="shard each bucket batch over all local devices "
+                        "(not ported: refused)")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: the CUDA card)")
+    args = p.parse_args(argv)
+    if args.dp:
+        raise ValueError("--dp (data-parallel serving over several devices) "
+                         "is not ported yet (ROADMAP Queue 1, item 7)")
+
+    device = resolve_device(args.device)
+    cfg = load_cli_config(args.config_path)
+
+    def ints(text):
+        return tuple(int(x) for x in text.split(",")) if text else None
+    vocoder = load_vocoder(cfg, args.vocoder_ckpt, device=device) \
+        if args.vocoder_ckpt else None
+    syn = BatchSynthesizer(
+        cfg, load_model_state_dict(args.model_path, cfg),
+        batch_size=args.batch_size, steps=args.steps,
+        sample_method=args.sample_method, noise_scale=args.noise_scale,
+        length_scale=args.length_scale, text_buckets=ints(args.text_buckets),
+        mel_buckets=ints(args.mel_buckets), vocoder=vocoder,
+        dtype=DTYPES[args.dtype], device=device)
+    rows = read_manifest(args.manifest)
+    os.makedirs(args.out_dir, exist_ok=True)
+    for row in syn.synthesize_all(rows, seed=args.seed):
+        utt_id, mel = row[0], row[1]
+        path = os.path.join(args.out_dir, f"{utt_id}.mel.npy")
+        np.save(path, mel)
+        print(f"{utt_id}: {mel.shape} -> {path}", flush=True)
+        if len(row) > 2:
+            wpath = os.path.join(args.out_dir, f"{utt_id}.wav")
+            audio_lib.write_wav(wpath, row[2], cfg.data.sampling_rate)
+            print(f"{utt_id}: wav -> {wpath}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -6,10 +6,12 @@ Port of ``DiffVits`` and ``synthesize`` of
 diff_vits.py:88-151): the VITS forward gives content and the duration and
 KL losses; the target mel is noised to a random step and the UNet predicts
 it back (x0 objective, SNR-weighted); loss = 40 diff + len + kl + kl_ph.
-Inference: text + prompt mel -> content (VITS.infer) -> 30-step UniPC over
-the UNet denoiser -> mel. The prompt is encoded once, and every step's time
-+ text embedding is computed in one batched call before the loop
-(``emb_all``, diff_vits.py:197-222).
+Inference: text + prompt mel -> content (VITS.infer) -> a sampler over the
+UNet denoiser (30-step UniPC by default; DPM-Solver++, DDIM and DDPM as in
+diff_vits.py:224-236) -> mel. The prompt is encoded once; for UniPC and
+DPM-Solver++ every step's time + text embedding is computed in one batched
+call before the loop (``emb_all``, diff_vits.py:197-222), while DDIM and
+DDPM call the UNet on integer steps, which it embeds itself each call.
 """
 from __future__ import annotations
 
@@ -22,13 +24,16 @@ from torch import nn
 from diff_vits_tpu_torch.core import masking
 from diff_vits_tpu_torch.core.config import Config
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
-from diff_vits_tpu_torch.diffusion.dpm_solver import time_steps_uniform
+from diff_vits_tpu_torch.diffusion.dpm_solver import (
+    sample_dpmpp, time_steps_uniform)
 from diff_vits_tpu_torch.diffusion.noise_schedule import NoiseScheduleVP
 from diff_vits_tpu_torch.diffusion.schedule import (
     GaussianDiffusion, linear_beta_schedule)
 from diff_vits_tpu_torch.diffusion.uni_pc import sample_unipc
 from diff_vits_tpu_torch.models.diffusion_encoder import DiffusionEncoder
 from diff_vits_tpu_torch.models.vits import VITS
+
+SAMPLE_METHODS = ("unipc", "dpmsolver", "ddim", "ddpm")
 
 
 class DiffVits(nn.Module):
@@ -129,17 +134,17 @@ def synthesize(model: DiffVits, text, text_lengths, refer, refer_lengths,
                device: DeviceLike = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """text [B, Tx] + prompt mel [B, S, 100] -> (mel [B, Ty, 100] float32,
-    out_lengths [B]). ``init_noise`` injects x_T and ``dur_noise`` [B, Tx,
-    2] the stochastic duration predictor's standard normal draw;
-    ``generator`` draws the duration, prior and initial noise otherwise.
-    Runs on ``device`` (the card unless given), which must hold the model,
-    in eval mode whatever the model's mode (no dropout, the kernel routes),
-    as JAX samples deterministically; the model's mode is restored
-    after."""
+    out_lengths [B]). ``sample_method`` is one of SAMPLE_METHODS (``ddpm``
+    takes ``cfg.train.timesteps`` steps whatever ``sampling_steps``).
+    ``init_noise`` injects x_T and ``dur_noise`` [B, Tx, 2] the stochastic
+    duration predictor's standard normal draw; ``generator`` draws the
+    duration, prior, initial and DDPM step noise otherwise. Runs on
+    ``device`` (the card unless given), which must hold the model, in eval
+    mode whatever the model's mode (no dropout, the kernel routes), as JAX
+    samples deterministically; the model's mode is restored after."""
+    if sample_method not in SAMPLE_METHODS:
+        raise ValueError(f"unknown sample_method {sample_method}")
     with eval_mode(model):
-        if sample_method != "unipc":
-            raise NotImplementedError(
-                f"sample_method {sample_method!r} is not ported (unipc only)")
         device = resolve_device(device)
         if _model_device(model).type != device.type:
             raise ValueError(f"model is on {_model_device(model)}, "
@@ -168,6 +173,16 @@ def synthesize(model: DiffVits, text, text_lengths, refer, refer_lengths,
 
         dm = model.diff_model
         prompt_h, prompt_keep = dm.encode_prompt(refer, refer_lengths)
+        if sample_method in ("ddim", "ddpm"):
+            def x0_step(x, t):
+                return dm.denoise(x, t, content, prompt_h, prompt_keep)
+            gd = model.diffusion(x.device)
+            if sample_method == "ddim":
+                return gd.ddim_sample(x0_step, x, sampling_steps,
+                                      generator=generator), out_lengths
+            return gd.p_sample_loop(x0_step, x,
+                                    generator=generator), out_lengths
+
         td_grid = time_steps_uniform(ns, sampling_steps) * ns.total_N - 1.0
         time_embs = dm.embed_time(dev(td_grid))
         aug = dm.embed_text(prompt_h)
@@ -177,5 +192,5 @@ def synthesize(model: DiffVits, text, text_lengths, refer, refer_lengths,
             return dm.denoise(x, t_discrete, content, prompt_h, prompt_keep,
                               emb=emb_all[step_index])
 
-        mel = sample_unipc(x0_fn, ns, x, steps=sampling_steps)
-        return mel, out_lengths
+        sample = sample_unipc if sample_method == "unipc" else sample_dpmpp
+        return sample(x0_fn, ns, x, steps=sampling_steps), out_lengths

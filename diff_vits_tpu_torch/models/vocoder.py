@@ -23,6 +23,8 @@ from torch import nn
 
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
 from diff_vits_tpu_torch.ops.stft import hann_window
+from diff_vits_tpu_torch.train.checkpoint import load_checkpoint
+from diff_vits_tpu_torch.utils.convert import convert_tree
 from diff_vits_tpu_torch.utils.init import init_random
 
 
@@ -126,20 +128,25 @@ def load_vocoder(cfg, ckpt_path: Optional[str] = None, *,
 
     ``ckpt_path`` is a torch state dict in the published layout
     (``.bin``, ``.pt`` or ``.pth``, e.g. charactr/vocos-mel-24khz's
-    pytorch_model.bin), renamed by :func:`convert_torch_vocos`. With no
-    path the weights are random, from ``generator`` (a CPU generator;
-    seed 0 without one): the audio is noise, for pipeline runs only."""
+    pytorch_model.bin), renamed by :func:`convert_torch_vocos`, or, as in
+    the JAX package, any other file is a checkpoint of
+    ``train.checkpoint.load_checkpoint`` (the JAX package's msgpack
+    ``.ckpt``) whose state is the flax parameters, or holds them under
+    ``"params"``, carried over by ``convert_tree``. With no path the
+    weights are random, from ``generator`` (a CPU generator; seed 0
+    without one): the audio is noise, for pipeline runs only."""
     device = resolve_device(device)
     voc = Vocos(n_mels=cfg.data.n_mel_channels, n_fft=cfg.data.window_size,
                 hop_length=cfg.data.hop_length, device="cpu")
     if ckpt_path:
-        if not str(ckpt_path).endswith((".bin", ".pt", ".pth")):
-            raise ValueError(
-                f"{ckpt_path}: the port loads a torch state dict (.bin, .pt, "
-                f".pth); converting the JAX package's msgpack checkpoints "
-                f"is ROADMAP Queue 1 item 5")
-        state = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-        voc.load_state_dict(convert_torch_vocos(state), strict=True)
+        if str(ckpt_path).endswith((".bin", ".pt", ".pth")):
+            state = torch.load(ckpt_path, map_location="cpu",
+                               weights_only=True)
+            voc.load_state_dict(convert_torch_vocos(state), strict=True)
+        else:
+            _, saved = load_checkpoint(ckpt_path)
+            voc.load_state_dict(convert_tree(saved.get("params", saved)),
+                                strict=True)
     else:
         init_random(voc, generator or torch.Generator().manual_seed(0))
     return voc.to(device).eval()

@@ -3,8 +3,12 @@
 Port of ``diff_vits_tpu/train/checkpoint.py:40-83``: ``<dir>/model-<step>.ckpt``
 holds the step and the trainer's state (model, optimizer, EMA, random
 streams), written with ``torch.save`` to a temporary name and renamed, so
-a cut write leaves no half file under the final name. Conversion to and
-from the JAX package's msgpack checkpoints is not ported yet.
+a cut write leaves no half file under the final name.
+
+``load_checkpoint`` also reads the JAX package's flax msgpack checkpoints
+(``utils/msgpack_ckpt``, no flax needed), telling the formats apart by
+their first bytes; ``load_model_state_dict`` takes the port ``DiffVits``
+state dict out of either. Writing the JAX format is not ported.
 """
 from __future__ import annotations
 
@@ -13,6 +17,9 @@ import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from diff_vits_tpu_torch.utils import msgpack_ckpt
+from diff_vits_tpu_torch.utils.convert import from_flax_params
 
 _NAME = re.compile(r"model-(\d+)\.ckpt")
 
@@ -31,9 +38,33 @@ def save_checkpoint(path_dir: str, step: int, state: Dict[str, Any],
 
 
 def load_checkpoint(path: str, map_location=None) -> Tuple[int, Dict[str, Any]]:
-    """(step, state) of a checkpoint this module wrote."""
-    data = torch.load(path, map_location=map_location, weights_only=True)
-    return int(data["step"]), data["state"]
+    """(step, state) of a checkpoint this module wrote (a ``torch.save``
+    zip) or of one the JAX package wrote (a flax msgpack map; its state is
+    the saved tree, numpy leaves and ``torch.bfloat16`` tensors, on the
+    CPU). Any other file is refused."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == b"PK\x03\x04":
+        data = torch.load(path, map_location=map_location, weights_only=True)
+        return int(data["step"]), data["state"]
+    if msgpack_ckpt.is_msgpack_map(head):
+        return msgpack_ckpt.read_flax_checkpoint(path)
+    raise ValueError(f"{path}: neither a torch.save checkpoint nor a flax "
+                     f"msgpack one (starts with {head!r})")
+
+
+def load_model_state_dict(path: str, cfg) -> Dict[str, torch.Tensor]:
+    """The port ``DiffVits`` state dict of a checkpoint at ``path``: the
+    port's own (``state["model"]``) or a JAX trainer state's flax
+    parameters (``state["params"]``, through ``from_flax_params``), on the
+    CPU."""
+    _, state = load_checkpoint(path, map_location="cpu")
+    if "model" in state:
+        return state["model"]
+    if "params" in state:
+        return from_flax_params(state["params"], cfg)
+    raise ValueError(f"{path}: the checkpoint holds neither 'model' (the "
+                     "port's) nor 'params' (the JAX package's)")
 
 
 def _list_ckpts(path_dir: str) -> List[Tuple[int, str]]:

@@ -34,6 +34,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
         path = f"{prefix}.{k}" if prefix else k
         if isinstance(v, Mapping):
             yield from _flatten(v, path)
+        elif isinstance(v, torch.Tensor):   # bfloat16 leaves of a checkpoint
+            yield path, v.float().numpy()
         else:
             yield path, np.asarray(v)
 
@@ -53,8 +55,9 @@ def _convert(path: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
 
 
 def convert_tree(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Any flax params tree of a module the port mirrors (numpy leaves)
-    -> that module's ``state_dict``."""
+    """Any flax params tree of a module the port mirrors (numpy leaves, or
+    torch tensors as ``utils.msgpack_ckpt`` reads bfloat16 ones) -> that
+    module's float32 ``state_dict``."""
     if set(flax_params) == {"params"}:
         flax_params = flax_params["params"]
     out: Dict[str, torch.Tensor] = {}

@@ -57,6 +57,24 @@ def test_walk_covers_the_audio_modules():
             "diff_vits_tpu_torch/data/audio.py"} <= names
 
 
+def test_walk_covers_the_frontend_cli_and_checkpoint_modules():
+    """The text frontend, the command lines, the samplers and the msgpack
+    reader are in the walk above; the reader needs no msgpack package."""
+    names = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    assert {"diff_vits_tpu_torch/text/frontend.py",
+            "diff_vits_tpu_torch/text/english_lts.py",
+            "diff_vits_tpu_torch/text/pinyin_lexicon.py",
+            "diff_vits_tpu_torch/text/tone_sandhi.py",
+            "diff_vits_tpu_torch/infer/tts_infer.py",
+            "diff_vits_tpu_torch/infer/serve.py",
+            "diff_vits_tpu_torch/diffusion/dpm_solver.py",
+            "diff_vits_tpu_torch/diffusion/schedule.py",
+            "diff_vits_tpu_torch/utils/msgpack_ckpt.py"} <= names
+    bad = [(f.relative_to(ROOT), m) for f in _port_files()
+           for m in _imported(f) if m.split(".")[0] == "msgpack"]
+    assert bad == []
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
     from diff_vits_tpu_torch.models.diff_vits import synthesize

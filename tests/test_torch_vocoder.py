@@ -157,9 +157,10 @@ def test_convert_torch_vocos_equals_the_jax_conversion(n_layers):
 
 def test_load_vocoder_routes(tmp_path, monkeypatch):
     """A .bin / .pt state dict in the published layout loads through the
-    converter; no path gives seeded random weights; any other file (the
-    JAX package's msgpack checkpoint) is refused, naming the roadmap item
-    that ports it; no device and no card raises."""
+    converter; no path gives seeded random weights; any other file is a
+    checkpoint, and one in neither the torch nor the flax msgpack format
+    is refused (the JAX package's msgpack checkpoint loads:
+    tests/test_torch_ckpt_msgpack.py); no device and no card raises."""
     cfg = Config()
     sd = _published_state_dict(512, 1536, 8, seed=6)
     path = tmp_path / "pytorch_model.bin"
@@ -182,7 +183,8 @@ def test_load_vocoder_routes(tmp_path, monkeypatch):
     assert a.embed.weight.shape == (512, cfg.data.n_mel_channels, 7)
     assert a.out.weight.shape == (cfg.data.window_size + 2, 512)
 
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
+    (tmp_path / "model-100.ckpt").write_bytes(b"not a checkpoint")
+    with pytest.raises(ValueError, match="neither a torch.save"):
         vocoder.load_vocoder(cfg, str(tmp_path / "model-100.ckpt"),
                              device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
