@@ -5,9 +5,10 @@
 
 ``--out DIR`` also writes the kernel rows, the serving numbers (the
 command lines' and the samplers' under ``cli``), the training numbers
-(flash route off and on) and the variant's serving and training numbers
-as ``DIR/kernels.json``, ``DIR/path.json``, ``DIR/train.json`` and
-``DIR/variant.json``.
+(flash route off and on), the variant's serving and training numbers and
+the training command line's numbers as ``DIR/kernels.json``,
+``DIR/path.json``, ``DIR/train.json``, ``DIR/variant.json`` and
+``DIR/train_cli.json``.
 
 Phases, each of which fails the run:
 
@@ -158,7 +159,23 @@ Phases, each of which fails the run:
    factor and peak memory;
 14. variant training: the variant trained by the same ``Trainer`` (B=32,
    bf16, 2 warm-up and 3 timed steps) with the flash route off and on, with
-   the checks of phase 11 (no K5 or K7 launch: both are inference-only).
+   the checks of phase 11 (no K5 or K7 launch: both are inference-only);
+15. train_cli (training from a dataset on disk): 80 seeded 24 kHz
+   utterances of 1.5-6.0 s with cleaned EN transcripts, preprocessed by
+   ``data.preprocess.main(--cleaned)``; ``train.cli.main`` at
+   ``reference_parity`` widths (B=32, bf16) for 6 steps (checkpoint and
+   ``eval_sample`` every 3, samples decoded by the vocoder phase's Vocos
+   file), then ``--resume auto`` to step 8: the native loader, finite
+   logged losses, checkpoints 3 and 6, the resume line, both samples' mel
+   and wav, the eval metrics, and each run's launches equal to its calls
+   counted by hooks (K1-K4 and the core 22/16/16/16 and 32 a UNet call of
+   ``eval_sample``, K5 one an encoder layer, K6 one a training forward,
+   K8 forward and backward one a gated call, forward only when autograd
+   is off) and those calls equal to the ones derived from the code (40
+   gated calls a step, 41 UNet calls an ``eval_sample``); then, not gated,
+   both loaders' batches/s at B=32, the step with the prefetch on and off
+   in turns (3 runs a side of 2 warm-up and 5 timed steps), one
+   ``eval_sample``'s and one save's wall time and the peak memory.
 
 The launch counts in the kernel table are those of each kernel's own path:
 serving for K1-K4 and the attention core, training for K6, the variant's
@@ -943,6 +960,8 @@ def main(argv=None) -> int:
         counts[name] = var_counts[name]
     vt_ok, variant_train, _ = variant_train_phase(torch, dev, card)
     phases.update(vt_ok)
+    tc_ok, train_cli = train_cli_phase(torch, dev, card)
+    phases.update(tc_ok)
     log(f"training the variant, flash off vs on: median step "
         f"{variant_train['off']['step_s'] * 1e3:.1f} vs "
         f"{variant_train['on']['step_s'] * 1e3:.1f} ms, peak "
@@ -960,6 +979,8 @@ def main(argv=None) -> int:
                  flash_grad=flash_grad), indent=1))
         (out_dir / "variant.json").write_text(json.dumps(
             dict(variant, train=variant_train), indent=1))
+        (out_dir / "train_cli.json").write_text(json.dumps(train_cli,
+                                                           indent=1))
 
     table = {"kernels": [dict(
         name=name, route="cuda", source=SOURCE[name],
@@ -1565,18 +1586,24 @@ def _train_batches(np, b, t_x, t_y, s_max, n_symbols, seed):
                     refer2_lengths=np.array([len(c[2]) for c in cut]))
 
 
-def _flash_calls(model, shapes=None):
+def _flash_calls(model, shapes=None, no_grad=None):
     """Forward pre-hooks on every attention module of ``model`` that has a
     flash route (``CrossAttention``, ``EncSALayer``): a one-item list that
     grows by one for each call that passes the module's own gate, i.e. the
     K8 forward launches to expect; each such output enters the loss, so as
     many backward launches. Each such call's (T, S, d) is appended to
-    ``shapes`` when given. Returns (the list, hook handles)."""
+    ``shapes`` when given. With a one-item list ``no_grad``, the gated
+    calls made while autograd records nothing (forward launches only) are
+    counted there instead. Returns (the list, hook handles)."""
+    import torch
     from diff_vits_tpu_torch.nn.fairseq import EncSALayer
     from diff_vits_tpu_torch.nn.unet1d import CrossAttention
     calls = [0]
 
     def count(gated, t, s, d):
+        if no_grad is not None and not torch.is_grad_enabled():
+            no_grad[0] += gated
+            return
         calls[0] += gated
         if gated and shapes is not None:
             shapes.append((t, s, d))
@@ -1870,20 +1897,21 @@ def _write_prompt_wav(np, path, seconds=3.0, sr=24000, seed=8):
 
 
 class _CountNewModels:
-    """Within the block, every ``DiffVits`` built gets the path-call hooks
-    of :func:`_count_path_calls` (the CLIs build their model inside
-    ``main``); :meth:`calls` sums them over the models."""
+    """Within the block, every ``DiffVits`` built gets the call hooks of
+    ``install`` (default :func:`_count_path_calls`; the CLIs build their
+    model inside ``main``); :meth:`calls` sums them over the models."""
 
-    def __init__(self):
+    def __init__(self, install=None):
         from diff_vits_tpu_torch.models import diff_vits as DV
         self.cls, self.made, self.handles, self.models = DV.DiffVits, [], [], []
+        self.install = install or _count_path_calls
 
     def __enter__(self):
         orig = self.orig = self.cls.__init__
 
         def init(model, *a, **kw):
             orig(model, *a, **kw)
-            calls, handles = _count_path_calls(model)
+            calls, handles = self.install(model)
             self.made.append(calls)
             self.handles += handles
             self.models.append(model)
@@ -1896,8 +1924,7 @@ class _CountNewModels:
             h.remove()
 
     def calls(self):
-        return {k: [sum(c[k][0] for c in self.made)]
-                for k in ("unet", "encoder_layers", "sdp_reverse")}
+        return {k: [sum(c[k][0] for c in self.made)] for k in self.made[0]}
 
 
 def _counted(torch, fn):
@@ -2771,6 +2798,343 @@ def variant_train_phase(torch, dev, card):
         del trainer
         torch.cuda.empty_cache()
     return ok, numbers, counts
+
+
+# -- train_cli: training from a dataset on disk through the command line --
+
+TRAIN_CLI_UTTS = 80
+TRAIN_CLI_SAVE_EVERY = 3
+FLASH_SITES_MODEL3 = 40       # gated attention calls a model3 training step
+EVAL_SAMPLING_STEPS = 30      # Trainer.eval_sample's UniPC steps
+EVAL_T_FRACS = 5              # Trainer.eval_fixed_t_loss's step fractions
+# an EN phone set of text/symbols for the cleaned transcripts
+TRAIN_CLI_PHONES = ("aa ae ah ao aw ay b ch d dh eh er ey f g hh ih iy jh k "
+                    "l m n ng ow oy p r s sh t th uh uw v w y z zh").split()
+
+
+def _write_train_corpus(np, root, n, seed=12):
+    """``n`` seeded 24 kHz utterances of 1.5-6.0 s (four harmonics of a
+    random pitch under noise), each with a cleaned EN line whose
+    interspersed phone count is at most a third of its mel frames."""
+    from diff_vits_tpu_torch.data import audio
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    sr = 24000
+    for i in range(n):
+        t = np.arange(int(rng.uniform(1.5, 6.0) * sr)) / sr
+        f0 = rng.uniform(90.0, 300.0)
+        wav = sum(0.3 / k * np.sin(2 * np.pi * k * f0 * t
+                                   + rng.uniform(0, 2 * np.pi))
+                  for k in range(1, 5)) + 0.02 * rng.normal(size=t.shape)
+        audio.write_wav(str(root / f"utt{i:03d}.wav"),
+                        wav.astype(np.float32), sr)
+        frames = len(t) // 256 + 1
+        k = min(300, (frames // 3 - 1) // 2)
+        phones = [TRAIN_CLI_PHONES[j]
+                  for j in rng.integers(0, len(TRAIN_CLI_PHONES), k)]
+        line = "EN|utt {}|{}|{}|{}".format(
+            i, " ".join(phones), " ".join(str(int(x)) for x in
+                                          rng.integers(0, 3, k)),
+            " ".join("1" * k))
+        (root / f"utt{i:03d}.txt").write_text(line + "\n", encoding="utf-8")
+
+
+def _train_cli_calls(model):
+    """Hooks on ``model`` counting what each kernel should launch in a
+    training run with ``eval_sample``: UNet calls in eval mode (K1-K4 and
+    the core; training mode runs no fused block), encoder layers in eval
+    mode with autograd off (K5), VITS training forwards (one MAS, K6,
+    each), calls through the flash gate with autograd on (K8 forward and
+    backward) and off (forward only). Returns ({what: one-item list},
+    hook handles)."""
+    import torch
+    from diff_vits_tpu_torch.models.vits import VITS
+    from diff_vits_tpu_torch.nn.layers import Encoder
+    from diff_vits_tpu_torch.nn.unet1d import UNet1DConditionModel
+    unet, h1 = _count_calls(model, UNet1DConditionModel, lambda m, kw: int(
+        not m.training and kw.get("embedding_request") is None))
+    layers, h2 = _count_calls(model, Encoder, lambda m, kw: m.n_layers * int(
+        not m.training and not torch.is_grad_enabled()))
+    mas, h3 = _count_calls(model, VITS, lambda m, kw: 1)
+    flash_eval = [0]
+    flash, h4 = _flash_calls(model, no_grad=flash_eval)
+    return dict(unet=unet, encoder_layers=layers, mas=mas, flash=flash,
+                flash_eval=flash_eval), h1 + h2 + h3 + h4
+
+
+def _train_cli_want(calls):
+    """Launches a run should count, from its counted calls."""
+    want = {name: n * calls["unet"] for name, n in PER_UNET.items()}
+    want["fused_rel_self_attention"] = calls["encoder_layers"]
+    want["maximum_path"] = calls["mas"]
+    want["unconstrained_rqs"] = 0
+    want["flash_attention_forward"] = calls["flash"] + calls["flash_eval"]
+    want["flash_attention_backward"] = calls["flash"]
+    return want
+
+
+def _eval_flash_sites(cfg):
+    """Gated attention calls of one VITS pass in eval mode, where the UNets
+    take the fused route and only the prompt encoders' ``EncSALayer``s can
+    reach K8: ``VITS.o_proj`` (6 layers, 8 heads of vits.hidden_channels)
+    on ``data.max_mel_len`` frames (the loader's static Ty, and
+    ``eval_sample``'s ``max_len``) and the denoiser's prompt encoder
+    (``n_prompt_layers``, 8 heads of diffusion_encoder.hidden_channels) on
+    the loader's static S = max_mel_len * 2 // 3 + 1 prompt frames, each
+    counted where ``flash_ok`` passes at that shape."""
+    from diff_vits_tpu_torch.ops.flash_attention import flash_ok
+    t = cfg.data.max_mel_len
+    s = t * 2 // 3 + 1
+
+    def gated(n_layers, width, frames):
+        shape = (None, 8, frames, width // 8)
+        return n_layers * int(flash_ok(shape, shape, True))
+    return (gated(6, cfg.vits.hidden_channels, t)
+            + gated(cfg.diffusion_encoder.n_prompt_layers,
+                    cfg.diffusion_encoder.hidden_channels, s))
+
+
+def _train_cli_derived(cfg, steps, evals, flash_on=True):
+    """The same calls derived from the code for ``steps`` training steps
+    and ``evals`` eval_samples: a step runs one VITS forward and
+    FLASH_SITES_MODEL3 gated attention calls; an eval_sample one
+    ``synthesize`` (EVAL_SAMPLING_STEPS denoiser calls and the duration
+    predictor's, one TextEncoder call) and ``eval_fixed_t_loss``'s
+    EVAL_T_FRACS forwards (twice with an EMA), each two UNet calls (the
+    denoiser and the duration predictor), a TextEncoder and a MAS call;
+    ``synthesize`` and each of those forwards make the gated calls of
+    :func:`_eval_flash_sites` with autograd off. ``flash_on``: the trainer
+    turned the flash route on (it does on the card)."""
+    forwards = EVAL_T_FRACS * (2 if cfg.train.use_ema else 1)
+    return dict(unet=evals * (EVAL_SAMPLING_STEPS + 1 + 2 * forwards),
+                encoder_layers=evals * cfg.vits.n_layers * (1 + forwards),
+                mas=steps + evals * forwards,
+                flash=FLASH_SITES_MODEL3 * steps * flash_on,
+                flash_eval=evals * (1 + forwards) * _eval_flash_sites(cfg)
+                * flash_on)
+
+
+class _Tee:
+    """Writes through to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def _logged_steps(text):
+    """{step: {metric: value}} of the loop's ``step N k=v ...`` lines."""
+    import re
+    out = {}
+    for m in re.finditer(r"^step (\d+) (.*) steps/s=", text, re.M):
+        out[int(m.group(1))] = {k: float(v) for k, v in (
+            kv.split("=") for kv in m.group(2).split())}
+    return out
+
+
+def train_cli_phase(torch, dev, card, cfg=None, n_utts=TRAIN_CLI_UTTS,
+                    ab_runs=3):
+    """Training from a dataset on disk through the port's command line:
+    ``n_utts`` seeded wavs with cleaned transcripts, ``data.preprocess``
+    (``--cleaned``), then ``train.cli.main`` at ``cfg`` (default
+    ``reference_parity``: model3, B=32, bf16) for 6 steps (a checkpoint
+    and an ``eval_sample`` every 3, the vocoder phase's published-layout
+    Vocos file for the samples' wavs) and again with ``--resume auto`` to
+    step 8. Gates: the native loader; every logged loss finite;
+    ``model-3.ckpt`` and ``model-6.ckpt``; the resume line and step 8;
+    ``sample-{1,2}.mel.npy`` and their wavs; the eval metrics; each run's
+    launches equal to its counted calls, and those equal to the ones
+    derived from the code. Then, not gated: both loaders' batches/s at
+    B=32, the step time with the prefetch on and off in turns (``ab_runs``
+    runs a side of 2 warm-up and 5 timed steps, synchronised), one
+    ``eval_sample``'s and one save's wall time and the runs' peak memory.
+    Returns ({phase: ok}, numbers)."""
+    import contextlib
+    import dataclasses
+    import io
+    import math
+    import tempfile
+    import numpy as np
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.core.config import load_config
+    from diff_vits_tpu_torch.data import preprocess
+    from diff_vits_tpu_torch.data.dataset import TextMelDataset, TrainLoader
+    from diff_vits_tpu_torch.data.native_loader import NativeTrainLoader
+    from diff_vits_tpu_torch.train import cli
+    from diff_vits_tpu_torch.train.trainer import batch_to_device
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    numbers = dict(card=card)
+    tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    d = Path(tmp.name)
+    t0 = time.perf_counter()
+    _write_train_corpus(np, d / "raw", n_utts)
+    with contextlib.redirect_stdout(io.StringIO()):
+        preprocess.main(["--in_dir", str(d / "raw"), "--out_dir",
+                         str(d / "data"), "--language", "EN", "--cleaned",
+                         "--no_spec"])
+    numbers["corpus_and_preprocess_s"] = time.perf_counter() - t0
+    cfg = cfg or load_config(str(ROOT / "configs" / "reference_parity.json"))
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, training_files=str(
+            d / "data"), val_files=str(d / "data")),
+        train=dataclasses.replace(
+            cfg.train, save_and_sample_every=TRAIN_CLI_SAVE_EVERY,
+            vocoder_ckpt=str(ROOT / "build" / "vocos_published_layout.bin")))
+    cfg_path = d / "config.json"
+    cfg_path.write_text(json.dumps(cfg.to_dict()))
+    workdir = d / "run"
+    args = ["-c", str(cfg_path), "--workdir", str(workdir), "--log_every",
+            "2"] + ([] if cuda else ["--device", str(dev)])
+
+    runs, good = [], True
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for steps, extra, evals in ((6, [], 2), (8, ["--resume", "auto"], 0)):
+        tee = _Tee(sys.stdout)
+        with _CountNewModels(_train_cli_calls) as made, \
+                contextlib.redirect_stdout(tee):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            trainer = cli.main([*args, *extra, "--steps", str(steps)])
+            sync()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+        calls = {k: v[0] for k, v in made.calls().items()}
+        want = _train_cli_want(calls)
+        derived = _train_cli_derived(cfg, steps - 6 * bool(extra), evals,
+                                     flash_on=cuda)
+        text = tee.text()
+        logged = _logged_steps(text)
+        finite = all(math.isfinite(v) for m in logged.values()
+                     for v in m.values())
+        run_ok = (trainer.loader_kind == "native" and finite
+                  and counts == want
+                  and all(calls[k] == v for k, v in derived.items()))
+        log(f"train_cli run {len(runs) + 1} ({' '.join(extra) or 'fresh'}, "
+            f"to step {steps}): loader {trainer.loader_kind}; logged steps "
+            f"{sorted(logged)} finite {finite}; counted calls {calls}, "
+            f"derived from the code {derived}; launches {counts} (want "
+            f"{want}); {wall:.1f} s wall: {'ok' if run_ok else 'FAIL'}")
+        good = good and run_ok
+        runs.append(dict(wall_s=wall, calls=calls, derived=derived,
+                         launches=counts, logged=logged,
+                         loader=trainer.loader_kind))
+        if not extra:
+            metrics = dict(trainer.last_eval_metrics)
+            first_out = text
+            files = {p.name for p in workdir.iterdir()}
+            del trainer
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    resumed = (f"resumed from {workdir / 'model-6.ckpt'} at step 6" in text
+               and trainer.step == 8)
+    samples = all((workdir / f"sample-{m}.{ext}").is_file()
+                  for m in (1, 2) for ext in ("mel.npy", "wav"))
+    sample_finite = samples and all(
+        np.isfinite(np.load(workdir / f"sample-{m}.mel.npy")).all()
+        for m in (1, 2))
+    eval_ok = all(k in metrics and math.isfinite(metrics[k]) for k in (
+        "eval/mel_l1", "eval/mel_corr", "eval/diff_fixed_t"))
+    ckpts = {"model-3.ckpt", "model-6.ckpt"} <= files
+    steps_ok = (sorted(runs[0]["logged"]) == [2, 4, 6]
+                and sorted(runs[1]["logged"]) == [8])
+    good = (good and resumed and samples and sample_finite and eval_ok
+            and ckpts and steps_ok and "loader: native" in first_out)
+    log(f"train_cli: checkpoints 3 and 6 {ckpts}; resumed at step 6 and "
+        f"ended at {trainer.step}: {resumed}; sample-1/2 mel and wav "
+        f"{samples} (finite {sample_finite}); eval metrics {metrics}: "
+        f"{eval_ok}; peak memory over the runs {peak} GB; "
+        f"{'ok' if good else 'FAIL'}; card {card}")
+    numbers.update(runs=runs, eval_metrics=metrics,
+                   max_memory_allocated_GB=peak)
+
+    # -- not gated: loader rates, prefetch on / off, eval and save times --
+    ds = TextMelDataset(cfg)
+    rates = {}
+    for name, cls in (("native", NativeTrainLoader), ("python", TrainLoader)):
+        it = iter(cls(ds, cfg, seed=cfg.train.seed))
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(8):
+            next(it)
+        rates[name] = 8 / (time.perf_counter() - t0)
+    log(f"train_cli loaders at B={cfg.train.train_batch_size} (host, "
+        f"{len(ds)} utterances, 8 batches after one): native "
+        f"{rates['native']:.2f} batches/s, python {rates['python']:.2f}; "
+        f"card {card}")
+    # the synchronous route's copy of one batch: pageable, and pinned as
+    # the prefetch worker makes it (median of 10, synchronised)
+    host_batch = next(iter(trainer.batches))
+    copy_ms = {}
+    for pinned in (False, True):
+        times = []
+        for _ in range(11):
+            sync()
+            t0 = time.perf_counter()
+            batch_to_device(host_batch, dev, pinned=pinned and cuda)
+            sync()
+            times.append(time.perf_counter() - t0)
+        copy_ms["pinned" if pinned else "pageable"] = (
+            sorted(times[1:])[5] * 1e3)
+    log(f"train_cli batch copy to the device at B="
+        f"{cfg.train.train_batch_size}, median of 10: pageable "
+        f"{copy_ms['pageable']:.2f} ms, pinned {copy_ms['pinned']:.2f} ms; "
+        f"the native loader {1e3 / rates['native']:.2f} ms a batch; card "
+        f"{card}")
+    order = [True, False, False, True, True, False][:2 * ab_runs]
+    ab = {True: [], False: []}
+    for prefetch in order:
+        it = trainer.device_batches(iter(trainer.batches), prefetch)
+        times = []
+        try:
+            for _ in range(7):
+                sync()
+                t0 = time.perf_counter()
+                trainer.step_on(next(it))
+                sync()
+                times.append(time.perf_counter() - t0)
+        finally:
+            it.close()
+        ab[prefetch].append(sorted(times[2:])[2])
+    med = {k: sorted(v)[len(v) // 2] for k, v in ab.items()}
+    log(f"train_cli step time, prefetch on / off in turns ({order}), median "
+        f"of 5 timed steps a run: on {[round(x * 1e3, 1) for x in ab[True]]}"
+        f" ms, off {[round(x * 1e3, 1) for x in ab[False]]} ms; medians "
+        f"{med[True] * 1e3:.1f} / {med[False] * 1e3:.1f} ms; card {card}")
+    sync()
+    t0 = time.perf_counter()
+    trainer.eval_sample(trainer.step)
+    sync()
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.save(trainer.step)
+    save_s = time.perf_counter() - t0
+    size_gb = (workdir / f"model-{trainer.step}.ckpt").stat().st_size / 1e9
+    log(f"train_cli: one eval_sample {eval_s:.2f} s wall, one save "
+        f"{save_s:.2f} s ({size_gb:.2f} GB); card {card}")
+    numbers.update(loader_batches_per_s=rates, batch_copy_ms=copy_ms,
+                   prefetch_step_s={"on": ab[True], "off": ab[False]},
+                   prefetch_order=order, eval_sample_s=eval_s, save_s=save_s,
+                   checkpoint_GB=size_gb)
+    del trainer
+    tmp.cleanup()
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"train_cli": good}, numbers
 
 
 if __name__ == "__main__":

@@ -1,2 +1,3 @@
-"""Training batches and host-side audio IO and features of the port (the
-dataset and loader come with the text slice)."""
+"""The port's data layer: training batches, datasets and loaders (Python
+and native), offline preprocessing, and host-side audio IO and
+features."""

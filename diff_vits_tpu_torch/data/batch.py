@@ -1,9 +1,8 @@
 """Static-shape training batches: crop and prompt split, padding, Batch.
 
 A copy of ``random_slice``, ``pad_to`` and ``Batch`` of
-``diff_vits_tpu/data/dataset.py:109-151`` (numpy, channel-last). The
-dataset and loader that fill it need the text frontend and audio, and
-come with that slice.
+``diff_vits_tpu/data/dataset.py:109-151`` (numpy, channel-last), filled
+by the loaders of ``data.dataset`` and ``data.native_loader``.
 """
 from __future__ import annotations
 

@@ -15,7 +15,9 @@ refer mel [S, 100])``:
 * a duration-only pass predicts each utterance's frame count and places it
   in the smallest mel bucket that holds it (clamped to the largest); the
   stochastic duration predictor draws there from a seeded generator other
-  than the synthesis's, so its count gets 10% headroom;
+  than the synthesis's, so its count gets 10% headroom, and an utterance
+  whose drawn count still fills a bucket below the largest is reported
+  (its mel is cut to the bucket);
 * each (text bucket, mel bucket) batch is one ``synthesize`` call;
 * results come back in request order, trimmed to their frame counts;
 * with a vocoder (``models.vocoder.Vocos``), each bucket batch's mel is
@@ -231,6 +233,10 @@ class BatchSynthesizer:
 
         out: List[Optional[Tuple]] = [None] * len(requests)
         hop = self.cfg.data.hop_length
+        # the stochastic predictor draws again inside synthesize, past the
+        # duration pass's headroom at times: a count that fills a bucket
+        # below the largest was cut to it
+        sdp = self.cfg.vits.duration_predictor == "sdp"
         for (t_bucket, m_bucket), group in sorted(by_shape.items()):
             for off in range(0, len(group), self.batch_size):
                 chunk = group[off:off + self.batch_size]
@@ -253,6 +259,13 @@ class BatchSynthesizer:
                 lens = out_lengths.cpu().numpy()
                 for j, (i, r) in enumerate(chunk):
                     n = int(lens[j])
+                    if sdp and n >= m_bucket and m_bucket != \
+                            self.mel_buckets[-1]:
+                        print(f"warning: {r[0]} filled its mel bucket "
+                              f"{m_bucket} (the duration drawn in "
+                              f"synthesize passed the duration pass's "
+                              f"headroom); its mel is cut at {m_bucket} "
+                              f"frames", flush=True)
                     out[i] = (r[0], mel[j, :n]) if wav is None else (
                         r[0], mel[j, :n], wav[j, :min(n * hop, wav.shape[1])])
         return [o for o in out if o is not None]

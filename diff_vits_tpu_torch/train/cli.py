@@ -1,0 +1,51 @@
+"""Training command line of the port.
+
+Port of ``diff_vits_tpu/train/cli.py`` (the same flags, plus ``--device``):
+trains from the folder of ``data.training_files`` (as ``data.preprocess``
+writes it) on the card unless ``--device`` names another device.
+
+Usage:
+  python -m diff_vits_tpu_torch.train.cli -c config.json --workdir runs/a \
+      [--resume auto|<checkpoint>] [--steps N] [--log_every 100] \
+      [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+from diff_vits_tpu_torch.core.config import Config, load_config
+
+
+def main(argv=None):
+    """Parse ``argv``, train, and return the ``Trainer``."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-c", "--config", type=str, default="config.json")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="checkpoint path, or 'auto' to continue from "
+                             "the newest checkpoint in --workdir (use a "
+                             "fixed --workdir for preemption-safe runs)")
+    parser.add_argument("--workdir", type=str, default=None,
+                        help="fixed run directory (default: a fresh "
+                             "timestamped dir under train.logs_folder)")
+    parser.add_argument("--steps", type=int, default=None)
+    parser.add_argument("--log_every", type=int, default=100)
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: the CUDA card; "
+                             "raises when there is none)")
+    args = parser.parse_args(argv)
+
+    from diff_vits_tpu_torch.train.trainer import Trainer
+
+    cfg = load_config(args.config) if os.path.exists(args.config) else Config()
+    trainer = Trainer(cfg, workdir=args.workdir, device=args.device)
+    if args.resume == "auto":
+        trainer.resume_latest()
+    elif args.resume:
+        trainer.load(args.resume)
+    trainer.train(num_steps=args.steps, log_every=args.log_every)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -28,18 +28,42 @@ off on the CPU, as JAX defaults it;
 Every random draw of a step (dropout, posterior and MAS noise, t,
 diffusion noise) comes from the trainer's ``torch.Generator`` on its
 device, seeded with ``train.seed``; the coin flip from a Python
-``random.Random(seed + 17)``. The dataset, loader and command line need
-the text frontend and audio and come with that slice; ``batches`` is any
-iterable of :class:`~diff_vits_tpu_torch.data.batch.Batch`.
+``random.Random(seed + 17)``, drawn on the calling thread when the step
+takes its micro-batch, so the flips come in the same order with the
+prefetch on or off.
+
+The loop (trainer.py:246-646 of the JAX package):
+
+* batches from ``batches`` (any iterable of
+  :class:`~diff_vits_tpu_torch.data.batch.Batch`), else from
+  ``TextMelDataset(cfg)`` (or ``dataset``) through ``NativeTrainLoader``
+  when ``train.use_native_loader`` and it builds and finds ``.mel.npy``
+  sidecars, else ``TrainLoader`` (``loader_kind`` says which);
+* a prefetch thread that assembles the next batches and copies them to
+  the device while the step runs (on the card: pinned host tensors,
+  ``non_blocking`` copies on a side stream the step's stream waits on);
+* scalars to tensorboardX (when it imports) every ``log_every`` steps;
+* SIGTERM / SIGINT: a checkpoint at the next step boundary, then return;
+* a step that raises leaves a checkpoint and the error goes on;
+* every ``save_and_sample_every`` steps a checkpoint and ``eval_sample``
+  (30-step UniPC on the raw parameters, mel L1 and correlation against
+  the ground truth, the fixed-t loss, ``sample-N.mel.npy`` and, with
+  ``train.vocoder_ckpt``, ``sample-N.wav``), when there is a dataset;
+  a failing eval is printed and training goes on.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
+import queue
 import random
+import signal
+import subprocess
+import threading
 import time
 from datetime import datetime
-from typing import Dict, Iterable, Optional, Sequence, Union
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -47,7 +71,9 @@ import torch
 from diff_vits_tpu_torch.core.config import Config
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
 from diff_vits_tpu_torch.data.batch import Batch
-from diff_vits_tpu_torch.models.diff_vits import DiffVits, eval_mode
+from diff_vits_tpu_torch.data.dataset import TextMelDataset, TrainLoader
+from diff_vits_tpu_torch.models.diff_vits import (
+    DiffVits, eval_mode, synthesize)
 from diff_vits_tpu_torch.nn.unet1d import set_use_flash
 from diff_vits_tpu_torch.text.symbols import symbols
 from diff_vits_tpu_torch.train import checkpoint as ckpt_lib
@@ -76,23 +102,68 @@ def clip_by_global_norm_scheduled(grads: Sequence[torch.Tensor], step: int,
     return g_norm
 
 
+_MELS = ("spec", "refer1", "refer2")
+_END = object()         # the prefetch worker's end-of-batches mark
+
+
+def batch_to_device(batch: Batch, device: torch.device, *,
+                    pinned: bool = False) -> Dict[str, torch.Tensor]:
+    """Every field of ``batch`` on ``device``: ids and lengths int64, mels
+    float32. ``pinned``: through page-locked host memory with non-blocking
+    copies on the current stream (the caller orders their use)."""
+    out = {}
+    for f in dataclasses.fields(Batch):
+        a = np.asarray(getattr(batch, f.name),
+                       np.float32 if f.name in _MELS else np.int64)
+        t = torch.from_numpy(a)
+        out[f.name] = (t.pin_memory().to(device, non_blocking=True)
+                       if pinned else t.to(device))
+    return out
+
+
+def forward_inputs(fields: Dict[str, torch.Tensor], use_refer1: bool
+                   ) -> Dict[str, torch.Tensor]:
+    """DiffVits.forward's inputs from a batch's fields, with refer1 or
+    refer2 as the prompt."""
+    r = "refer1" if use_refer1 else "refer2"
+    return dict(text=fields["text"], text_lengths=fields["text_lengths"],
+                spec=fields["spec"], spec_lengths=fields["spec_lengths"],
+                refer=fields[r], refer_lengths=fields[f"{r}_lengths"],
+                tone=fields["tone"], language=fields["language"])
+
+
 def device_batch(batch: Batch, use_refer1: bool, device: torch.device
                  ) -> Dict[str, torch.Tensor]:
     """DiffVits.forward's inputs from ``batch``, with refer1 or refer2 as
     the prompt."""
-    refer = batch.refer1 if use_refer1 else batch.refer2
-    refer_lengths = batch.refer1_lengths if use_refer1 \
-        else batch.refer2_lengths
+    return forward_inputs(batch_to_device(batch, device), use_refer1)
 
-    def ids(a):
-        return torch.from_numpy(np.asarray(a, np.int64)).to(device)
 
-    def mel(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
-    return dict(text=ids(batch.text), text_lengths=ids(batch.text_lengths),
-                spec=mel(batch.spec), spec_lengths=ids(batch.spec_lengths),
-                refer=mel(refer), refer_lengths=ids(refer_lengths),
-                tone=ids(batch.tone), language=ids(batch.language))
+def summary_writer(logdir: str):
+    """A tensorboardX ``SummaryWriter`` on ``logdir``; None when
+    tensorboardX is not installed."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(logdir)
+
+
+def make_loader(ds: TextMelDataset, cfg: Config, **kw):
+    """``NativeTrainLoader(ds, cfg, **kw)`` when ``train.use_native_loader``,
+    it builds and ``ds`` has ``.mel.npy`` sidecars, else ``TrainLoader``.
+    Returns (loader, "native" or "python", why not native)."""
+    reason = "train.use_native_loader is off"
+    if cfg.train.use_native_loader:
+        from diff_vits_tpu_torch.data.native_loader import NativeTrainLoader
+        try:
+            loader = NativeTrainLoader(ds, cfg, **kw)
+            if len(loader) > 0:
+                return loader, "native", None
+            reason = "no .npy mel sidecars in the dataset"
+        except (OSError, subprocess.CalledProcessError) as e:
+            reason = f"{type(e).__name__}: {e}"
+    return TrainLoader(ds, cfg, **kw), "python", reason
 
 
 def _check_unported(cfg: Config) -> None:
@@ -113,10 +184,15 @@ def _check_unported(cfg: Config) -> None:
 
 class Trainer:
     """``Trainer(cfg, batches)`` builds the model from ``train.seed`` on
-    ``device`` (the card unless given) in training mode; ``train_step``
-    runs one optimizer step, ``train`` the loop."""
+    ``device`` (the card unless given) in training mode and trains on
+    ``batches``; with ``batches=None`` on ``dataset`` (default
+    ``TextMelDataset(cfg)``) through its loader. ``train_step`` runs one
+    optimizer step, ``train`` the loop; checkpoints, samples and
+    tensorboard events go to ``workdir`` (default a new timestamped folder
+    under ``train.logs_folder``)."""
 
-    def __init__(self, cfg: Config, batches: Iterable[Batch], *,
+    def __init__(self, cfg: Config, batches: Optional[Iterable[Batch]] = None,
+                 *, dataset: Optional[TextMelDataset] = None,
                  device: DeviceLike = None, workdir: Optional[str] = None):
         self.cfg = cfg
         _check_unported(cfg)
@@ -137,9 +213,30 @@ class Trainer:
         self._py_rng = random.Random(cfg.train.seed + 17)
         self.bf16 = (self.device.type == "cuda"
                      and cfg.train.compute_dtype == "bfloat16")
-        self.batches = batches
         now = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
         self.logs_folder = workdir or os.path.join(cfg.train.logs_folder, now)
+        self.ds = dataset
+        if batches is None:
+            self.ds = dataset if dataset is not None else TextMelDataset(cfg)
+            batches = self._make_loader()
+        else:
+            self.loader_kind = "given"
+        self.batches = batches
+        self.last_eval_metrics: Dict[str, float] = {}
+        self._eval_cache: Optional[Batch] = None
+        self._vocoder = None
+
+    def _make_loader(self):
+        """The training loader (:func:`make_loader`); prints the choice and
+        records it in ``loader_kind``."""
+        loader, self.loader_kind, reason = make_loader(
+            self.ds, self.cfg, seed=self.cfg.train.seed)
+        if self.loader_kind == "native":
+            print("loader: native C++ (csrc/loader.cc)", flush=True)
+        elif self.cfg.train.use_native_loader:
+            # a run records which input pipeline fed it
+            print(f"loader: python fallback ({reason})", flush=True)
+        return loader
 
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
@@ -157,22 +254,30 @@ class Trainer:
         if len(micro) != self.accum:
             raise ValueError(f"train_step takes {self.accum} micro-batches, "
                              f"got {len(micro)}")
+        return self.step_on([batch_to_device(mb, self.device)
+                             for mb in micro])
+
+    def step_on(self, micro: Sequence[Dict[str, torch.Tensor]]
+                ) -> Dict[str, torch.Tensor]:
+        """:meth:`train_step` on micro-batches already on the device (the
+        fields of :func:`batch_to_device`); the coin flip between refer1
+        and refer2 is drawn here, once per micro-batch."""
         mas_noise_scale = max(self.cfg.train.mas_noise_scale_initial
                               - self.cfg.train.noise_scale_delta * self.step,
                               0.0)
+        inputs = [forward_inputs(mb, self._py_rng.random() < 0.5)
+                  for mb in micro]
         self.optimizer.zero_grad(set_to_none=True)
         sums: Dict[str, torch.Tensor] = {}
-        for mb in micro:
-            inputs = device_batch(mb, self._py_rng.random() < 0.5,
-                                  self.device)
+        for mb in inputs:
             with self._autocast():
                 loss, (metrics, _, _) = self.model(
-                    **inputs, generator=self.generator,
+                    **mb, generator=self.generator,
                     mas_noise_scale=mas_noise_scale)
-            (loss / len(micro)).backward()
+            (loss / len(inputs)).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach().float()
-        metrics = {k: v / len(micro) for k, v in sums.items()}
+        metrics = {k: v / len(inputs) for k, v in sums.items()}
         grads = [p.grad for p in self.params if p.grad is not None]
         metrics["loss/grad"] = clip_by_global_norm_scheduled(
             grads, self.step, self.cfg)
@@ -185,45 +290,194 @@ class Trainer:
         self.step += 1
         return metrics
 
-    # -- loop --------------------------------------------------------------
+    # -- input pipeline ----------------------------------------------------
 
-    def train(self, num_steps: Optional[int] = None, log_every: int = 100
-              ) -> Dict[str, float]:
-        """Step until ``num_steps`` (default ``train.train_num_steps``) or
-        the batches run out; log every ``log_every`` steps, where a
-        non-finite loss checkpoints and raises; checkpoint every
-        ``save_and_sample_every`` steps and at the end. Returns the last
-        logged metrics."""
-        num_steps = num_steps or self.cfg.train.train_num_steps
-        log_every = max(1, min(log_every, num_steps))
-        it = iter(self.batches)
-        logged: Dict[str, float] = {}
-        t0 = time.time()
-        while self.step < num_steps:
+    def device_batches(self, it: Iterator[Batch], prefetch: bool = True
+                       ) -> Iterator[List[Dict[str, torch.Tensor]]]:
+        """Each step's ``accum`` micro-batches of ``it`` on the device, made
+        on a worker thread ahead of the step when ``prefetch``. Ends when
+        ``it`` runs out; close it to stop the worker."""
+        if prefetch:
+            return self._prefetch(it)
+        return self._sync_batches(it)
+
+    def _sync_batches(self, it):
+        while True:
             try:
                 micro = [next(it) for _ in range(self.accum)]
             except StopIteration:
-                break
-            metrics = self.train_step(micro)
-            if self.step % log_every == 0:
-                logged = {k: float(v) for k, v in metrics.items()}
-                if not math.isfinite(logged["loss/all"]):
+                return
+            yield [batch_to_device(mb, self.device) for mb in micro]
+
+    def _prefetch(self, it, depth: int = 2):
+        """Up to ``depth`` steps' device batches made ahead by a worker
+        thread; its errors are raised here. On the card the worker copies
+        from pinned memory on a side stream and records an event, which
+        the consuming stream waits on; each tensor is recorded on that
+        stream, so the allocator keeps its memory until the step is done.
+        Closing the generator stops the worker (it never stays blocked on a
+        full queue) and joins it."""
+        cuda = self.device.type == "cuda"
+        stream = torch.cuda.Stream(self.device) if cuda else None
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
+        stop = threading.Event()
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return
+                except queue.Full:
+                    pass
+
+        def worker():
+            try:
+                while not stop.is_set():
+                    try:
+                        micro = [next(it) for _ in range(self.accum)]
+                    except StopIteration:
+                        put(_END)
+                        return
+                    if not cuda:
+                        put(([batch_to_device(mb, self.device)
+                              for mb in micro], None))
+                        continue
+                    with torch.cuda.stream(stream):
+                        dev = [batch_to_device(mb, self.device, pinned=True)
+                               for mb in micro]
+                    ready = torch.cuda.Event()
+                    ready.record(stream)
+                    put((dev, ready))
+            except BaseException as e:  # raised again on the consumer
+                put(e)
+
+        t = threading.Thread(target=worker, name="trainer-prefetch",
+                             daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _END:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                dev, ready = item
+                if ready is not None:
+                    consumer = torch.cuda.current_stream(self.device)
+                    consumer.wait_event(ready)
+                    for fields in dev:
+                        for v in fields.values():
+                            v.record_stream(consumer)
+                yield dev
+        finally:
+            stop.set()
+            t.join()
+            while not q.empty():
+                q.get_nowait()
+
+    # -- loop --------------------------------------------------------------
+
+    def train(self, num_steps: Optional[int] = None, log_every: int = 100,
+              prefetch: bool = True) -> Dict[str, float]:
+        """Step until ``num_steps`` (default ``train.train_num_steps``), the
+        batches run out or SIGTERM / SIGINT arrives; log every
+        ``log_every`` steps (stdout and tensorboard), where a non-finite
+        loss checkpoints and raises; every ``save_and_sample_every`` steps
+        checkpoint and run :meth:`eval_sample`; checkpoint at the end.
+        ``prefetch`` makes the next batches on a worker thread. Returns the
+        last logged metrics."""
+        num_steps = num_steps or self.cfg.train.train_num_steps
+        log_every = max(1, min(log_every, num_steps))
+        every = self.cfg.train.save_and_sample_every
+        writer = summary_writer(self.logs_folder)
+        batches = self.device_batches(iter(self.batches), prefetch)
+        preempted: List[int] = []
+
+        def on_signal(signum, frame):
+            preempted.append(signum)
+            print(f"signal {signum}: checkpointing at the next step "
+                  "boundary", flush=True)
+
+        old_handlers = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                old_handlers[sig] = signal.signal(sig, on_signal)
+            except ValueError:  # not the main thread
+                pass
+        logged: Dict[str, float] = {}
+        t0 = time.time()
+        try:
+            while self.step < num_steps and not preempted:
+                try:
+                    micro = next(batches)
+                except StopIteration:
+                    break
+                try:
+                    metrics = self.step_on(micro)
+                except Exception:
+                    # a checkpoint of what is left, never hiding the error
+                    try:
+                        self.save(self.step)
+                    except Exception as save_err:
+                        print(f"crash checkpoint failed: {save_err}",
+                              flush=True)
+                    raise
+                if self.step % log_every == 0:
+                    logged = {k: float(v) for k, v in metrics.items()}
+                    if not math.isfinite(logged["loss/all"]):
+                        self.save(self.step)
+                        raise FloatingPointError(
+                            f"non-finite loss at step {self.step}: {logged}")
+                    sps = log_every / (time.time() - t0)
+                    t0 = time.time()
+                    line = " ".join(f"{k}={v:.4f}"
+                                    for k, v in sorted(logged.items()))
+                    print(f"step {self.step} {line} steps/s={sps:.2f}",
+                          flush=True)
+                    if writer is not None:
+                        for k, v in logged.items():
+                            writer.add_scalar(k, v, self.step)
+                        writer.add_scalar("perf/steps_per_sec", sps,
+                                          self.step)
+                if self.step % every == 0:
                     self.save(self.step)
-                    raise FloatingPointError(
-                        f"non-finite loss at step {self.step}: {logged}")
-                sps = log_every / (time.time() - t0)
-                t0 = time.time()
-                line = " ".join(f"{k}={v:.4f}"
-                                for k, v in sorted(logged.items()))
-                print(f"step {self.step} {line} steps/s={sps:.2f}",
-                      flush=True)
-            if self.step % self.cfg.train.save_and_sample_every == 0:
-                self.save(self.step)
-        if self.step % self.cfg.train.save_and_sample_every != 0:
+                    if self.ds is not None:
+                        try:
+                            self.eval_sample(self.step, writer)
+                        except Exception as e:  # eval never stops training
+                            print(f"eval_sample failed: "
+                                  f"{type(e).__name__}: {e}", flush=True)
+        finally:
+            batches.close()
+            for sig, h in old_handlers.items():
+                signal.signal(sig, h)
+            if writer is not None:
+                writer.close()
+        if self.step % every != 0:
             self.save(self.step)
+        if preempted:
+            print(f"preempted: checkpointed at step {self.step}; rerun to "
+                  "auto-resume", flush=True)
+        else:
+            print("training complete", flush=True)
         return logged
 
     # -- evaluation --------------------------------------------------------
+
+    def _eval_batch(self) -> Batch:
+        """One utterance of ``data.val_files`` (of the training set when
+        that is the same folder or empty): batch 1, seed ``train.seed + 1``,
+        made once."""
+        if self._eval_cache is None:
+            ds = self.ds
+            if self.cfg.data.val_files != self.cfg.data.training_files:
+                val = TextMelDataset(self.cfg, root=self.cfg.data.val_files)
+                if len(val) > 0:
+                    ds = val
+            loader, _, _ = make_loader(ds, self.cfg, batch_size=1,
+                                       seed=self.cfg.train.seed + 1)
+            self._eval_cache = next(iter(loader))
+        return self._eval_cache
 
     @torch.no_grad()
     def eval_fixed_t_loss(self, batch: Batch,
@@ -262,6 +516,75 @@ class Trainer:
                     [loss_at(f, ema) for f in t_fracs]))
         return out
 
+    def eval_sample(self, step: int, writer=None, sampling_steps: int = 30
+                    ) -> Dict[str, float]:
+        """Synthesize the eval utterance (:meth:`_eval_batch`, always its
+        refer1) with ``sampling_steps``-step UniPC on the raw parameters,
+        in eval mode, up to ``data.max_mel_len`` frames; add the mel's L1
+        and correlation against the ground truth over their common frames
+        to :meth:`eval_fixed_t_loss`; write ``sample-<milestone>.mel.npy``
+        and, with ``train.vocoder_ckpt``, ``sample-<milestone>.wav``; log
+        the metrics, both mels' images and the audio to ``writer``.
+        Returns the metrics, also kept in ``last_eval_metrics``."""
+        from diff_vits_tpu_torch.data.audio import write_wav
+        batch = self._eval_batch()
+        fields = forward_inputs(batch_to_device(batch, self.device), True)
+        gen = torch.Generator().manual_seed(
+            self.cfg.train.seed * 1_000_003 + step)
+        mel, lengths = synthesize(
+            self.model, fields["text"], fields["text_lengths"],
+            fields["refer"], fields["refer_lengths"], fields["tone"],
+            fields["language"], generator=gen, sampling_steps=sampling_steps,
+            max_len=self.cfg.data.max_mel_len, device=self.device)
+        eval_metrics = self.eval_fixed_t_loss(batch)
+        mel_np = mel[0, :int(lengths[0])].float().cpu().numpy()
+        gt_np = np.asarray(batch.spec[0][:int(batch.spec_lengths[0])],
+                           np.float32)
+        n = min(len(mel_np), len(gt_np))
+        if n > 0:
+            eval_metrics["eval/mel_l1"] = float(
+                np.mean(np.abs(mel_np[:n] - gt_np[:n])))
+            denom = mel_np[:n].std() * gt_np[:n].std()
+            eval_metrics["eval/mel_corr"] = float(
+                np.corrcoef(mel_np[:n].ravel(), gt_np[:n].ravel())[0, 1]
+            ) if denom > 0 else 0.0
+        self.last_eval_metrics = eval_metrics
+        print("eval step {} {}".format(step, " ".join(
+            f"{k.split('/', 1)[1]}={v:.4f}"
+            for k, v in sorted(eval_metrics.items()))), flush=True)
+        milestone = step // self.cfg.train.save_and_sample_every
+        os.makedirs(self.logs_folder, exist_ok=True)
+        np.save(os.path.join(self.logs_folder,
+                             f"sample-{milestone}.mel.npy"), mel_np)
+        wav = None
+        if self.cfg.train.vocoder_ckpt:
+            if self._vocoder is None:
+                from diff_vits_tpu_torch.models.vocoder import load_vocoder
+                self._vocoder = load_vocoder(
+                    self.cfg, self.cfg.train.vocoder_ckpt, device=self.device)
+            with torch.inference_mode():
+                wav = self._vocoder(torch.from_numpy(mel_np[None]).to(
+                    self.device))[0].float().cpu().numpy()
+            write_wav(os.path.join(self.logs_folder,
+                                   f"sample-{milestone}.wav"),
+                      wav, self.cfg.data.sampling_rate)
+        if writer is not None:
+            from diff_vits_tpu_torch.utils.logging import (
+                plot_spectrogram_to_numpy)
+            for k, v in eval_metrics.items():
+                writer.add_scalar(k, v, step)
+            writer.add_image("gen/mel", plot_spectrogram_to_numpy(mel_np.T),
+                             step, dataformats="HWC")
+            writer.add_image("gt/mel", plot_spectrogram_to_numpy(gt_np.T),
+                             step, dataformats="HWC")
+            if wav is not None:
+                try:
+                    writer.add_audio("gen/audio", wav[None, :], step,
+                                     sample_rate=self.cfg.data.sampling_rate)
+                except ImportError as e:  # tensorboardX encodes with soundfile
+                    print(f"tensorboard audio skipped: {e}", flush=True)
+        return eval_metrics
+
     # -- checkpoints -------------------------------------------------------
 
     def save(self, step: int) -> str:
@@ -278,8 +601,18 @@ class Trainer:
         """Restore a checkpoint of :meth:`save`, or a params-only one
         (``{"model": ...}``, as converted from the reference): as JAX's
         ``Trainer.load`` does, the optimizer then starts afresh, the random
-        streams go on as they are, and the EMA starts from the params."""
+        streams go on as they are, and the EMA starts from the params.
+        A trainer state of the JAX package (``params`` / ``opt_state``) is
+        refused: resuming it is not ported yet."""
         step, state = ckpt_lib.load_checkpoint(path, map_location=self.device)
+        if "model" not in state:
+            if "params" in state:
+                raise ValueError(
+                    f"{path} is a trainer state of the JAX package (params, "
+                    "opt_state): resuming it is not ported yet (ROADMAP "
+                    "Queue 1, item 2); train.checkpoint."
+                    "load_model_state_dict reads its parameters for serving")
+            raise ValueError(f"{path}: the checkpoint holds no 'model'")
         self.model.load_state_dict(state["model"], strict=True)
         if "optimizer" in state:
             self.optimizer.load_state_dict(state["optimizer"])

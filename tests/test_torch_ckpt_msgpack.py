@@ -192,3 +192,17 @@ def test_port_checkpoints_still_load(tmp_path):
     other = checkpoint.save_checkpoint(str(tmp_path), 8, {"other": 1})
     with pytest.raises(ValueError, match="neither 'model'"):
         checkpoint.load_model_state_dict(other, cfg)
+
+
+def test_trainer_refuses_to_resume_a_jax_trainer_state(jax_checkpoint):
+    """``Trainer.load`` names the ROADMAP item that ports the resume of a
+    JAX trainer state, instead of failing on its missing 'model' entry;
+    the same file still serves through ``load_model_state_dict``."""
+    from diff_vits_tpu_torch.train.trainer import Trainer
+    _, cfg = tiny_configs()
+    trainer = Trainer(cfg, [], device="cpu")
+    with pytest.raises(ValueError, match=r"ROADMAP Queue 1, item 2"):
+        trainer.load(jax_checkpoint)
+    assert trainer.step == 0
+    sd = checkpoint.load_model_state_dict(jax_checkpoint, cfg)
+    assert set(sd) == set(trainer.model.state_dict())

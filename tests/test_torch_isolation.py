@@ -75,6 +75,21 @@ def test_walk_covers_the_frontend_cli_and_checkpoint_modules():
     assert bad == []
 
 
+def test_walk_covers_the_data_and_training_modules():
+    """The datasets, the native loader (and its C++ source, a copy of the
+    JAX package's), preprocessing, logging and the training command line
+    are in the walk above."""
+    names = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    assert {"diff_vits_tpu_torch/data/dataset.py",
+            "diff_vits_tpu_torch/data/native_loader.py",
+            "diff_vits_tpu_torch/data/preprocess.py",
+            "diff_vits_tpu_torch/data/aishell.py",
+            "diff_vits_tpu_torch/utils/logging.py",
+            "diff_vits_tpu_torch/train/cli.py"} <= names
+    assert (ROOT / "diff_vits_tpu_torch" / "csrc" / "loader.cc").read_bytes() \
+        == (ROOT / "csrc" / "loader.cc").read_bytes()
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
     from diff_vits_tpu_torch.models.diff_vits import synthesize

@@ -66,6 +66,13 @@ def _batch(seed, b=2, tx=9, ty=40, s=27):
                  refer2_lengths=np.array([len(c[2]) for c in cut]))
 
 
+def _workdir_files(path):
+    """Every file of the workdir but the tensorboard event files that
+    ``train()`` writes there, so a leftover ``model-N.ckpt.tmp`` shows."""
+    return sorted(p.name for p in path.iterdir()
+                  if not p.name.startswith("events.out.tfevents"))
+
+
 def _grads_of(trainer, micro):
     """Per micro-batch gradients of the loss that ``trainer.train_step``
     takes next, drawn from copies of its random streams; leaves the
@@ -187,11 +194,10 @@ def test_checkpoint_round_trip_keep_n_and_resume(tmp_path):
     batches = [_batch(s) for s in range(6)]
     tr = Trainer(cfg, batches, device="cpu", workdir=str(tmp_path))
     tr.train(3, log_every=1)
-    assert sorted(p.name for p in tmp_path.iterdir()) == [
-        "model-2.ckpt", "model-3.ckpt"]
+    assert _workdir_files(tmp_path) == ["model-2.ckpt", "model-3.ckpt"]
     tr.save(5)
     tr.save(4)
-    assert sorted(p.name for p in tmp_path.iterdir()) == [
+    assert _workdir_files(tmp_path) == [
         "model-4.ckpt", "model-5.ckpt"]
     assert ckpt_lib.latest_checkpoint_path(str(tmp_path)).endswith(
         "model-5.ckpt")
@@ -222,7 +228,7 @@ def test_non_finite_loss_checkpoints_and_raises(tmp_path):
     tr = Trainer(_cfg(), [bad], device="cpu", workdir=str(tmp_path))
     with pytest.raises(FloatingPointError, match="non-finite loss at step 1"):
         tr.train(1, log_every=1)
-    assert [p.name for p in tmp_path.iterdir()] == ["model-1.ckpt"]
+    assert _workdir_files(tmp_path) == ["model-1.ckpt"]
 
 
 def test_trainer_needs_a_card_or_an_explicit_cpu(monkeypatch):
