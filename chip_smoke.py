@@ -5,10 +5,11 @@
 
 ``--out DIR`` also writes the kernel rows, the serving numbers (the
 command lines' and the samplers' under ``cli``), the training numbers
-(flash route off and on), the variant's serving and training numbers and
-the training command line's numbers as ``DIR/kernels.json``,
-``DIR/path.json``, ``DIR/train.json``, ``DIR/variant.json`` and
-``DIR/train_cli.json``.
+(flash route off and on), the variant's serving and training numbers, the training command
+line's, the checkpoint bridge's and bv2's numbers as
+``DIR/kernels.json``, ``DIR/path.json``, ``DIR/train.json``,
+``DIR/variant.json``, ``DIR/train_cli.json``, ``DIR/ckpt_bridge.json``
+and ``DIR/bv2.json``.
 
 Phases, each of which fails the run:
 
@@ -175,12 +176,32 @@ Phases, each of which fails the run:
    gated calls a step, 41 UNet calls an ``eval_sample``); then, not gated,
    both loaders' batches/s at B=32, the step with the prefetch on and off
    in turns (3 runs a side of 2 warm-up and 5 timed steps), one
-   ``eval_sample``'s and one save's wall time and the peak memory.
+   ``eval_sample``'s and one save's wall time and the peak memory;
+16. ckpt_bridge (checkpoints between the reference, JAX and the port):
+   a seeded model3 at ``reference_parity`` widths written in the
+   reference's torch layout (``reference_state_dict``: ``module.``
+   prefixes, weight-normed WN layers), converted by ``utils.convert.main``
+   (bitwise but the WN leaves, 1e-6), served by ``BatchSynthesizer``
+   (K1-K5 counts, mels within 1e-6 of the seeded model's), trained 3
+   steps from it with the flash route on (K6 and K8 counts derived from
+   the code), exported by ``Trainer.save_flax`` and reloaded bitwise,
+   stepped on beside the original (deterministic algorithms) within the
+   original's own run-to-run gap, and resumed once through
+   ``train.cli --resume``;
+17. bv2 (the phoneme VAE on the sdp + flow variant): serving with the
+   variant phase's checks and the fp32 kernels-vs-plain parity, latency
+   at b=1 and 8, one training forward from the plain random weights (its
+   phoneme KL read, not gated: it overflows, the warm-up gap of ROADMAP
+   Queue 3), and 5 training steps with the flash route on from those
+   weights with the phoneme posterior's std at 1: K6 one a step, K8
+   ``bv2_flash_sites`` a step forward and backward (derived from the
+   code), ``loss/kl_ph`` finite and non-zero.
 
 The launch counts in the kernel table are those of each kernel's own path:
 serving for K1-K4 and the attention core, training for K6, the variant's
 serving for K5 and K7,
-training with the flash route on for K8 (forward and backward).
+training with the flash route on for K8 (forward and backward); the
+ckpt_bridge and bv2 phases gate their own counts and print them.
 The last line of standard output is one JSON object with the device; the
 line before it the kernel table. Exits non-zero, printing no result, when
 there is no CUDA device or the port's package is not beside this script.
@@ -193,6 +214,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -868,6 +890,148 @@ def k5_route_timing(torch, dev):
     return out
 
 
+# -- the reference's checkpoint layout, built from a flax-named tree ---------
+
+# the WN layers of the posterior encoder (transplant.wn_params), which the
+# reference keeps under torch weight_norm (weight_g / weight_v)
+REF_WEIGHT_NORM = ("vits.enc_q.enc.",)
+
+
+class _Recorded:
+    """A leaf a transplant helper would read: its layout (``kind``) and the
+    reference key(s) (``name``: the module prefix, or the full key of a
+    raw read); ``.T`` marks a transposed raw read (the EncSALayer's
+    ``in_proj_weight``)."""
+
+    def __init__(self, kind, name, transposed=False, taps=0):
+        self.kind, self.name = kind, name
+        self.transposed, self.taps = transposed, taps
+
+    @property
+    def T(self):
+        return _Recorded(self.kind, self.name, not self.transposed)
+
+
+class _AnyKey(str):
+    """The one key of :class:`_Probe`: every prefix test matches it."""
+
+    def startswith(self, *args):
+        return True
+
+
+class _Probe(dict):
+    """The state a transplant reads while its helpers record: every key is
+    in it, so every optional part (a bias, ``add_embedding``, a sampler)
+    is recorded, and the tree decides which exist."""
+
+    def __contains__(self, key):
+        return True
+
+    def __iter__(self):
+        return iter([_AnyKey("")])
+
+
+def _recorders(tp):
+    """The transplant module ``tp``'s leaf helpers, and its helpers that
+    read raw keys, replaced by recorders of (layout, reference key)."""
+    def with_bias(kind):
+        return lambda state, prefix: {
+            "kernel": _Recorded(kind, prefix),
+            "bias": _Recorded("raw", tp._j(prefix, "bias"))}
+
+    def raw(*pairs):
+        return lambda state, prefix: {
+            leaf: _Recorded("raw", tp._j(prefix, key)) for leaf, key in pairs}
+
+    return dict(
+        _get=lambda state, name: _Recorded("raw", name),
+        conv1d=with_bias("conv"), dense_from_conv1x1=with_bias("conv1x1"),
+        dense_from_linear=with_bias("linear"),
+        conv_tbc=raw(("kernel", "weight"), ("bias", "bias")),
+        layernorm_gamma_beta=raw(("scale", "gamma"), ("bias", "beta")),
+        layernorm=raw(("scale", "weight"), ("bias", "bias")),
+        groupnorm=raw(("scale", "weight"), ("bias", "bias")),
+        embedding=raw(("embedding", "weight")),
+        ffn1_conv_params=lambda state, prefix, kernel_size: {
+            "kernel": _Recorded("ffn1", tp._j(prefix, "ffn_1"),
+                                taps=kernel_size),
+            "bias": _Recorded("raw", tp._j(prefix, "ffn_1.0.bias"))})
+
+
+def _reference_leaves(np, rec, value, weight_norm):
+    """{reference key: numpy value} that ``rec``'s helper turns into
+    ``value`` (a flax leaf)."""
+    if rec.kind == "raw":
+        return {rec.name: value.T if rec.transposed else value}
+    if rec.kind == "ffn1":
+        # transplant.ffn1_conv_params: tap i >= 1 is Linear_i, Linear_0
+        # adds onto the centre tap and tap 0 has no Linear at all
+        if np.any(value[0]):
+            raise ValueError(f"{rec.name}: tap 0 of the FFN conv is not "
+                             "zero, which no reference checkpoint can hold")
+        out = {f"{rec.name}.{i}.weight": value[i].T
+               for i in range(1, rec.taps)}
+        out[f"{rec.name}.0.weight"] = np.zeros_like(value[0].T)
+        return out
+    w = {"conv": lambda k: k.transpose(2, 1, 0),
+         "conv1x1": lambda k: k.T[:, :, None],
+         "linear": lambda k: k.T}[rec.kind](value)
+    if not any(rec.name.startswith(p) for p in weight_norm):
+        return {f"{rec.name}.weight": w}
+    # torch weight_norm (dim 0): weight = g * v / ||v|| over the other axes
+    g = np.sqrt((w ** 2).sum(axis=tuple(range(1, w.ndim)), keepdims=True))
+    return {f"{rec.name}.weight_g": g, f"{rec.name}.weight_v": w}
+
+
+def reference_state_dict(tree, cfg, tp=None, prefix="module.",
+                         weight_norm=REF_WEIGHT_NORM, as_tensors=True):
+    """A state dict in the PyTorch reference's layout (model3's module
+    names, torch weight layouts, ``prefix`` on every key as DDP writes it)
+    whose transplant is the flax-named ``tree`` (numpy leaves), for the
+    configuration ``cfg``. The transplant module ``tp`` (default the
+    port's ``utils/transplant``; any module with the same helpers) is
+    driven with its helpers replaced by recorders, which yields each flax
+    leaf's reference key and layout; the keys are then filled from the
+    tree, transposed back. The layers under ``weight_norm`` are stored as
+    ``weight_g`` / ``weight_v``, so the transplant's collapse runs (it
+    then gives the tree's weight within rounding, not bitwise). The tap 0
+    of an EncSALayer FFN conv must be zero: the reference has no weight
+    for it. A leaf of ``tree`` that no helper reads raises. ``as_tensors``:
+    torch tensors, as a checkpoint holds them; else numpy views."""
+    import numpy as np
+    if tp is None:
+        from diff_vits_tpu_torch.utils import transplant as tp
+    saved = {name: getattr(tp, name) for name in _recorders(tp)}
+    for name, fn in _recorders(tp).items():
+        setattr(tp, name, fn)
+    try:
+        recorded = tp.diff_vits_params_from_config(_Probe(), cfg)
+    finally:
+        for name, fn in saved.items():
+            setattr(tp, name, fn)
+    out, unread = {}, []
+
+    def walk(rec, node, path):
+        for k, v in node.items():
+            if k not in rec:
+                unread.append(f"{path}{k}")
+            elif isinstance(v, dict):
+                walk(rec[k], v, f"{path}{k}.")
+            else:
+                out.update(_reference_leaves(np, rec[k], np.asarray(v),
+                                             weight_norm))
+    walk(recorded, tree, "")
+    if unread:
+        raise ValueError(f"the transplant reads no reference key for "
+                         f"{len(unread)} leaves, e.g. {unread[:3]}")
+    if not as_tensors:
+        return {prefix + k: v for k, v in out.items()}
+    import torch
+    return {prefix + k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            for k, v in out.items()}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -962,6 +1126,11 @@ def main(argv=None) -> int:
     phases.update(vt_ok)
     tc_ok, train_cli = train_cli_phase(torch, dev, card)
     phases.update(tc_ok)
+    cb_ok, bridge = ckpt_bridge_phase(torch, dev, card)
+    phases.update(cb_ok)
+    bv_ok, bv2 = bv2_phase(torch, dev, card,
+                           variant_train["on"]["step_s"])
+    phases.update(bv_ok)
     log(f"training the variant, flash off vs on: median step "
         f"{variant_train['off']['step_s'] * 1e3:.1f} vs "
         f"{variant_train['on']['step_s'] * 1e3:.1f} ms, peak "
@@ -981,6 +1150,9 @@ def main(argv=None) -> int:
             dict(variant, train=variant_train), indent=1))
         (out_dir / "train_cli.json").write_text(json.dumps(train_cli,
                                                            indent=1))
+        (out_dir / "ckpt_bridge.json").write_text(json.dumps(bridge,
+                                                             indent=1))
+        (out_dir / "bv2.json").write_text(json.dumps(bv2, indent=1))
 
     table = {"kernels": [dict(
         name=name, route="cuda", source=SOURCE[name],
@@ -1646,7 +1818,7 @@ def _train_cfg(**vits):
 
 
 def train_run(torch, dev, card, cfg, what, *, use_flash, steps,
-              profile=False):
+              profile=False, prepare=None):
     """``Trainer`` on ``cfg`` (random weights from ``train.seed``, bf16
     autocast) with the flash route ``use_flash``, on batches of 32 shaped
     like the loader's (seed 8, the same for every run): 2 warm-up steps
@@ -1654,8 +1826,10 @@ def train_run(torch, dev, card, cfg, what, *, use_flash, steps,
     timed ones. Checks finite losses, every parameter and the EMA changed,
     the EMA no alias of the parameters, and each step's launches: one K6,
     the K8 forward and backward once per call through the flash gate (more
-    than none with the route on), no other kernel. Returns (ok, counts over
-    the steps, numbers, trainer, a further batch)."""
+    than none with the route on), no other kernel. ``prepare(model)``, when
+    given, changes the random weights before the first step (the EMA
+    starts from the result). Returns (ok, counts over the steps, numbers,
+    trainer, a further batch)."""
     import math
     import numpy as np
     from torch.profiler import ProfilerActivity, profile as profiler
@@ -1670,6 +1844,9 @@ def train_run(torch, dev, card, cfg, what, *, use_flash, steps,
     batches = _train_batches(np, b, t_x, t_y, t_y * 2 // 3 + 1, len(symbols),
                              seed=8)
     trainer = Trainer(cfg, batches, device=dev)
+    if prepare is not None:
+        prepare(trainer.model)
+        trainer.ema = [p.detach().float().clone() for p in trainer.params]
     set_use_flash(trainer.model, use_flash)
     n_params = sum(p.numel() for p in trainer.params)
     log(f"{what}: {n_params} parameters, B={b}, text {t_x}, mel {t_y}, "
@@ -3136,6 +3313,470 @@ def train_cli_phase(torch, dev, card, cfg=None, n_utts=TRAIN_CLI_UTTS,
         torch.cuda.empty_cache()
     return {"train_cli": good}, numbers
 
+
+
+# -- ckpt_bridge: checkpoints between the reference, JAX and the port ------
+
+BRIDGE_STEPS = 3              # training steps from the converted checkpoint
+BRIDGE_MORE = 2               # steps after the export, on every copy
+
+
+def _bridge_batches(np, cfg, n, seed):
+    """``n`` batches of ``train_run``'s shape (B, text 601, mel 400,
+    prompts 267)."""
+    from diff_vits_tpu_torch.text.symbols import symbols
+    t_y = cfg.data.max_mel_len
+    it = _train_batches(np, cfg.train.train_batch_size,
+                        cfg.data.max_text_len * 2 + 1, t_y, t_y * 2 // 3 + 1,
+                        len(symbols), seed=seed)
+    return [next(it) for _ in range(n)]
+
+
+def _steps(trainer, batches):
+    """``trainer.train_step`` on each batch, the launches counted over all
+    of them; returns (metrics as floats a step, counts)."""
+    from diff_vits_tpu_torch import ops
+    ops.reset_launches()
+    losses = []
+    for b in batches:
+        metrics = trainer.train_step(b)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    return losses, ops.launch_counts()
+
+
+def _train_want(counts, steps, flash_sites):
+    """Launches of ``steps`` training steps with ``flash_sites`` gated
+    attention calls a step, derived from the code (:func:`_want_step`)."""
+    return {k: v * steps for k, v in _want_step(counts, flash_sites).items()}
+
+
+def _trainer_state(trainer):
+    """(parameters, exp_avg, exp_avg_sq, AdamW step, EMA) of ``trainer``."""
+    st = [trainer.optimizer.state[p] for p in trainer.params]
+    return dict(params=[p.detach() for p in trainer.params],
+                exp_avg=[s["exp_avg"] for s in st],
+                exp_avg_sq=[s["exp_avg_sq"] for s in st],
+                step=[s["step"].reshape(()) for s in st], ema=trainer.ema)
+
+
+def _max_gap(a, b):
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def _loss_gap(a, b):
+    return max(abs(x[k] - y[k]) for x, y in zip(a, b) for k in x)
+
+
+def ckpt_bridge_phase(torch, dev, card, cfg=None):
+    """Checkpoints carried between the reference, the JAX package and the
+    port, model3 at ``reference_parity`` widths:
+
+    1. a port ``DiffVits`` (``init_random`` seed 0; each EncSALayer FFN
+       conv's tap 0 zeroed, which the reference has no weight for) turned
+       by :func:`reference_state_dict` into the reference's layout
+       (``module.`` prefixes, the WN layers as weight_g / weight_v) and
+       ``torch.save``d as ``{"step": 123, "model": ...}``;
+    2. ``utils.convert.main`` on it: the converted state dict equals the
+       seeded one bitwise, the WN leaves within 1e-6 of their largest
+       entry;
+    3. the converted checkpoint served by ``BatchSynthesizer`` (b=8, bf16,
+       the path phase's requests and seed): K1-K5 counts as ``_want``
+       derives them, the mels against the seeded model's under the same
+       route and seed within 1e-6 x max(1, max |mel|) (serving reads no
+       leaf that differs, and the kernels are deterministic: 0 expected);
+    4. ``Trainer.load`` of it and BRIDGE_STEPS steps with the flash route
+       on: K6 and K8 counts derived from the code (1 and
+       FLASH_SITES_MODEL3 + FLASH_SITES_MODEL3 a step), finite losses;
+    5. ``save_flax`` of that trainer loaded into a fresh ``Trainer``:
+       params, exp_avg, exp_avg_sq, step and EMA bitwise equal; with the
+       original's generator and coin-flip states copied across, it, the
+       original and a copy of the original through the port's own
+       checkpoint take BRIDGE_MORE steps on the same batches under
+       ``torch.use_deterministic_algorithms``: the JAX-state copy's losses
+       and params within the gap between the two runs of the original's
+       state (0 there);
+    6. ``train.cli --resume <the flax file>`` (no data: no step more)
+       prints the resume line at that step.
+    ``cfg`` (default ``reference_parity``, EMA on, seed 0) lets the phase
+    run on the CPU at tiny widths (the launch gates then fail). Returns
+    ({phase: ok}, numbers)."""
+    import dataclasses
+    import math
+    import tempfile
+    import numpy as np
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
+    from diff_vits_tpu_torch.models.diff_vits import DiffVits
+    from diff_vits_tpu_torch.nn.fairseq import EncSALayer
+    from diff_vits_tpu_torch.text.symbols import symbols
+    from diff_vits_tpu_torch.train import checkpoint as ckpt_lib
+    from diff_vits_tpu_torch.train import cli as train_cli
+    from diff_vits_tpu_torch.train.trainer import Trainer
+    from diff_vits_tpu_torch.utils import convert
+    from diff_vits_tpu_torch.utils.init import init_random
+
+    ok, numbers = {}, dict(card=card)
+    cfg = cfg or _train_cfg()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    d = Path(tmp.name)
+    cfg_path = d / "config.json"
+    cfg_path.write_text(json.dumps(dataclasses.replace(
+        cfg, data=dataclasses.replace(
+            cfg.data, training_files=str(d / "no_data"),
+            val_files=str(d / "no_data"))).to_dict()))
+
+    # 1-2: the reference's layout, then the converter's command line
+    model = DiffVits(cfg, len(symbols), device="cpu")
+    init_random(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, EncSALayer):
+                m.ffn.ffn_1.weight[:, :, 0] = 0.0
+    seeded = model.state_dict()
+    ref = reference_state_dict(convert.to_flax_params(model), cfg)
+    pt = d / "model-123.pt"
+    torch.save({"step": 123, "model": ref}, pt)
+    del ref
+    t0 = time.perf_counter()
+    conv_path = convert.main(["--ref_ckpt", str(pt), "-c", str(cfg_path),
+                              "--out_dir", str(d / "converted")])
+    convert_s = time.perf_counter() - t0
+    step, state = ckpt_lib.load_checkpoint(conv_path)
+    got = state["model"]
+    wn = [k for k in seeded if any(k.startswith(p) for p in REF_WEIGHT_NORM)]
+    exact = all(torch.equal(got[k], v) for k, v in seeded.items()
+                if k not in wn)
+    wn_gap = max(float((got[k] - seeded[k]).abs().max()
+                       / seeded[k].abs().max()) for k in wn)
+    n_params = sum(v.numel() for v in got.values())
+    ok["bridge_convert"] = (step == 123 and set(got) == set(seeded)
+                            and exact and bool(wn) and wn_gap <= 1e-6)
+    log(f"ckpt_bridge: {n_params} parameters; reference .pt "
+        f"{pt.stat().st_size / 1e9:.3f} GB ({len(wn)} weight-normed "
+        f"leaves); convert {convert_s:.2f} s wall; every other leaf "
+        f"bitwise {exact}, WN leaves max |diff| / max |w| {wn_gap:.2e} "
+        f"(gate 1e-6); card {card}")
+    numbers.update(convert_s=convert_s, n_params=n_params, wn_gap=wn_gap)
+
+    # 3: serve the converted checkpoint and the seeded model alike
+    mels = {}
+    for what, sd in (("converted", got), ("seeded", seeded)):
+        syn = BatchSynthesizer(cfg, sd, batch_size=8, mel_buckets=(400, 800),
+                               dtype=torch.bfloat16, device=dev)
+        reqs = _requests(torch, torch.Generator().manual_seed(1),
+                         len(symbols), syn.refer_frames)
+        calls, handles = _count_path_calls(syn.model)
+        ops.reset_launches()
+        results = syn.synthesize_all(reqs, seed=0)
+        sync()
+        counts = ops.launch_counts()
+        for h in handles:
+            h.remove()
+        mels[what] = [m for _, m in results]
+        if what == "converted":
+            want = _want(calls)
+            ok["bridge_serve"] = (counts == want and all(
+                np.isfinite(m).all() for m in mels[what])
+                and [r[0] for r in results] == [r[0] for r in reqs])
+            log(f"ckpt_bridge serve (converted, b=8 bf16): launches {counts}"
+                f" (want {want}); frames {[m.shape[0] for m in mels[what]]}")
+        del syn
+    del model, seeded
+    scale = max(1.0, max(float(np.abs(m).max()) for m in mels["seeded"]))
+    same_shape = [a.shape for a in mels["converted"]] == \
+        [b.shape for b in mels["seeded"]]
+    mel_gap = max(float(np.abs(a - b).max()) for a, b in
+                  zip(mels["converted"], mels["seeded"])) if same_shape \
+        else math.inf
+    ok["bridge_serve_parity"] = mel_gap <= 1e-6 * scale
+    log(f"ckpt_bridge serve: converted vs seeded mels max |diff| "
+        f"{mel_gap:.3e} (gate {1e-6 * scale:.1e}, 1e-6 x max(1, max |mel| "
+        f"{scale:.3f}))")
+    numbers.update(serve_mel_gap=mel_gap, serve_launches=counts)
+
+    # 4: train from it, flash route on (Trainer turns it on on the card)
+    batches = _bridge_batches(np, cfg, BRIDGE_STEPS + BRIDGE_MORE, seed=8)
+    orig = Trainer(cfg, [], device=dev)
+    orig.load(conv_path)
+    t0 = time.perf_counter()
+    losses, counts = _steps(orig, batches[:BRIDGE_STEPS])
+    sync()
+    train_s = time.perf_counter() - t0
+    want = _train_want(counts, BRIDGE_STEPS, FLASH_SITES_MODEL3)
+    finite = all(math.isfinite(v) for m in losses for v in m.values())
+    ok["bridge_train"] = (counts == want and finite
+                          and orig.step == 123 + BRIDGE_STEPS)
+    log(f"ckpt_bridge train from the converted checkpoint: steps 124-"
+        f"{orig.step}, "
+        f"loss/all {[round(m['loss/all'], 4) for m in losses]}, launches "
+        f"{counts} (want {want}, derived), finite {finite}; "
+        f"{train_s:.2f} s wall")
+
+    # 5: the JAX trainer state out and back in
+    flax_step = orig.step
+    sync()
+    orig.logs_folder = str(d / "flax")
+    t0 = time.perf_counter()
+    flax_path = orig.save_flax(flax_step)
+    save_flax_s = time.perf_counter() - t0
+    orig.logs_folder = str(d / "port")
+    t0 = time.perf_counter()
+    port_path = orig.save(orig.step)
+    save_s = time.perf_counter() - t0
+    copies = {}
+    for what, path in (("flax", flax_path), ("port", port_path)):
+        copies[what] = Trainer(cfg, [], device=dev)
+        t0 = time.perf_counter()
+        copies[what].load(path)
+        numbers[f"load_{what}_s"] = time.perf_counter() - t0
+    a, b = _trainer_state(orig), _trainer_state(copies["flax"])
+    same = {k: all(torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a}
+    ok["bridge_flax_state"] = all(same.values()) and \
+        copies["flax"].step == orig.step
+    flax_gb = Path(flax_path).stat().st_size / 1e9
+    port_gb = Path(port_path).stat().st_size / 1e9
+    log(f"ckpt_bridge save_flax: {save_flax_s:.2f} s wall ({flax_gb:.2f} GB)"
+        f" against the port's save {save_s:.2f} s ({port_gb:.2f} GB); load "
+        f"{numbers['load_flax_s']:.2f} / "
+        f"{numbers['load_port_s']:.2f} s; reloaded bitwise {same}; "
+        f"card {card}")
+    copies["flax"].generator.set_state(orig.generator.get_state())
+    copies["flax"]._py_rng.setstate(orig._py_rng.getstate())
+    # two runs from one state differ after a step (reductions whose order
+    # varies, read below); the deterministic algorithms take that out, so
+    # the band is 0 and the gate exact
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")    # cuBLAS's workspace alert
+            for what, tr in (("orig", orig), ("port", copies["port"]),
+                             ("flax", copies["flax"])):
+                runs[what] = _steps(tr, batches[BRIDGE_STEPS:])[0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # the same two steps on two more copies with the default algorithms:
+    # the run-to-run gap the deterministic ones take out (read, not gated)
+    free = {}
+    for i in range(2):
+        tr = Trainer(cfg, [], device=dev)
+        tr.load(port_path)
+        free[i] = (_steps(tr, batches[BRIDGE_STEPS:])[0], tr.params)
+        del tr
+    free_gap = [_loss_gap(free[0][0], free[1][0]),
+                _max_gap(free[0][1], free[1][1])]
+    del free
+    band_loss = _loss_gap(runs["orig"], runs["port"])
+    band_param = _max_gap(orig.params, copies["port"].params)
+    gap_loss = _loss_gap(runs["orig"], runs["flax"])
+    gap_param = _max_gap(orig.params, copies["flax"].params)
+    ok["bridge_flax_resume"] = (gap_loss <= band_loss
+                                and gap_param <= band_param)
+    log(f"ckpt_bridge resume: {BRIDGE_MORE} more steps on the same batches "
+        f"(deterministic algorithms); the JAX-state copy against the "
+        f"original: losses max |diff| {gap_loss:.3e}, params "
+        f"{gap_param:.3e}; the port-checkpoint copy against it (the band): "
+        f"{band_loss:.3e} and {band_param:.3e} (gate: within the band); "
+        f"two copies with the default algorithms: {free_gap[0]:.3e} and "
+        f"{free_gap[1]:.3e}")
+    numbers.update(save_flax_s=save_flax_s, save_s=save_s,
+                   flax_GB=flax_gb, port_GB=port_gb,
+                   band=[band_loss, band_param], gap=[gap_loss, gap_param],
+                   resume_losses=runs, default_algorithms_gap=free_gap,
+                   train_s=train_s, losses=losses)
+    del orig, copies
+    torch.cuda.empty_cache()
+
+    # 6: the training command line resumes the JAX trainer state
+    out = _Tee(sys.stdout)
+    old, sys.stdout = sys.stdout, out
+    try:
+        trainer = train_cli.main(["-c", str(cfg_path), "--workdir",
+                                  str(d / "cli"), "--resume", flax_path,
+                                  "--steps", str(flax_step),
+                                  "--device", str(dev)])
+    finally:
+        sys.stdout = old
+    line = f"resumed from {flax_path} at step {flax_step}"
+    ok["bridge_cli_resume"] = (line in out.text()
+                               and trainer.step == flax_step)
+    log(f"ckpt_bridge cli: --resume of the JAX trainer state printed "
+        f"{line!r}: {line in out.text()}")
+    del trainer
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return ok, numbers
+
+
+# -- bv2: the phoneme prosody VAE on the sdp + flow variant ----------------
+
+FLASH_SITES_VARIANT = 20      # gated calls a sdp + flow variant step
+PH_PRIOR_LAYERS = 4           # PhPriorEncoder's EncSALayers
+
+
+def bv2_flash_sites(cfg):
+    """Gated attention calls of one bv2 training step, derived from the
+    code: the sdp + flow variant's FLASH_SITES_VARIANT and the phoneme
+    prior encoder's PH_PRIOR_LAYERS layers (8 heads of
+    vits.hidden_channels) on the loader's text buffer (2 max_text_len + 1),
+    each where ``flash_ok`` passes at that shape."""
+    from diff_vits_tpu_torch.ops.flash_attention import flash_ok
+    t = cfg.data.max_text_len * 2 + 1
+    shape = (None, 8, t, cfg.vits.hidden_channels // 8)
+    return FLASH_SITES_VARIANT + PH_PRIOR_LAYERS * int(
+        flash_ok(shape, shape, True))
+
+
+def unit_phoneme_posterior_std(torch, model):
+    """Zero the log-std half of the phoneme posterior's projection
+    (``vits.phoneme_vae.ph_encoder_q.proj``), so that it starts as N(m, 1).
+    From plain random weights its log-std takes the scale of the random
+    frame posterior's z and exp(log-std) overflows the phoneme KL at the
+    first step, in the port as in the JAX package: the reference trains
+    the VAE only after ``phoneme_vae_warmup_steps`` (bv2.py:770-773), a
+    warm-up neither package applies (ROADMAP Queue 3)."""
+    proj = model.vits.phoneme_vae.ph_encoder_q.proj
+    half = proj.out_features // 2
+    with torch.no_grad():
+        proj.weight[half:] = 0.0
+        proj.bias[half:] = 0.0
+    return model
+
+
+def bv2_phase(torch, dev, card, variant_step_s=None):
+    """The bv2 configuration (``reference_parity`` widths, the stochastic
+    duration predictor, the residual-coupling flow and the phoneme VAE;
+    random weights from seed 0): ``BatchSynthesizer`` (b=8, bf16, mel
+    buckets 400 and 800, the K5 route on) with the variant phase's
+    checks, order, finite mels, K5 and K7 launched, the counters equal to
+    ``_want``'s; the fp32 kernels-vs-plain parity run (injected duration
+    and initial noise, zero prior noise: max |mel difference| <= 5e-3);
+    latency at b=1 and 8; one training forward from the plain random
+    weights, its ``loss/kl_ph`` read (not gated: it overflows, see
+    :func:`unit_phoneme_posterior_std`); then ``train_run`` with the flash
+    route on (2 warm-up and 3 timed steps) from those weights with the
+    phoneme posterior's std at 1: K6 one a step and K8 forward and
+    backward ``bv2_flash_sites`` a step over the run, derived from the
+    code, and ``loss/kl_ph`` finite and non-zero every step. Returns
+    ({phase: ok}, numbers)."""
+    import math
+    import numpy as np
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
+    from diff_vits_tpu_torch.models.diff_vits import DiffVits, synthesize
+    from diff_vits_tpu_torch.nn.unet1d import set_use_fused
+    from diff_vits_tpu_torch.text.symbols import symbols
+    from diff_vits_tpu_torch.train.trainer import Trainer, device_batch
+    from diff_vits_tpu_torch.utils.init import init_random
+
+    ok = {}
+    cfg = _train_cfg(duration_predictor="sdp", use_flow=True,
+                     use_phoneme_vae=True)
+    model = DiffVits(cfg, len(symbols), device=dev)
+    init_random(model, torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_vae = sum(p.numel() for p in model.vits.phoneme_vae.parameters())
+    log(f"bv2: reference_parity widths, sdp, residual-coupling flow, "
+        f"phoneme VAE ({n_vae} of {n_params} parameters), random weights "
+        "(seed 0)")
+    syn = BatchSynthesizer(cfg, model.state_dict(), batch_size=8,
+                           mel_buckets=(400, 800), dtype=torch.bfloat16,
+                           device=dev)
+    set_use_fused(syn.model, True)
+    reqs = _requests(torch, torch.Generator().manual_seed(1), len(symbols),
+                     syn.refer_frames)
+    calls, handles = _count_path_calls(syn.model)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = syn.synthesize_all(reqs, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for h in handles:
+        h.remove()
+    want = _want(calls)
+    order_ok = [r[0] for r in results] == [r[0] for r in reqs]
+    finite = all(np.isfinite(m).all() and m.ndim == 2 and m.shape[1] == 100
+                 for _, m in results)
+    launched = all(counts[k] > 0 for k in ("fused_rel_self_attention",
+                                           "unconstrained_rqs"))
+    ok["bv2_serve"] = order_ok and finite and launched and counts == want
+    log(f"bv2 serve: {len(results)} requests in {wall:.3f} s (first call of "
+        f"each bucket shape included); frames "
+        f"{[m.shape[0] for _, m in results]}; launches {counts} (want "
+        f"{want}); order {order_ok}; finite {finite}")
+
+    gen = torch.Generator().manual_seed(2)
+    syn.batch_size = 2
+    batch = syn.pad_batch(reqs[:2], 128)
+    noise = torch.randn(2, 400, 100, generator=gen).to(dev)
+    dur_noise = torch.randn(2, 128, 2, generator=gen).to(dev)
+    out, launches = {}, {}
+    for route in (True, False):
+        set_use_fused(model, route)
+        ops.reset_launches()
+        out[route] = synthesize(model, *batch, noise_scale=0.0, max_len=400,
+                                init_noise=noise, dur_noise=dur_noise,
+                                device=dev)
+        launches[route] = ops.launch_counts()
+    (mel_k, len_k), (mel_p, len_p) = out[True], out[False]
+    err = (mel_k - mel_p).abs().max().item()
+    ok["bv2_parity_fp32"] = (
+        bool(torch.equal(len_k, len_p)) and err <= 5e-3
+        and launches[True]["fused_rel_self_attention"] > 0
+        and launches[True]["unconstrained_rqs"] > 0
+        and not any(launches[False].values())
+        and bool(torch.isfinite(mel_k).all()))
+    log(f"bv2 parity fp32 (kernels vs plain, 2 utterances, 400 frames): "
+        f"frames {len_k.tolist()} vs {len_p.tolist()}, max |diff| "
+        f"{err:.3e} (gate 5e-3); launches {launches[True]} vs "
+        f"{launches[False]}")
+    del model
+    short = [r for r in reqs if len(r[1]) <= 128]
+    serving = serving_numbers(torch, syn, short, card, "bv2 serving")
+    del syn
+    torch.cuda.empty_cache()
+
+    # from plain random weights the phoneme KL overflows at once (the
+    # warm-up gap, ROADMAP Queue 3): one training forward, read, not gated
+    raw = Trainer(cfg, [], device=dev)
+    with torch.no_grad(), raw._autocast():
+        _, (m, _, _) = raw.model(**device_batch(
+            _bridge_batches(np, cfg, 1, seed=8)[0], True, dev),
+            generator=raw.generator,
+            mas_noise_scale=cfg.train.mas_noise_scale_initial)
+    raw_kl_ph = float(m["loss/kl_ph"])
+    del raw, m
+    log(f"bv2 from plain random weights (seed 0): one training forward's "
+        f"loss/kl_ph {raw_kl_ph} (the phoneme posterior's exp(log-std) "
+        "overflows; the reference warms up 200k steps first, neither "
+        "package does); training starts with that posterior's std at 1")
+    steps = 5
+    good, total, train, trainer, _ = train_run(
+        torch, dev, card, cfg, "bv2 train (flash on)", use_flash=True,
+        steps=steps,
+        prepare=lambda model: unit_phoneme_posterior_std(torch, model))
+    del trainer
+    torch.cuda.empty_cache()
+    sites = bv2_flash_sites(cfg)
+    want = _train_want(total, steps, sites)
+    kl_ph = [m["loss/kl_ph"] for m in train["losses"]]
+    kl_ok = all(math.isfinite(v) and v != 0.0 for v in kl_ph)
+    ok["bv2_train"] = good and total == want and kl_ok
+    log(f"bv2 train: {steps} steps, launches {total} (want {want}: "
+        f"{sites} gated calls a step, derived), loss/kl_ph {kl_ph} "
+        f"(finite, non-zero {kl_ok}); median step "
+        f"{train['step_s'] * 1e3:.1f} ms against the variant's "
+        + (f"{variant_step_s * 1e3:.1f} ms" if variant_step_s else "(not run)")
+        + f"; serving b=1 {serving['b1']['latency_s'] * 1e3:.1f} ms, b=8 "
+        f"{serving['b8']['latency_s'] * 1e3:.1f} ms; card {card}")
+    return ok, dict(card=card, n_params=n_params, n_vae_params=n_vae,
+                    serve_wall_s=wall, launches=counts, want=want,
+                    parity_max_abs=err, serving=serving, train=train,
+                    train_launches=total, flash_sites_per_step=sites,
+                    variant_step_s=variant_step_s, raw_init_kl_ph=raw_kl_ph)
 
 if __name__ == "__main__":
     sys.exit(main())

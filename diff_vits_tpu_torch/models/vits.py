@@ -4,7 +4,10 @@ losses) and the inference path (text -> durations -> expanded content).
 Port of ``VITS.__call__``, ``_predict_durations``, ``predict_lengths`` and
 ``infer`` of ``diff_vits_tpu/models/vits.py``. Both cover every duration
 predictor (``unet``, ``conv``, ``sdp``) with or without the spec flow
-(residual or transformer coupling). The phoneme VAE is not ported.
+(residual or transformer coupling), and the bv2 phoneme prosody VAE
+(``use_phoneme_vae``, ``models/phoneme_vae.py``). As in JAX,
+``phoneme_vae_warmup_steps`` is read by nothing: the VAE's prosody and KL
+count from the first step.
 """
 from __future__ import annotations
 
@@ -24,15 +27,15 @@ from diff_vits_tpu_torch.models.encoders import (
     PosteriorEncoder, PromptEncoder, TextEncoder)
 from diff_vits_tpu_torch.models.flow import (
     ResidualCouplingBlock, TransformerCouplingBlock)
+from diff_vits_tpu_torch.models.phoneme_vae import PhonemeVAE
 from diff_vits_tpu_torch.nn.embeddings import TextTimeEmbedding
 from diff_vits_tpu_torch.ops.mas import maximum_path
 
 
 def check_supported(cfg: VitsConfig) -> None:
-    """The phoneme VAE (bv2) is a later slice."""
-    if cfg.use_phoneme_vae:
-        raise NotImplementedError("the port has no phoneme VAE "
-                                  "(use_phoneme_vae=True)")
+    """Refuse what the JAX VITS cannot build either: an unknown duration
+    predictor. Every other configuration ``core.config`` accepts is
+    built."""
     if cfg.duration_predictor not in ("unet", "conv", "sdp"):
         raise ValueError(f"unknown duration_predictor "
                          f"{cfg.duration_predictor!r}")
@@ -83,6 +86,10 @@ class VITS(nn.Module):
                 n_flows=c.n_flow_layer, gin_channels=c.gin_channels, **kw)
         else:
             self.flow = None
+        self.phoneme_vae = (PhonemeVAE(
+            c.inter_channels, c.hidden_channels, n_flow_layer=c.n_flow_layer,
+            gin_channels=c.gin_channels, **kw)
+            if c.use_phoneme_vae else None)
         self.o_proj = PromptEncoder(c.inter_channels, c.hidden_channels,
                                     c.inter_channels, 6, 0.2,
                                     gin_channels=c.gin_channels, **kw)
@@ -99,8 +106,10 @@ class VITS(nn.Module):
         (and dropout needs eval mode). The stochastic predictor's draw is
         ``dur_noise`` [B, Tx, 2] (a standard normal draw) when given, else
         from ``generator``, else from a generator seeded 0 (JAX draws from
-        PRNGKey(0) there). Returns (content [B, Ty, C], y_lengths,
-        (l_length, loss_kl, loss_kl_ph = 0))."""
+        PRNGKey(0) there). With the phoneme VAE, ``generator`` also draws
+        its posterior noise (zero without one) and the prosody is added to
+        z before ``o_proj``. Returns (content [B, Ty, C], y_lengths,
+        (l_length, loss_kl, loss_kl_ph)), loss_kl_ph 0 without the VAE."""
         kind = self.cfg.duration_predictor
         g = self.ref_enc(y)[:, None, :]
         x_h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, tone, language,
@@ -135,9 +144,13 @@ class VITS(nn.Module):
         m_p_e = torch.matmul(attn, m_p.float())
         logs_p_e = torch.matmul(attn, logs_p.float())
         loss_kl = masking.kl_loss(z_p, logs_q, m_p_e, logs_p_e, y_mask)
+        loss_kl_ph = torch.zeros((), device=l_length.device)
+        if self.phoneme_vae is not None:
+            prosody, loss_kl_ph = self.phoneme_vae(z, attn, x_h, x_mask, g=g,
+                                                   generator=generator)
+            z = z + prosody
         content = self.o_proj(z, y_lengths, g=g, generator=generator)
-        return content, y_lengths, (l_length, loss_kl,
-                                    torch.zeros((), device=l_length.device))
+        return content, y_lengths, (l_length, loss_kl, loss_kl_ph)
 
     @torch.no_grad()
     def _alignment(self, z_p, m_p, logs_p, attn_mask, mas_noise_scale,
@@ -206,7 +219,9 @@ class VITS(nn.Module):
         stochastic duration predictor's noise is ``dur_noise`` or drawn
         from ``generator`` first; the prior noise is drawn from
         ``generator`` next (unused when noise_scale is 0). The spec flow,
-        when configured, runs in reverse on the prior sample."""
+        when configured, runs in reverse on the prior sample; the phoneme
+        VAE's prosody, when configured, is added after it (its prior noise
+        drawn from ``generator`` last, also unused at noise_scale 0)."""
         g, x_h, m_p, logs_p, x_mask, w_ceil, out_lengths = \
             self._predict_durations(x, x_lengths, y, y_lengths, tone,
                                     language, length_scale, dur_noise,
@@ -225,5 +240,9 @@ class VITS(nn.Module):
         if self.flow is not None:
             y_keep = y_mask[..., None]
             z_p = self.flow(z_p, y_keep, g=g, reverse=True) * y_keep
+        if self.phoneme_vae is not None:
+            z_p = z_p + self.phoneme_vae.infer(
+                attn, x_h, x_mask, g=g, noise_scale=noise_scale,
+                generator=generator)
         content = self.o_proj(z_p, out_lengths, g=g)
         return content, out_lengths

@@ -5,17 +5,20 @@ holds the step and the trainer's state (model, optimizer, EMA, random
 streams), written with ``torch.save`` to a temporary name and renamed, so
 a cut write leaves no half file under the final name.
 
-``load_checkpoint`` also reads the JAX package's flax msgpack checkpoints
-(``utils/msgpack_ckpt``, no flax needed), telling the formats apart by
-their first bytes; ``load_model_state_dict`` takes the port ``DiffVits``
-state dict out of either. Writing the JAX format is not ported.
+``save_flax_checkpoint`` writes the JAX package's format instead (a flax
+msgpack map ``{"step", "state"}`` through ``utils/msgpack_ckpt.pack``, no
+flax needed), which its ``load_checkpoint`` reads. ``load_checkpoint``
+reads both formats, telling them apart by their first bytes;
+``load_model_state_dict`` takes the port ``DiffVits`` state dict out of
+either.
 """
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from diff_vits_tpu_torch.utils import msgpack_ckpt
@@ -24,17 +27,50 @@ from diff_vits_tpu_torch.utils.convert import from_flax_params
 _NAME = re.compile(r"model-(\d+)\.ckpt")
 
 
-def save_checkpoint(path_dir: str, step: int, state: Dict[str, Any],
-                    keep: int = 3) -> str:
-    """Write ``state`` at ``step``; keep the newest ``keep`` (0: all)."""
+def _commit(path_dir: str, step: int, write: Callable[[str], None],
+            keep: int) -> str:
+    """``write`` ``<path_dir>/model-<step>.ckpt`` under a temporary name,
+    rename it, keep the newest ``keep`` (0: all); returns the path."""
     os.makedirs(path_dir, exist_ok=True)
     path = os.path.join(path_dir, f"model-{step}.ckpt")
     tmp = path + ".tmp"
-    torch.save({"step": step, "state": state}, tmp)
+    write(tmp)
     os.replace(tmp, path)
     if keep > 0:
         clean_checkpoints(path_dir, keep)
     return path
+
+
+def save_checkpoint(path_dir: str, step: int, state: Dict[str, Any],
+                    keep: int = 3) -> str:
+    """Write ``state`` at ``step``; keep the newest ``keep`` (0: all)."""
+    return _commit(path_dir, step,
+                   lambda tmp: torch.save({"step": step, "state": state}, tmp),
+                   keep)
+
+
+def _device_got(tree):
+    """``tree`` as ``jax.device_get`` hands it to the JAX package's writer:
+    numpy scalars become 0-d arrays."""
+    if isinstance(tree, dict):
+        return {k: _device_got(v) for k, v in tree.items()}
+    return np.asarray(tree) if isinstance(tree, np.generic) else tree
+
+
+def save_flax_checkpoint(path_dir: str, step: int, state: Dict[str, Any],
+                         keep: int = 3) -> str:
+    """Write ``{"step": np.asarray(step), "state": state}`` (a tree of dicts
+    over numpy / torch leaves) as the JAX package's ``save_checkpoint``
+    does (diff_vits_tpu/train/checkpoint.py:40-54), byte for byte: flax
+    msgpack, to a temporary name then renamed; keep the newest ``keep``
+    (0: all)."""
+    blob = msgpack_ckpt.pack({"step": np.asarray(step),
+                              "state": _device_got(state)})
+
+    def write(tmp):
+        with open(tmp, "wb") as f:
+            f.write(blob)
+    return _commit(path_dir, step, write, keep)
 
 
 def load_checkpoint(path: str, map_location=None) -> Tuple[int, Dict[str, Any]]:

@@ -3,6 +3,9 @@
 Port of ``diff_vits_tpu/train/cli.py`` (the same flags, plus ``--device``):
 trains from the folder of ``data.training_files`` (as ``data.preprocess``
 writes it) on the card unless ``--device`` names another device.
+``--resume`` takes the port's checkpoints, a reference checkpoint
+converted by ``utils.convert``, and a trainer state of the JAX package
+(``Trainer.load``).
 
 Usage:
   python -m diff_vits_tpu_torch.train.cli -c config.json --workdir runs/a \
@@ -22,9 +25,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", "--config", type=str, default="config.json")
     parser.add_argument("--resume", type=str, default=None,
-                        help="checkpoint path, or 'auto' to continue from "
-                             "the newest checkpoint in --workdir (use a "
-                             "fixed --workdir for preemption-safe runs)")
+                        help="checkpoint path (the port's or a JAX trainer "
+                             "state), or 'auto' to continue from the newest "
+                             "checkpoint in --workdir (use a fixed --workdir "
+                             "for preemption-safe runs)")
     parser.add_argument("--workdir", type=str, default=None,
                         help="fixed run directory (default: a fresh "
                              "timestamped dir under train.logs_folder)")

@@ -16,6 +16,11 @@ Port of ``diff_vits_tpu/train/trainer.py`` for one process on one device:
 * bfloat16 ``torch.autocast`` on the card when ``train.compute_dtype`` is
   "bfloat16", over float32 master weights.
 
+Checkpoints: ``save`` writes the port's own format; ``save_flax`` the JAX
+package's trainer state (``params``, optax's ``opt_state``,
+``ema_params``), which JAX's ``Trainer.load`` resumes; ``load`` takes
+either, and a reference checkpoint converted by ``utils.convert``.
+
 Every configuration ``DiffVits`` builds trains here unchanged: the
 duration predictor and the spec flow are the model's business. The
 flash-attention route (K8) of the UNets' and prompt encoders' attention is
@@ -77,12 +82,29 @@ from diff_vits_tpu_torch.models.diff_vits import (
 from diff_vits_tpu_torch.nn.unet1d import set_use_flash
 from diff_vits_tpu_torch.text.symbols import symbols
 from diff_vits_tpu_torch.train import checkpoint as ckpt_lib
+from diff_vits_tpu_torch.utils.convert import (
+    convert_tree, from_flax_params, to_flax_params)
 from diff_vits_tpu_torch.utils.init import init_random
 
 WEIGHT_DECAY = 1e-4     # optax.adamw's default, which the JAX trainer keeps
 
 
 def make_optimizer(cfg: Config, params) -> torch.optim.AdamW:
+    """AdamW as the JAX trainer's ``optax.adamw(lr, b1, b2, eps)`` with its
+    default weight decay 1e-4 (diff_vits_tpu/train/trainer.py:41-43).
+
+    The two give the same update up to rounding, so optax's state maps onto
+    this one (``Trainer.load`` / ``save_flax``): ``optax.adamw`` is
+    ``chain(scale_by_adam, add_decayed_weights, scale_by_learning_rate)``,
+    ``mu = b1 mu + (1 - b1) g``, ``nu = b2 nu + (1 - b2) g^2``, update
+    ``-lr (mu / (1 - b1^t) / (sqrt(nu / (1 - b2^t)) + eps) + wd p)`` with
+    t = ``count`` after its increment; ``torch.optim.AdamW``
+    (``_single_tensor_adamw``) keeps ``exp_avg`` = mu and ``exp_avg_sq`` =
+    nu by the same recurrences, takes t = its ``step`` after the
+    increment, puts eps outside the square root
+    (``sqrt(exp_avg_sq) / sqrt(1 - b2^t) + eps``) and applies the
+    decoupled decay ``p *= 1 - lr wd`` from the same parameter before the
+    Adam step."""
     return torch.optim.AdamW(params, lr=cfg.train.train_lr,
                              betas=tuple(cfg.train.adam_betas),
                              eps=cfg.train.eps, weight_decay=WEIGHT_DECAY)
@@ -169,12 +191,12 @@ def make_loader(ds: TextMelDataset, cfg: Config, **kw):
 def _check_unported(cfg: Config) -> None:
     """Refuse the JAX trainer's options that the port does not run yet,
     rather than train without them: rematerialisation (ROADMAP Queue 1,
-    item 10, ``torch.utils.checkpoint``) and a device mesh (Queue 1, item
+    item 4, ``torch.utils.checkpoint``) and a device mesh (Queue 1, item
     7). JAX raises on an unknown policy too (trainer.py:105-112)."""
     if cfg.train.remat_policy != "none":
         raise ValueError(
             f"train.remat_policy {cfg.train.remat_policy!r} is not ported "
-            "(ROADMAP Queue 1, item 10); the port trains with 'none'")
+            "(ROADMAP Queue 1, item 4); the port trains with 'none'")
     if math.prod(cfg.train.mesh_shape) != 1:
         raise ValueError(
             f"train.mesh_shape {tuple(cfg.train.mesh_shape)} spans more than "
@@ -597,35 +619,98 @@ class Trainer:
         return ckpt_lib.save_checkpoint(self.logs_folder, step, state,
                                         keep=self.cfg.train.keep_ckpts)
 
-    def load(self, path: str) -> None:
-        """Restore a checkpoint of :meth:`save`, or a params-only one
-        (``{"model": ...}``, as converted from the reference): as JAX's
-        ``Trainer.load`` does, the optimizer then starts afresh, the random
-        streams go on as they are, and the EMA starts from the params.
-        A trainer state of the JAX package (``params`` / ``opt_state``) is
-        refused: resuming it is not ported yet."""
-        step, state = ckpt_lib.load_checkpoint(path, map_location=self.device)
-        if "model" not in state:
-            if "params" in state:
-                raise ValueError(
-                    f"{path} is a trainer state of the JAX package (params, "
-                    "opt_state): resuming it is not ported yet (ROADMAP "
-                    "Queue 1, item 2); train.checkpoint."
-                    "load_model_state_dict reads its parameters for serving")
-            raise ValueError(f"{path}: the checkpoint holds no 'model'")
-        self.model.load_state_dict(state["model"], strict=True)
-        if "optimizer" in state:
-            self.optimizer.load_state_dict(state["optimizer"])
-        else:
-            self.optimizer = make_optimizer(self.cfg, self.params)
-        if "generator" in state:
-            self.generator.set_state(state["generator"].cpu())
-        if "py_rng" in state:
-            self._py_rng.setstate(state["py_rng"])
+    def save_flax(self, step: int) -> str:
+        """Write the trainer state as the JAX package's ``Trainer.save``
+        does (diff_vits_tpu/train/trainer.py:289-300): ``{"params",
+        "opt_state", "ema_params"}`` with the flax names, optax.adamw's
+        state as ``{"0": {"count", "mu", "nu"}, "1": {}, "2": {}}``
+        (:func:`make_optimizer` says why the moments carry over): ``mu`` /
+        ``nu`` the AdamW ``exp_avg`` / ``exp_avg_sq`` (zero for a parameter
+        that has had no step), ``count`` the AdamW step as int32. Not the
+        random streams, which a JAX state does not hold."""
+        names = [n for n, _ in self.model.named_parameters()]
+        mu, nu, count = {}, {}, 0
+        for n, p in zip(names, self.params):
+            st = self.optimizer.state.get(p, {})
+            mu[n] = st.get("exp_avg", torch.zeros_like(p))
+            nu[n] = st.get("exp_avg_sq", torch.zeros_like(p))
+            count = max(count, int(st.get("step", 0)))
+        state = {"params": to_flax_params(self.model),
+                 "opt_state": {
+                     "0": {"count": np.asarray(count, np.int32),
+                           "mu": to_flax_params(self.model, mu),
+                           "nu": to_flax_params(self.model, nu)},
+                     "1": {}, "2": {}}}
         if self.ema is not None:
-            src = state.get("ema") or self.params
-            self.ema = [e.detach().float().clone() for e in src]
+            state["ema_params"] = to_flax_params(self.model,
+                                                 dict(zip(names, self.ema)))
+        return ckpt_lib.save_flax_checkpoint(
+            self.logs_folder, step, state, keep=self.cfg.train.keep_ckpts)
+
+    def _load_flax_state(self, path: str, state) -> None:
+        """A JAX trainer state (diff_vits_tpu/train/trainer.py:302-328):
+        ``params`` through ``from_flax_params``; optax.adamw's ``mu`` /
+        ``nu`` / ``count`` as AdamW's ``exp_avg`` / ``exp_avg_sq`` / step
+        (a state without ``opt_state`` restarts the optimizer, as JAX
+        does); ``ema_params`` as the EMA, else a copy of the params."""
+        names = [n for n, _ in self.model.named_parameters()]
+        sd = from_flax_params(state["params"], self.cfg)
+        want = set(self.model.state_dict())
+        missing, unexpected = want - set(sd), set(sd) - want
+        if missing or unexpected:
+            raise ValueError(
+                f"{path}: the JAX trainer state's params do not fit this "
+                f"configuration (missing {sorted(missing)[:5]}, unexpected "
+                f"{sorted(unexpected)[:5]})")
+        self.model.load_state_dict(sd, strict=True)
+        self.optimizer = make_optimizer(self.cfg, self.params)
+        if "opt_state" in state:
+            adam = state["opt_state"]["0"]
+            mu, nu = convert_tree(adam["mu"]), convert_tree(adam["nu"])
+            step = torch.tensor(float(np.asarray(adam["count"])))
+            opt = self.optimizer.state_dict()
+            opt["state"] = {i: {"step": step.clone(), "exp_avg": mu[n],
+                                "exp_avg_sq": nu[n]}
+                            for i, n in enumerate(names)}
+            self.optimizer.load_state_dict(opt)
+        if self.ema is not None:
+            src = (convert_tree(state["ema_params"])
+                   if "ema_params" in state else dict(zip(names, self.params)))
+            self.ema = [src[n].detach().to(self.device, torch.float32).clone()
+                        for n in names]
+        print(f"{path} is a JAX trainer state: it holds no torch random "
+              "streams, so the trainer's generator and coin flips go on as "
+              "they are", flush=True)
+
+    def load(self, path: str) -> None:
+        """Restore a checkpoint of :meth:`save`; a params-only one
+        (``{"model": ...}``, as ``utils.convert`` writes from a reference
+        checkpoint), where, as JAX's ``Trainer.load`` does, the optimizer
+        starts afresh, the random streams go on as they are and the EMA
+        starts from the params; or a trainer state of the JAX package
+        (``params``, ``opt_state``, ``ema_params``: :meth:`save_flax`'s
+        layout), whose random streams are not in the file either."""
+        step, state = ckpt_lib.load_checkpoint(path, map_location=self.device)
+        if "model" not in state and "params" in state:
+            self._load_flax_state(path, state)
+        elif "model" not in state:
+            raise ValueError(f"{path}: the checkpoint holds neither 'model' "
+                             "(the port's) nor 'params' (the JAX package's)")
+        else:
+            self.model.load_state_dict(state["model"], strict=True)
+            if "optimizer" in state:
+                self.optimizer.load_state_dict(state["optimizer"])
+            else:
+                self.optimizer = make_optimizer(self.cfg, self.params)
+            if "generator" in state:
+                self.generator.set_state(state["generator"].cpu())
+            if "py_rng" in state:
+                self._py_rng.setstate(state["py_rng"])
+            if self.ema is not None:
+                src = state.get("ema") or self.params
+                self.ema = [e.detach().float().clone() for e in src]
         self.step = step
+        print(f"resumed from {path} at step {self.step}", flush=True)
 
     def resume_latest(self) -> bool:
         """Load the newest checkpoint of the workdir; False when none."""
@@ -633,5 +718,4 @@ class Trainer:
         if path is None:
             return False
         self.load(path)
-        print(f"resumed from {path} at step {self.step}", flush=True)
         return True

@@ -9,10 +9,13 @@
   back leaf for leaf as ``flax.serialization.msgpack_restore`` reads it
   (the model it gives synthesizes as JAX's:
   tests/test_torch_ckpt_msgpack_model.py);
+* ``Trainer.load`` resumes that state;
 * a JAX vocoder ``.ckpt`` loads through ``load_vocoder`` and decodes
   within 1e-3 x max(1, max |wav|) of JAX's ``load_vocoder`` of it;
 * a truncated file, a chunked leaf, an unknown ext type and a file in
   neither format are refused."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import msgpack
@@ -194,15 +197,26 @@ def test_port_checkpoints_still_load(tmp_path):
         checkpoint.load_model_state_dict(other, cfg)
 
 
-def test_trainer_refuses_to_resume_a_jax_trainer_state(jax_checkpoint):
-    """``Trainer.load`` names the ROADMAP item that ports the resume of a
-    JAX trainer state, instead of failing on its missing 'model' entry;
-    the same file still serves through ``load_model_state_dict``."""
+def test_trainer_resumes_a_jax_trainer_state(jax_checkpoint):
+    """``Trainer.load`` resumes the JAX trainer state: its params (the
+    bfloat16 leaf widened exactly) and EMA through ``from_flax_params``,
+    optax.adamw's moments and count as AdamW's state, its step; the same
+    file still serves through ``load_model_state_dict``."""
     from diff_vits_tpu_torch.train.trainer import Trainer
     _, cfg = tiny_configs()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                             use_ema=True))
     trainer = Trainer(cfg, [], device="cpu")
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1, item 2"):
-        trainer.load(jax_checkpoint)
-    assert trainer.step == 0
+    trainer.load(jax_checkpoint)
+    assert trainer.step == 1234
     sd = checkpoint.load_model_state_dict(jax_checkpoint, cfg)
     assert set(sd) == set(trainer.model.state_dict())
+    bias = trainer.model.vits.dp.pre.bias
+    assert torch.equal(bias, sd["vits.dp.pre.bias"])
+    assert torch.equal(bias, bias.bfloat16().float())     # a widened bf16
+    for (name, p), e in zip(trainer.model.named_parameters(), trainer.ema):
+        assert torch.equal(p.detach(), sd[name]), name
+        assert torch.equal(e, sd[name]), name
+        st = trainer.optimizer.state[p]
+        assert float(st["step"]) == 0.0
+        assert not st["exp_avg"].any() and not st["exp_avg_sq"].any()

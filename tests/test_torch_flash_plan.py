@@ -9,7 +9,8 @@ meta device in training mode (shapes only) at the training batch (32),
 text 601, mel 400 and prompts 267, with the flash route on and every call
 of ``sdpa`` recorded instead of run (MAS and dropout stubbed: they do not
 change a shape). Model3 makes 40 such calls a step, the variant 20, as
-``chip_smoke.py`` counts on the card. At each of them, in bfloat16: the
+``chip_smoke.py`` counts on the card; the bv2 variant (that variant
+with the phoneme VAE) 24. At each of them, in bfloat16: the
 tensor-core kernels (head dims 8, 16, 32) with 64-row tiles on both sides
 and at least 1,280 blocks a grid (no key splits needed); in float32 the
 FMA kernels with 128 rows. Then ragged and tiny shapes (T or S below 16,
@@ -43,6 +44,8 @@ CFG = load_config(str(Path(__file__).resolve().parents[1] / "configs"
                       / "reference_parity.json"))
 VARIANT = dataclasses.replace(CFG, vits=dataclasses.replace(
     CFG.vits, duration_predictor="sdp", use_flow=True))
+BV2 = dataclasses.replace(VARIANT, vits=dataclasses.replace(
+    VARIANT.vits, use_phoneme_vae=True))
 META = torch.device("meta")
 SMS = 132
 DTYPES = [torch.float32, torch.bfloat16]
@@ -98,7 +101,8 @@ def _gated_calls(cfg):
 
 @pytest.fixture(scope="module")
 def gated():
-    return {"model3": _gated_calls(CFG), "variant": _gated_calls(VARIANT)}
+    return {"model3": _gated_calls(CFG), "variant": _gated_calls(VARIANT),
+            "bv2": _gated_calls(BV2)}
 
 
 def test_gated_calls_of_a_training_step(gated):
@@ -113,8 +117,19 @@ def test_gated_calls_of_a_training_step(gated):
     assert {d for _, _, d, _ in shapes} == {8, 16, 32}
 
 
+def test_gated_calls_of_a_bv2_training_step(gated):
+    """The variant's 20 and the phoneme prior encoder's 4 layers on the
+    text buffer (T = S = 601, 8 heads of 32), as chip_smoke.py derives
+    them for its bv2 phase."""
+    assert len(gated["bv2"]) == chip_smoke.bv2_flash_sites(BV2) == 24
+    extra = list(gated["bv2"])
+    for call in gated["variant"]:
+        extra.remove(call)
+    assert extra == [(32, 601, 601, 8, 32, True)] * 4
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("model", ["model3", "variant"])
+@pytest.mark.parametrize("model", ["model3", "variant", "bv2"])
 def test_flash_plan_at_every_gated_site(gated, model, dtype):
     for b, t, s, h, d, _ in gated[model]:
         plan = _cuda.flash_plan(b, t, s, h, d, dtype)

@@ -118,8 +118,11 @@ def test_configs_load_equal_in_both_packages(path):
 
 
 @pytest.mark.parametrize("variant", [{}, dict(duration_predictor="sdp",
-                                                use_flow=True)],
-                         ids=["model3", "sdp_flow"])
+                                                use_flow=True),
+                                     dict(duration_predictor="sdp",
+                                          use_flow=True,
+                                          use_phoneme_vae=True)],
+                         ids=["model3", "sdp_flow", "bv2"])
 def test_from_flax_params_consumes_every_leaf_but_the_skip_list(variant):
     """Against the whole JAX model tree, training parts included (the tree
     of the training forward, read with eval_shape; for the stochastic
@@ -150,6 +153,11 @@ def test_from_flax_params_consumes_every_leaf_but_the_skip_list(variant):
     for k, v in want.items():
         assert sd[k].shape == v.shape, k
     assert len(sd) == len(jax.tree_util.tree_leaves(tree))
+    if variant.get("use_phoneme_vae"):
+        assert {"ph_encoder_q", "phoneme_flow", "ph_enc_p"} == set(
+            tree["vits"]["phoneme_vae"])
+        assert any(k.startswith("vits.phoneme_vae.ph_enc_p.layer_3.")
+                   for k in sd)
     if variant:
         assert {"post_pre", "post_flow_0"} <= set(tree["vits"]["dp"])
         assert "flow" in tree["vits"]
@@ -166,9 +174,39 @@ def test_from_flax_params_consumes_every_leaf_but_the_skip_list(variant):
                                   conv.transpose(2, 1, 0))
 
 
-def test_from_flax_params_rejects_unported_variants():
-    _, pcfg = tiny_configs()
-    cfg = dataclasses.replace(
-        pcfg, vits=dataclasses.replace(pcfg.vits, use_phoneme_vae=True))
-    with pytest.raises(NotImplementedError):
-        from_flax_params({}, cfg)
+def test_from_flax_params_takes_the_phoneme_vae_tree():
+    """The bv2 configuration, which the port refused before its phoneme
+    VAE was ported, converts and loads strict: every VAE leaf lands."""
+    jcfg, pcfg = tiny_configs()
+    jcfg, pcfg = (dataclasses.replace(c, vits=dataclasses.replace(
+        c.vits, use_phoneme_vae=True, n_flow_layer=2)) for c in (jcfg, pcfg))
+    b, tx, ty = 2, 7, 20
+    shapes = flax_shapes(
+        JDiffVits(jcfg, n_vocab=len(symbols)), jnp.ones((b, tx), jnp.int32),
+        jnp.array([7, 5]), jnp.zeros((b, ty, 100)), jnp.array([20, 15]),
+        jnp.zeros((b, 11, 100)), jnp.array([11, 9]),
+        jnp.zeros((b, tx), jnp.int32), jnp.zeros((b, tx), jnp.int32),
+        rng=jax.random.PRNGKey(2))
+    tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
+                                  shapes)
+    model = DiffVits(pcfg, len(symbols), device="cpu")
+    sd = from_flax_params(tree, pcfg)
+    model.load_state_dict(sd, strict=True)
+    vae = [k for k in sd if k.startswith("vits.phoneme_vae.")]
+    assert len(vae) == len(jax.tree_util.tree_leaves(
+        tree["vits"]["phoneme_vae"])) > 0
+
+
+def test_walk_covers_the_checkpoint_bridge_and_phoneme_vae_modules():
+    """The transplant, the converters and the phoneme VAE are in the walk
+    above; the transplant is the port's own copy, not an import."""
+    names = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    assert {"diff_vits_tpu_torch/utils/transplant.py",
+            "diff_vits_tpu_torch/utils/convert_checkpoint.py",
+            "diff_vits_tpu_torch/utils/convert.py",
+            "diff_vits_tpu_torch/utils/msgpack_ckpt.py",
+            "diff_vits_tpu_torch/train/checkpoint.py",
+            "diff_vits_tpu_torch/models/phoneme_vae.py"} <= names
+    src = (ROOT / "diff_vits_tpu_torch" / "utils" / "transplant.py"
+           ).read_text()
+    assert "def diff_vits_params_from_config" in src

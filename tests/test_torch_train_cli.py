@@ -3,9 +3,10 @@ seeded wavs and cleaned transcripts under ``tmp_path``, the port's
 ``data.preprocess`` on them, then ``train.cli.main`` with ``--device cpu``
 (4 steps, a checkpoint and ``eval_sample`` every 2, a vocoder in the
 published layout so each sample also becomes a wav), then ``--resume
-auto``; a JAX trainer state given to ``--resume`` is refused with the
-ROADMAP item that will port it; without a card and without ``--device``
-the command line and ``Trainer`` raise."""
+auto``; a JAX trainer state given to ``--resume`` resumes (its step, the
+resume line, a step more), and one whose params do not fit the
+configuration is refused naming the keys; without a card and without
+``--device`` the command line and ``Trainer`` raise."""
 import json
 import os
 
@@ -92,13 +93,35 @@ def test_preprocess_then_train_then_resume(run_config, capsys):
 
 
 def test_resume_of_a_jax_trainer_state_is_refused(run_config):
+    """A JAX trainer state of another model: its params do not fit."""
     cfg_path, tmp = run_config
     state = {"params": {"w": np.ones((2, 2), np.float32)},
              "opt_state": {"0": {"count": np.zeros((), np.int32)}}}
     path = jckpt.save_checkpoint(str(tmp / "jax"), 7, state, keep=0)
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1, item 2"):
+    with pytest.raises(ValueError, match=r"do not fit this configuration"):
         cli.main(["-c", cfg_path, "--workdir", str(tmp / "jaxrun"),
                   "--resume", path, "--steps", "1", "--device", "cpu"])
+
+
+def test_resume_of_a_jax_trainer_state(run_config, capsys):
+    """A trainer state written by JAX's save_checkpoint (params of this
+    configuration, optax.adamw's state of them, the EMA) at step 7 resumes
+    through ``--resume`` and trains on to step 8."""
+    import optax
+    from diff_vits_tpu_torch.core.config import load_config
+    from diff_vits_tpu_torch.utils.convert import to_flax_params
+    cfg_path, tmp = run_config
+    params = to_flax_params(Trainer(load_config(cfg_path), [],
+                                    device="cpu").model)
+    state = {"params": params, "opt_state": optax.adamw(1e-4).init(params),
+             "ema_params": params}
+    path = jckpt.save_checkpoint(str(tmp / "jax_ok"), 7, state, keep=0)
+    trainer = cli.main(["-c", cfg_path, "--workdir", str(tmp / "jaxrun_ok"),
+                        "--resume", path, "--steps", "8", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"resumed from {path} at step 7" in out
+    assert trainer.step == 8
+    assert "model-8.ckpt" in os.listdir(tmp / "jaxrun_ok")
 
 
 def test_no_card_and_no_device_raises(run_config, monkeypatch):
