@@ -6,10 +6,11 @@
 ``--out DIR`` also writes the kernel rows, the serving numbers (the
 command lines' and the samplers' under ``cli``), the training numbers
 (flash route off and on), the variant's serving and training numbers, the training command
-line's, the checkpoint bridge's and bv2's numbers as
-``DIR/kernels.json``, ``DIR/path.json``, ``DIR/train.json``,
-``DIR/variant.json``, ``DIR/train_cli.json``, ``DIR/ckpt_bridge.json``
-and ``DIR/bv2.json``.
+line's, the checkpoint bridge's, bv2's, rematerialisation's, the MoE
+model's and data parallelism's numbers as ``DIR/kernels.json``,
+``DIR/path.json``, ``DIR/train.json``, ``DIR/variant.json``,
+``DIR/train_cli.json``, ``DIR/ckpt_bridge.json``, ``DIR/bv2.json``,
+``DIR/remat.json``, ``DIR/moe.json`` and ``DIR/dp.json``.
 
 Phases, each of which fails the run:
 
@@ -175,7 +176,7 @@ Phases, each of which fails the run:
    is off) and those calls equal to the ones derived from the code (40
    gated calls a step, 41 UNet calls an ``eval_sample``); then, not gated,
    both loaders' batches/s at B=32, the step with the prefetch on and off
-   in turns (3 runs a side of 2 warm-up and 5 timed steps), one
+   in turns (2 runs a side of 2 warm-up and 5 timed steps), one
    ``eval_sample``'s and one save's wall time and the peak memory;
 16. ckpt_bridge (checkpoints between the reference, JAX and the port):
    a seeded model3 at ``reference_parity`` widths written in the
@@ -195,13 +196,38 @@ Phases, each of which fails the run:
    Queue 3), and 5 training steps with the flash route on from those
    weights with the phoneme posterior's std at 1: K6 one a step, K8
    ``bv2_flash_sites`` a step forward and backward (derived from the
-   code), ``loss/kl_ph`` finite and non-zero.
+   code), ``loss/kl_ph`` finite and non-zero;
+18. remat (``train.remat_policy``): model3 at the training phase's
+   configuration (B=32, bf16, flash route on) under "none", "dots" and
+   "full": 2 steps under deterministic algorithms, whose losses, clipped
+   gradients and parameters equal "none"'s (rel 1e-5, 1e-5 of each
+   leaf's largest gradient, 1e-6), K6 one a step and K8 forward twice
+   (once under "none") and backward once for each call through the flash
+   gate, then 3 timed steps: median step time and peak memory, "full"'s
+   peak below "none"'s;
+19. moe: model3 with the MoE feed-forward in the denoiser (4 experts, top
+   2): serving (bf16, batch 8, mel bucket 400) with K1 22 a UNet call of
+   either UNet, K2-K4 16 and the core 32 a duration-predictor call and
+   none in the denoiser, K5 6 a TextEncoder call; fp32 kernels against
+   the plain route at b=1 and 8 (5e-3 on the items routed alike); latency
+   at b=1 and 8; 3 training steps (K6 1, K8 40 + 40 a step); beside dense
+   model3's numbers of this run, with no claim;
+20. dp (data parallelism over ``torch.distributed``): one NCCL rank
+   spawned as torchrun would start it runs ``train.cli`` at
+   ``configs/multi_chip_dp.json`` (2 steps, ``--resume auto`` to 3) and
+   ``serve --dp``; then two gloo ranks on the one card: one training step
+   against one process's on the whole batch (float32, deterministic
+   algorithms, losses within rel 1e-5, params within 1e-4, the ranks
+   equal) and
+   ``BatchSynthesizer(dp=True)`` against one process (mels within 5e-3).
+   Multi-GPU speed is not measured (one card).
 
 The launch counts in the kernel table are those of each kernel's own path:
 serving for K1-K4 and the attention core, training for K6, the variant's
 serving for K5 and K7,
 training with the flash route on for K8 (forward and backward); the
-ckpt_bridge and bv2 phases gate their own counts and print them.
+ckpt_bridge, bv2, remat and moe phases gate their own counts and print
+them.
 The last line of standard output is one JSON object with the device; the
 line before it the kernel table. Exits non-zero, printing no result, when
 there is no CUDA device or the port's package is not beside this script.
@@ -1052,9 +1078,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from diff_vits_tpu_torch.ops import _cuda
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    _exact_float32(torch)
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -1131,6 +1155,18 @@ def main(argv=None) -> int:
     bv_ok, bv2 = bv2_phase(torch, dev, card,
                            variant_train["on"]["step_s"])
     phases.update(bv_ok)
+    rm_ok, remat = remat_phase(torch, dev, card)
+    phases.update(rm_ok)
+    dense = dict(b1=details["numbers"]["b1"]["latency_s"],
+                 b8=details["numbers"]["b8"]["latency_s"],
+                 step_s=flash_numbers["step_s"],
+                 peak_GB=flash_numbers["max_memory_allocated_GB"])
+    moe_ok, moe = moe_phase(torch, dev, card, dense)
+    phases.update(moe_ok)
+    dp_ok, dp = dp_nccl_phase(torch, dev, card)
+    phases.update(dp_ok)
+    dp_ok, dp["gloo"] = dp_gloo_phase(torch, dev, card)
+    phases.update(dp_ok)
     log(f"training the variant, flash off vs on: median step "
         f"{variant_train['off']['step_s'] * 1e3:.1f} vs "
         f"{variant_train['on']['step_s'] * 1e3:.1f} ms, peak "
@@ -1153,6 +1189,9 @@ def main(argv=None) -> int:
         (out_dir / "ckpt_bridge.json").write_text(json.dumps(bridge,
                                                              indent=1))
         (out_dir / "bv2.json").write_text(json.dumps(bv2, indent=1))
+        for name, numbers in (("remat", remat), ("moe", moe), ("dp", dp)):
+            (out_dir / f"{name}.json").write_text(json.dumps(
+                numbers, indent=1, default=str))
 
     table = {"kernels": [dict(
         name=name, route="cuda", source=SOURCE[name],
@@ -1758,7 +1797,7 @@ def _train_batches(np, b, t_x, t_y, s_max, n_symbols, seed):
                     refer2_lengths=np.array([len(c[2]) for c in cut]))
 
 
-def _flash_calls(model, shapes=None, no_grad=None):
+def _flash_calls(model, shapes=None, no_grad=None, backward=None):
     """Forward pre-hooks on every attention module of ``model`` that has a
     flash route (``CrossAttention``, ``EncSALayer``): a one-item list that
     grows by one for each call that passes the module's own gate, i.e. the
@@ -1766,7 +1805,9 @@ def _flash_calls(model, shapes=None, no_grad=None):
     many backward launches. Each such call's (T, S, d) is appended to
     ``shapes`` when given. With a one-item list ``no_grad``, the gated
     calls made while autograd records nothing (forward launches only) are
-    counted there instead. Returns (the list, hook handles)."""
+    counted there instead; with a one-item list ``backward``, those made
+    inside a backward pass (a rematerialised region's recompute). Returns
+    (the list, hook handles)."""
     import torch
     from diff_vits_tpu_torch.nn.fairseq import EncSALayer
     from diff_vits_tpu_torch.nn.unet1d import CrossAttention
@@ -1775,6 +1816,9 @@ def _flash_calls(model, shapes=None, no_grad=None):
     def count(gated, t, s, d):
         if no_grad is not None and not torch.is_grad_enabled():
             no_grad[0] += gated
+            return
+        if backward is not None and torch._C._current_graph_task_id() != -1:
+            backward[0] += gated
             return
         calls[0] += gated
         if gated and shapes is not None:
@@ -3119,7 +3163,7 @@ def _logged_steps(text):
 
 
 def train_cli_phase(torch, dev, card, cfg=None, n_utts=TRAIN_CLI_UTTS,
-                    ab_runs=3):
+                    ab_runs=2):
     """Training from a dataset on disk through the port's command line:
     ``n_utts`` seeded wavs with cleaned transcripts, ``data.preprocess``
     (``--cleaned``), then ``train.cli.main`` at ``cfg`` (default
@@ -3777,6 +3821,500 @@ def bv2_phase(torch, dev, card, variant_step_s=None):
                     parity_max_abs=err, serving=serving, train=train,
                     train_launches=total, flash_sites_per_step=sites,
                     variant_step_s=variant_step_s, raw_init_kl_ph=raw_kl_ph)
+
+
+# -- slice 13: rematerialisation, the MoE feed-forward, data parallelism ---
+
+REMAT_POLICIES = ("none", "dots", "full")
+REMAT_STEPS = 6     # 2 deterministic (compared), 1 warm-up, 3 timed
+MOE = dict(moe_experts=4, moe_top_k=2)
+MOE_TRAIN_STEPS = 3
+DP_SAMPLING_STEPS = 10
+
+
+def _grads(trainer):
+    return [None if p.grad is None else p.grad.detach().clone()
+            for p in trainer.params]
+
+
+def _leaf_gap(a, b):
+    """max over leaves of max |a - b| / max |b| (0 where both are None)."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        if x is None or y is None:
+            if (x is None) != (y is None):
+                return float("inf")
+            continue
+        scale = float(y.abs().max()) or 1.0
+        worst = max(worst, float((x - y).abs().max()) / scale)
+    return worst
+
+
+def remat_phase(torch, dev, card, cfg=None, steps=REMAT_STEPS):
+    """model3 at the training phase's configuration (``reference_parity``,
+    B=32, bf16 autocast, EMA, the flash route on) under each
+    ``train.remat_policy``: 2 steps under deterministic algorithms, whose
+    losses, clipped gradients and parameters are compared with "none"'s
+    (gates: losses within rel 1e-5, every gradient leaf within 1e-5 of its
+    largest entry, parameters within 1e-6), then one step and ``steps`` -
+    3 timed steps with the default algorithms: the median step time and
+    the peak memory over them (``max_memory_allocated``; gate: "full"
+    below "none"). The
+    launches of the compared steps are derived from the code: one K6 a
+    step; the K8 backward once and the K8 forward once ("none") or twice
+    ("dots", "full": ``nn/remat`` recomputes the region that holds it) for
+    each call through the flash gate in the forward (hooks; the recompute's
+    calls counted apart). Returns ({phase: ok}, numbers)."""
+    import dataclasses
+    import itertools
+    import math
+    import numpy as np
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.text.symbols import symbols
+    from diff_vits_tpu_torch.train.trainer import Trainer
+
+    cfg = cfg or _train_cfg()
+    b, t_y = cfg.train.train_batch_size, cfg.data.max_mel_len
+    t_x = cfg.data.max_text_len * 2 + 1
+    batches = list(itertools.islice(_train_batches(
+        np, b, t_x, t_y, t_y * 2 // 3 + 1, len(symbols), seed=8), steps))
+    ok, numbers, ref = {}, dict(card=card), None
+    for policy in REMAT_POLICIES:
+        tr = Trainer(dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, remat_policy=policy)), [], device=dev)
+        recompute = [0]
+        calls, handles = _flash_calls(tr.model, backward=recompute)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # cuBLAS's workspace alert
+                losses, counts = _steps(tr, batches[:2])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        for h in handles:
+            h.remove()
+        grads = _grads(tr)
+        params = [p.detach().clone() for p in tr.params]
+        want = _train_want(counts, 2, calls[0] // 2)
+        if policy != "none":
+            want["flash_attention_forward"] *= 2
+        tr.train_step(batches[2])     # the first with the default algorithms
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for batch in batches[3:]:
+            t0 = time.perf_counter()
+            tr.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        step_s = sorted(times)[len(times) // 2]
+        finite = all(math.isfinite(v) for m in losses for v in m.values())
+        row = dict(losses=losses, launches=counts, want=want,
+                   gated_calls=calls[0], recompute_calls=recompute[0],
+                   step_s=step_s, steps_s=times,
+                   max_memory_allocated_GB=peak)
+        if ref is None:
+            ref = (losses, grads, params)
+            gaps = (0.0, 0.0, 0.0)
+        else:
+            gaps = (max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12)
+                        for x, y in zip(losses, ref[0]) for k in y),
+                    _leaf_gap(grads, ref[1]), _max_gap(params, ref[2]))
+            row["bitwise"] = all(torch.equal(x, y)
+                                 for x, y in zip(params, ref[2]))
+        row["gap_to_none"] = dict(loss_rel=gaps[0], grad_rel=gaps[1],
+                                  param_abs=gaps[2])
+        ok[f"remat_{policy}"] = (finite and counts == want
+                                 and calls[0] == 2 * FLASH_SITES_MODEL3
+                                 and gaps[0] <= 1e-5 and gaps[1] <= 1e-5
+                                 and gaps[2] <= 1e-6)
+        numbers[policy] = row
+        log(f"remat {policy}: 2 deterministic steps, losses "
+            f"{[round(m['loss/all'], 4) for m in losses]}, against none: "
+            f"loss rel {gaps[0]:.2e}, gradient {gaps[1]:.2e} of each leaf's "
+            f"largest, params {gaps[2]:.2e} (bitwise "
+            f"{row.get('bitwise', True)}); launches {counts} (want {want}: "
+            f"{calls[0]} gated calls in the forwards, {recompute[0]} more "
+            f"in the recomputes); median step {step_s * 1e3:.1f} ms of "
+            f"{[round(t * 1e3, 1) for t in times]}, peak "
+            f"{peak:.2f} GB; card {card}: "
+            f"{'ok' if ok[f'remat_{policy}'] else 'FAIL'}")
+        del tr, grads, params
+        torch.cuda.empty_cache()
+    peaks = {p: numbers[p]["max_memory_allocated_GB"] for p in REMAT_POLICIES}
+    ok["remat_memory"] = peaks["full"] < peaks["none"]
+    log(f"remat peak memory GB {peaks}, median step ms "
+        f"{ {p: round(numbers[p]['step_s'] * 1e3, 1) for p in REMAT_POLICIES} }"
+        f"; full below none: {ok['remat_memory']}; card {card}")
+    return ok, numbers
+
+
+def _moe_cfg(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, diffusion_encoder=dataclasses.replace(
+        cfg.diffusion_encoder, **MOE))
+
+
+def _moe_routes(model):
+    """Forward pre-hooks on every ``MoEFeedForward`` of ``model``: a list
+    that gets each call's top-k expert indices [B, T, k]. Returns (the
+    list, hook handles)."""
+    import torch
+    from diff_vits_tpu_torch.parallel.moe import MoEFeedForward
+    seen = []
+
+    def hook(m, args):
+        seen.append(torch.topk(m.gate(args[0]).float(),
+                               min(m.top_k, m.num_experts), dim=-1).indices)
+    return seen, [m.register_forward_pre_hook(hook) for m in model.modules()
+                  if isinstance(m, MoEFeedForward)]
+
+
+def moe_phase(torch, dev, card, dense=None, cfg=None, train_cfg=None):
+    """model3 at ``reference_parity`` widths with the MoE feed-forward in
+    every transformer block of the denoiser UNet (4 experts, top 2; random
+    weights, seed 0). Serving (``BatchSynthesizer``, bf16, batch 8, mel
+    bucket 400, 30-step UniPC) of the 6 short requests: launches derived
+    from the UNet calls counted by hooks, the denoiser's and the duration
+    predictor's apart (K1 22 a call of either; K2-K4 16 and the core 32 a
+    duration-predictor call, none in the denoiser, whose MoE blocks take
+    the plain route; K5 6 a TextEncoder call; 30 denoiser calls and one
+    duration-predictor call a batch); the fp32 kernels against the plain
+    route at b=1 and b=8 (injected initial noise, zero prior noise: equal
+    frame counts; max |mel diff| <= 5e-3 on every item whose top-k expert
+    choices are the same on both routes, and most items so: top-k routing
+    is discontinuous, so rounding can move a near-tied token to another
+    expert); latency at b=1 and 8; then
+    ``MOE_TRAIN_STEPS`` training steps (flash on: K6 one and K8 40 + 40 a
+    step, derived from the modules' gates). ``dense`` (dense model3's
+    serving and training numbers of this run) is printed beside, with no
+    claim. ``cfg`` / ``train_cfg`` stand in for ``reference_parity`` and
+    the training phase's configuration (a CPU rehearsal at tiny widths).
+    Returns ({phase: ok}, numbers)."""
+    import numpy as np
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.core.config import load_config
+    from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
+    from diff_vits_tpu_torch.models.diff_vits import DiffVits, synthesize
+    from diff_vits_tpu_torch.nn.layers import Encoder
+    from diff_vits_tpu_torch.nn.unet1d import (
+        UNet1DConditionModel, set_use_fused)
+    from diff_vits_tpu_torch.text.symbols import symbols
+    from diff_vits_tpu_torch.utils.init import init_random
+
+    ok = {}
+    cfg = _moe_cfg(cfg or load_config(str(ROOT / "configs" /
+                                          "reference_parity.json")))
+    model = DiffVits(cfg, len(symbols), device=dev)
+    init_random(model, torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_moe = sum(p.numel() for n, p in model.named_parameters()
+                if ".ff_moe." in n)
+    syn = BatchSynthesizer(cfg, model.state_dict(), batch_size=8,
+                           mel_buckets=(400,), dtype=torch.bfloat16,
+                           device=dev)
+    reqs = _requests(torch, torch.Generator().manual_seed(1), len(symbols),
+                     syn.refer_frames)
+    short = [r for r in reqs if len(r[1]) <= 128]
+    den, h1 = _count_calls(syn.model.diff_model, UNet1DConditionModel,
+                           lambda m, kw: int(kw.get("embedding_request")
+                                             is None))
+    dpu, h2 = _count_calls(syn.model.vits.dp, UNet1DConditionModel,
+                           lambda m, kw: 1)
+    layers, h3 = _count_calls(syn.model, Encoder, lambda m, kw: m.n_layers)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = syn.synthesize_all(short, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for h in h1 + h2 + h3:
+        h.remove()
+    n_den, n_dp = den[0], dpu[0]
+    want = dict.fromkeys(counts, 0)
+    want.update(fused_resnet_block=PER_UNET["fused_resnet_block"]
+                * (n_den + n_dp),
+                fused_self_attention=PER_UNET["fused_self_attention"] * n_dp,
+                fused_cross_attention=PER_UNET["fused_cross_attention"]
+                * n_dp,
+                fused_geglu_ff=PER_UNET["fused_geglu_ff"] * n_dp,
+                attention=PER_UNET["attention"] * n_dp,
+                fused_rel_self_attention=layers[0])
+    derived = (n_den, n_dp, layers[0]) == (30, 1, cfg.vits.n_layers)
+    finite = all(np.isfinite(m).all() and m.shape[1] == 100
+                 for _, m in results)
+    ok["moe_serve"] = (counts == want and derived and finite and
+                       [r[0] for r in results] == [r[0] for r in short])
+    log(f"moe serve: {n_params} parameters ({n_moe} in the experts), "
+        f"{len(results)} requests in {wall:.3f} s (first call included); "
+        f"UNet calls denoiser {n_den}, duration predictor {n_dp}, encoder "
+        f"layers {layers[0]} (derived 30 / 1 / {cfg.vits.n_layers}: "
+        f"{derived}); launches {counts} (want {want}); finite {finite}")
+
+    errs, rerouted = {}, {}
+    for b in (1, 8):
+        syn.batch_size = b
+        args = syn.pad_batch(short[:b], 128)
+        noise = torch.randn(b, 400, 100,
+                            generator=torch.Generator().manual_seed(b)).to(dev)
+        out, routes = {}, {}
+        for route in (True, False):
+            set_use_fused(model, route)
+            routes[route], handles = _moe_routes(model)
+            out[route] = synthesize(model, *args, noise_scale=0.0,
+                                    max_len=400, init_noise=noise,
+                                    device=dev)
+            for h in handles:
+                h.remove()
+        set_use_fused(model, True)
+        (mel_k, len_k), (mel_p, len_p) = out[True], out[False]
+        # top-k routing is discontinuous: an item whose gate logits tie to
+        # within the routes' rounding may pick another expert on one route
+        # (its mel then differs by more than rounding); the gate holds the
+        # items routed alike on both, and needs most of them
+        same = [all(torch.equal(x[i], y[i])
+                    for x, y in zip(routes[True], routes[False]))
+                for i in range(b)]
+        diff = (mel_k - mel_p).abs().amax(dim=(1, 2)).tolist()
+        errs[f"b{b}"] = max(d for d, s_ in zip(diff, same) if s_) \
+            if any(same) else float("inf")
+        rerouted[f"b{b}"] = {i: diff[i] for i in range(b) if not same[i]}
+        ok[f"moe_parity_fp32_b{b}"] = (bool(torch.equal(len_k, len_p))
+                                       and sum(same) * 2 > b
+                                       and errs[f"b{b}"] <= 5e-3
+                                       and bool(torch.isfinite(mel_k).all()))
+    log(f"moe parity fp32 (kernels vs plain, 400 frames, 30 steps): max "
+        f"|mel diff| over the items routed alike on both routes {errs} "
+        f"(gate 5e-3); items another expert took on one route, with their "
+        f"max |mel diff| {rerouted}")
+    del model
+    serving = serving_numbers(torch, syn, short, card, what="moe serving")
+    del syn
+    torch.cuda.empty_cache()
+
+    good, total, train, trainer, _ = train_run(
+        torch, dev, card, _moe_cfg(train_cfg or _train_cfg()),
+        "moe train (flash on)", use_flash=True, steps=MOE_TRAIN_STEPS)
+    del trainer
+    torch.cuda.empty_cache()
+    want_train = _train_want(total, MOE_TRAIN_STEPS, FLASH_SITES_MODEL3)
+    ok["moe_train"] = good and total == want_train
+    line = (f"moe against dense model3 (no claim): serving b=1 "
+            f"{serving['b1']['latency_s'] * 1e3:.1f} ms, b=8 "
+            f"{serving['b8']['latency_s'] * 1e3:.1f} ms, training step "
+            f"{train['step_s'] * 1e3:.1f} ms, peak "
+            f"{train['max_memory_allocated_GB']:.2f} GB")
+    if dense is not None:
+        line += (f"; dense b=1 {dense['b1'] * 1e3:.1f} ms, b=8 "
+                 f"{dense['b8'] * 1e3:.1f} ms, step "
+                 f"{dense['step_s'] * 1e3:.1f} ms, peak "
+                 f"{dense['peak_GB']:.2f} GB")
+    log(f"moe train: {MOE_TRAIN_STEPS} steps, launches {total} (want "
+        f"{want_train}); {line}; card {card}")
+    return ok, dict(card=card, n_params=n_params, n_expert_params=n_moe,
+                    launches=counts, want=want, parity_max_abs=errs,
+                    serving=serving, train=train, train_launches=total,
+                    dense=dense)
+
+
+def _exact_float32(torch):
+    """float32 products in float32 (no TF32), as every phase runs them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def _exact(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with float32 products exact
+    (:func:`_exact_float32`; a spawned rank starts with PyTorch's defaults,
+    under which cuDNN convolutions take TF32) and under
+    ``torch.use_deterministic_algorithms``."""
+    import torch
+    _exact_float32(torch)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")      # cuBLAS's workspace alert
+            return fn(*args, **kwargs)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _seeded_state(cfg, seed):
+    """The state dict of a ``DiffVits(cfg)`` on the CPU with
+    ``init_random`` weights from ``seed`` (``Trainer``'s initial ones for
+    ``seed = train.seed``)."""
+    import torch
+    from diff_vits_tpu_torch.models.diff_vits import DiffVits
+    from diff_vits_tpu_torch.text.symbols import symbols
+    from diff_vits_tpu_torch.utils.init import init_random
+    model = DiffVits(cfg, len(symbols), device="cpu")
+    init_random(model, torch.Generator().manual_seed(seed))
+    return model.state_dict()
+
+
+def _seeded_serve(cfg, seed, requests, device, **kw):
+    """``parallel.launch.serve`` of ``requests`` on the weights
+    :func:`_seeded_state` makes (built where it runs: nothing to send)."""
+    from diff_vits_tpu_torch.parallel import launch
+    return launch.serve(cfg, _seeded_state(cfg, seed), requests, device,
+                        **kw)
+
+
+def dp_nccl_phase(torch, dev, card, n_utts=40, cfg=None):
+    """Data parallelism (``parallel.mesh``) over NCCL with one rank (a
+    spawned process group of one, as torchrun on one card gives), through
+    the command lines: ``train.cli`` at ``configs/multi_chip_dp.json``
+    (its mesh (4,) falls back to the one rank; model3 widths, B=32, bf16)
+    on ``n_utts`` seeded utterances for 2 steps and ``--resume auto`` to
+    3, then ``serve --dp`` of 4 EN rows from its checkpoint (batch 4, mel
+    bucket 400, 10-step UniPC, float32): the steps reached, rank 0's
+    checkpoint, finite mels. Multi-GPU speed is not measured: the machine
+    has one card. On the CPU (a rehearsal; ``cfg`` at tiny widths in place
+    of ``multi_chip_dp.json``) the rank is a gloo one. Returns ({phase:
+    ok}, numbers)."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+    import numpy as np
+    from diff_vits_tpu_torch.core.config import load_config
+    from diff_vits_tpu_torch.data import preprocess
+    from diff_vits_tpu_torch.infer import serve
+    from diff_vits_tpu_torch.parallel import launch
+
+    ok, numbers = {}, dict(card=card)
+    tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    d = Path(tmp.name)
+    _write_train_corpus(np, d / "raw", n_utts)
+    with contextlib.redirect_stdout(io.StringIO()):
+        preprocess.main(["--in_dir", str(d / "raw"), "--out_dir",
+                         str(d / "data"), "--language", "EN", "--cleaned",
+                         "--no_spec"])
+    cfg = cfg or load_config(str(ROOT / "configs" / "multi_chip_dp.json"))
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, training_files=str(
+            d / "data"), val_files=str(d / "data")),
+        train=dataclasses.replace(cfg.train, save_and_sample_every=2))
+    cfg_path = d / "config.json"
+    cfg_path.write_text(json.dumps(cfg.to_dict()))
+    workdir = d / "run"
+    cuda = dev.type == "cuda"
+    device = [] if cuda else ["--device", str(dev)]
+    train_args = ["-c", str(cfg_path), "--workdir", str(workdir),
+                  "--log_every", "1", *device]
+    manifest = d / "utts.tsv"
+    wav = _write_prompt_wav(np, d / "prompt.wav")
+    texts = ["Hello world.", "A second row, a little longer than the first.",
+             "Three.", "The fourth row of the manifest for the two ranks."]
+    manifest.write_text("".join(f"u{i}\t{t}\tEN\t{wav}\n"
+                                for i, t in enumerate(texts)))
+    serve_args = ["--manifest", str(manifest), "-c", str(cfg_path), "-m",
+                  str(workdir / "model-2.ckpt"), "--batch_size", "4",
+                  "--mel_buckets", "400", "--steps",
+                  str(DP_SAMPLING_STEPS), "--dtype", "float32", "--dp",
+                  "--out_dir", str(d / "mels"), *device]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (res,) = launch.run_ranks(launch.calls, 1, [
+        (launch.train_cli, (train_args + ["--steps", "2"],)),
+        (launch.train_cli, (train_args + ["--steps", "3", "--resume",
+                                          "auto"],)),
+        (serve.main, (serve_args,))], backend="nccl" if cuda else "gloo",
+        timeout=600)
+    numbers["nccl_one_rank_wall_s"] = time.perf_counter() - t0
+    (step2, saved2), (step3, saved3), _ = res
+    mels = sorted((d / "mels").glob("*.mel.npy"))
+    finite = len(mels) == len(texts) and all(
+        np.isfinite(np.load(m)).all() for m in mels)
+    ok["dp_nccl_cli"] = (step2 == 2 and step3 == 3
+                         and saved2 == [str(workdir / "model-2.ckpt")]
+                         and saved3 == [str(workdir / "model-3.ckpt")]
+                         and finite)
+    log(f"dp NCCL one rank: train.cli at multi_chip_dp.json to steps "
+        f"{step2} and (resumed) {step3}, checkpoints {saved2 + saved3}; "
+        f"serve --dp wrote {len(mels)} finite mels {finite}; "
+        f"{numbers['nccl_one_rank_wall_s']:.1f} s wall (spawn and build "
+        f"included): {'ok' if ok['dp_nccl_cli'] else 'FAIL'}")
+    tmp.cleanup()
+    return ok, numbers
+
+
+def dp_gloo_phase(torch, dev, card, cfg=None):
+    """Two data-parallel ranks on the one card over gloo (NCCL refuses two
+    ranks on one device), each on ``dev``: one ``Trainer`` step at
+    ``cfg`` (default the training phase's ``reference_parity``: B=32
+    global, 16 a rank) in float32 with lr 1e-2 and eps 1e-2 (the update
+    follows the gradient's value) under deterministic algorithms, against
+    one process's step on the whole batch with the same draws
+    (``parallel.launch.train_step``; gates: the losses, global means over
+    the ranks, within rel 1e-5 of the whole batch's, which a per-rank
+    normaliser would miss by far more; parameters within 1e-4, 1% of the
+    step's lr, as batches of 16 and 32 round the products differently and
+    a ReLU input within that rounding of 0 takes the other branch, as the
+    flash gradient phase shows; the ranks bitwise equal), and
+    ``BatchSynthesizer(dp=True)`` of 4 requests (batch 4, 2 a rank,
+    float32, 10-step UniPC) against one process (equal frame counts, max
+    |mel diff| <= 5e-3, the parity gate of serving). Returns ({phase: ok},
+    numbers)."""
+    import dataclasses
+    import numpy as np
+    from diff_vits_tpu_torch.parallel import launch
+    from diff_vits_tpu_torch.text.symbols import symbols
+
+    ok, numbers = {}, dict(card=card)
+    cfg = cfg or _train_cfg()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype="float32", train_lr=1e-2, eps=1e-2))
+    b, t_y = cfg.train.train_batch_size, cfg.data.max_mel_len
+    batch = next(_train_batches(np, b, cfg.data.max_text_len * 2 + 1, t_y,
+                                t_y * 2 // 3 + 1, len(symbols), seed=8))
+    state = _seeded_state(cfg, cfg.train.seed)
+    reqs = _requests(torch, torch.Generator().manual_seed(1), len(symbols),
+                     cfg.data.max_mel_len * 2 // 3 + 1)[:4]
+    kw = dict(batch_size=4, mel_buckets=(400,), steps=DP_SAMPLING_STEPS,
+              dtype=torch.float32)
+    jobs = [(_exact, (launch.train_step, cfg, [batch], str(dev))),
+            (_exact, (_seeded_serve, cfg, cfg.train.seed, reqs, str(dev)),
+             kw)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(launch.calls, 2, jobs, backend="gloo",
+                             timeout=600)
+    numbers["gloo_two_ranks_wall_s"] = time.perf_counter() - t0
+    one = launch.calls(jobs)
+    (p0, m0), (p1, m1) = ranks[0][0], ranks[1][0]
+    (p_one, m_one) = one[0]
+    gap = max(float(np.abs(p0[n] - p_one[n]).max()) for n in p_one)
+    ranks_equal = all(np.array_equal(p0[n], p1[n]) for n in p0)
+    loss_gap = max(abs(m0[k] - m_one[k]) / max(abs(m_one[k]), 1e-12)
+                   for k in m_one)
+    moved = sum(not np.array_equal(p_one[n], state[n].numpy())
+                for n in p_one)
+    ok["dp_gloo_train"] = (gap <= 1e-4 and loss_gap <= 1e-5 and ranks_equal
+                           and moved > len(p_one) // 2)
+    mels_dp, mels_one = ranks[0][1], one[1]
+    lens = [(a[1].shape, c[1].shape) for a, c in zip(mels_dp, mels_one)]
+    mel_err = max(float(np.abs(a[1] - c[1]).max())
+                  for a, c in zip(mels_dp, mels_one))
+    ok["dp_gloo_serve"] = (all(x == y for x, y in lens) and mel_err <= 5e-3
+                           and [r[0] for r in mels_dp] == [r[0] for r in reqs])
+    numbers.update(param_gap=gap, loss_rel_gap=loss_gap,
+                   ranks_equal=ranks_equal, mel_max_abs=mel_err,
+                   metrics_two_ranks=m0, metrics_one=m_one)
+    log(f"dp gloo two ranks on {dev}: one step (B={b}, {b // 2} a rank, "
+        f"float32, deterministic algorithms) against one process: params "
+        f"max |diff| {gap:.2e} (gate 1e-4), losses rel {loss_gap:.2e} "
+        f"(gate 1e-5), "
+        f"ranks bitwise equal {ranks_equal}, {moved} of {len(p_one)} "
+        f"tensors moved; serve --dp mels max |diff| {mel_err:.2e} (gate "
+        f"5e-3), frame counts equal "
+        f"{all(x == y for x, y in lens)}; "
+        f"{numbers['gloo_two_ranks_wall_s']:.1f} s wall; card {card}. "
+        "Multi-GPU speed: not measured (one card)")
+    return ok, numbers
+
 
 if __name__ == "__main__":
     sys.exit(main())

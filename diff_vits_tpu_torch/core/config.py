@@ -38,9 +38,11 @@ class TrainConfig:
     clip_after: float = 1.0
     # Fields the JAX package added for its TPU trainer (no reference
     # equivalent). They are kept so that the same JSON loads to the same
-    # dataclass. The port's Trainer reads compute_dtype, use_ema and
-    # ema_decay, and refuses a remat_policy other than "none" and a
-    # mesh_shape of more than one device, which it does not run yet.
+    # dataclass. The port's Trainer reads compute_dtype, use_ema,
+    # ema_decay, remat_policy ("none" / "dots" / "full", nn/remat.py) and
+    # the mesh (parallel/mesh.py: data parallelism over the ranks; a
+    # "model", "expert" or "seq" axis larger than 1 is refused), not
+    # dropout_rng_impl (the port draws from a torch.Generator).
     compute_dtype: str = "bfloat16"
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ("data",)

@@ -6,7 +6,7 @@ the text frontend.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, TypeVar
+from typing import Callable, List, Optional, Sequence, TypeVar
 
 import torch
 import torch.nn.functional as F
@@ -41,15 +41,29 @@ def kl_divergence(m_p, logs_p, m_q, logs_q):
         * torch.exp(-2.0 * logs_q)
 
 
-def kl_loss(z_p, logs_q, m_p, logs_p, z_mask):
+Reduce = Callable[[torch.Tensor], torch.Tensor]
+
+
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask,
+            rank_mean: Optional[Reduce] = None):
     """Masked mean KL of the VITS prior loss in float32: the sum over the
     mask divided by the sum of the mask. z_p, logs_q, m_p, logs_p:
-    [B, T, C]; z_mask: [B, T, 1] (so the divisor counts frames)."""
+    [B, T, C]; z_mask: [B, T, 1] (so the divisor counts frames).
+    ``rank_mean`` (data parallelism: a statistic -> its mean over the
+    ranks) makes the divisor the mean of the ranks' mask sums, so that the
+    ranks' mean gradient is that of the global batch."""
     z_p, logs_q, m_p, logs_p, z_mask = (
         a.float() for a in (z_p, logs_q, m_p, logs_p, z_mask))
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * (z_p - m_p) ** 2 * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask) / denominator(torch.sum(z_mask),
+                                                rank_mean)
+
+
+def denominator(d: torch.Tensor, rank_mean: Optional[Reduce]) -> torch.Tensor:
+    """``d``, or its mean over the data-parallel ranks (without a
+    gradient) when ``rank_mean`` is given."""
+    return d if rank_mean is None else rank_mean(d.detach())
 
 
 T = TypeVar("T")

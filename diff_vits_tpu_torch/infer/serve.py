@@ -27,6 +27,16 @@ refer mel [S, 100])``:
 Weights are held in bfloat16 by default, as the JAX server casts them;
 the vocoder stays in float32, as the JAX server keeps it.
 
+Data parallelism (``dp=True``, ``--dp``; JAX serve.py:109-125, :184,
+:326-340): under ``torchrun`` every rank holds the model and synthesizes
+its rows of every bucket batch (``batch_size`` must divide by the number
+of ranks). Each rank draws the whole batch's noise from the batch's seeded
+generator and keeps its rows (``parallel.mesh.global_batch_draws``), so
+the mels are those of one process; the duration pass's counts and the
+results are all-gathered, and rank 0 writes the files in manifest order.
+Without a process group ``--dp`` is one rank, as JAX's mesh over one
+device is.
+
 Manifest: one utterance per line, tab-separated:
     utt_id <TAB> text <TAB> language(ZH|EN|JA) <TAB> refer_wav_path
 
@@ -34,10 +44,13 @@ Usage:
   python -m diff_vits_tpu_torch.infer.serve --manifest utts.tsv \
       -c config.json -m logs/tts/<run>/model-<step>.ckpt --batch_size 8 \
       [--mel_buckets 400,800,1600] [--vocoder_ckpt vocos.bin]
+  torchrun --nproc_per_node N -m diff_vits_tpu_torch.infer.serve --dp \
+      --manifest utts.tsv -c config.json -m model.ckpt --batch_size 8
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -53,6 +66,7 @@ from diff_vits_tpu_torch.infer.tts_infer import (
 from diff_vits_tpu_torch.models.diff_vits import (
     SAMPLE_METHODS, DiffVits, synthesize)
 from diff_vits_tpu_torch.models.vocoder import load_vocoder
+from diff_vits_tpu_torch.parallel import mesh as mesh_lib
 from diff_vits_tpu_torch.text.symbols import symbols
 from diff_vits_tpu_torch.train.checkpoint import load_model_state_dict
 
@@ -100,7 +114,8 @@ class BatchSynthesizer:
     (the card unless given) in ``dtype``. ``vocoder`` (a
     ``models.vocoder.Vocos``, e.g. from ``load_vocoder``) is moved to that
     device in float32 and set to eval mode; with it ``synthesize_all``
-    also returns waveforms.
+    also returns waveforms. ``dp``: each rank of the process group
+    synthesizes its rows of every batch (see the module's docstring).
     """
 
     def __init__(self, cfg: Config, state_dict, *, batch_size: int = 8,
@@ -112,10 +127,15 @@ class BatchSynthesizer:
                  mel_buckets: Optional[Sequence[int]] = None,
                  vocoder: Optional[nn.Module] = None,
                  dtype: torch.dtype = torch.bfloat16,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, dp: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.batch_size = batch_size
+        self.dp = dp
+        self.world = mesh_lib.world_size() if dp else 1
+        self.rank = mesh_lib.rank() if dp else 0
+        # raises unless the ranks share batch_size equally
+        mesh_lib.rows(batch_size, self.rank, self.world)
         self.steps, self.sample_method = steps, sample_method
         self.noise_scale, self.length_scale = noise_scale, length_scale
         self.model = DiffVits(cfg, len(symbols), device=self.device,
@@ -157,6 +177,25 @@ class BatchSynthesizer:
                   np.full(self.batch_size, s, np.int64), ids(2), ids(3))
         return [torch.from_numpy(a).to(self.device) for a in arrays]
 
+    @property
+    def rows(self) -> slice:
+        """This rank's rows of a batch of ``batch_size``."""
+        return mesh_lib.rows(self.batch_size, self.rank, self.world)
+
+    def _run_rows(self, fn, requests, t_bucket, gen, **kwargs):
+        """``fn(model inputs, generator=gen, **kwargs)`` on this rank's rows
+        of the padded batch of ``requests``, drawing the whole batch's
+        noise from ``gen`` (one rank: the whole batch)."""
+        inputs = [a[self.rows] for a in self.pad_batch(requests, t_bucket)]
+        if self.world == 1:
+            return fn(*inputs, generator=gen, **kwargs)
+        with mesh_lib.global_batch_draws(gen, self.rows, self.batch_size):
+            return fn(*inputs, generator=gen, **kwargs)
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a batch (``dp``), in rank order."""
+        return mesh_lib.all_gather_rows(t) if self.dp else t
+
     @torch.inference_mode()
     def _predict_mel_buckets(self, by_text, seed: int) -> Dict[int, int]:
         """Duration pass per text-bucket batch: request index -> mel
@@ -174,10 +213,10 @@ class BatchSynthesizer:
                 chunk = group[off:off + self.batch_size]
                 gen = torch.Generator().manual_seed(
                     seed * 2 ** 31 + t_bucket + off)
-                lens = self.model.vits.predict_lengths(
-                    *self.pad_batch([r for _, r in chunk], t_bucket),
-                    length_scale=self.length_scale,
-                    generator=gen).float().cpu().numpy()
+                lens = self._gather(self._run_rows(
+                    self.model.vits.predict_lengths,
+                    [r for _, r in chunk], t_bucket, gen,
+                    length_scale=self.length_scale)).float().cpu().numpy()
                 for j, (i, r) in enumerate(chunk):
                     n = int(np.ceil(headroom * lens[j]))
                     if n > top:
@@ -242,10 +281,10 @@ class BatchSynthesizer:
                 chunk = group[off:off + self.batch_size]
                 fold = ((t_bucket * 131 + m_bucket) * 100003 + off) % 2 ** 31
                 gen = torch.Generator().manual_seed(seed * 2 ** 31 + fold)
-                mel, out_lengths = synthesize(
-                    self.model, *self.pad_batch([r for _, r in chunk],
-                                                t_bucket),
-                    generator=gen, sampling_steps=self.steps,
+                mel, out_lengths = self._run_rows(
+                    functools.partial(synthesize, self.model),
+                    [r for _, r in chunk], t_bucket, gen,
+                    sampling_steps=self.steps,
                     sample_method=self.sample_method,
                     noise_scale=self.noise_scale,
                     length_scale=self.length_scale, max_len=m_bucket,
@@ -254,9 +293,10 @@ class BatchSynthesizer:
                 if self.vocoder is not None:
                     # the whole bucket batch at its static shape
                     with torch.inference_mode():
-                        wav = self.vocoder(mel.float()).cpu().numpy()
-                mel = mel.float().cpu().numpy()
-                lens = out_lengths.cpu().numpy()
+                        wav = self._gather(
+                            self.vocoder(mel.float())).cpu().numpy()
+                mel = self._gather(mel.float()).cpu().numpy()
+                lens = self._gather(out_lengths).cpu().numpy()
                 for j, (i, r) in enumerate(chunk):
                     n = int(lens[j])
                     if sdp and n >= m_bucket and m_bucket != \
@@ -300,14 +340,19 @@ def main(argv=None):
                    help="serving precision (bfloat16 weights; float32 for "
                         "parity runs)")
     p.add_argument("--dp", action="store_true",
-                   help="shard each bucket batch over all local devices "
-                        "(not ported: refused)")
+                   help="shard each bucket batch over the ranks of the "
+                        "torchrun process group (batch_size must be "
+                        "divisible by their number); one rank without one")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: the CUDA card)")
+                   help="torch device (default: the CUDA card, the rank's "
+                        "own under torchrun)")
     args = p.parse_args(argv)
     if args.dp:
-        raise ValueError("--dp (data-parallel serving over several devices) "
-                         "is not ported yet (ROADMAP Queue 1, item 7)")
+        mesh_lib.init_distributed(device=args.device)
+        print(f"serve --dp: {mesh_lib.world_size()} data-parallel rank(s)"
+              + ("" if mesh_lib.distributed() else
+                 " (no process group: one rank, as JAX's mesh over one "
+                 "device)"), flush=True)
 
     device = resolve_device(args.device)
     cfg = load_cli_config(args.config_path)
@@ -322,10 +367,13 @@ def main(argv=None):
         sample_method=args.sample_method, noise_scale=args.noise_scale,
         length_scale=args.length_scale, text_buckets=ints(args.text_buckets),
         mel_buckets=ints(args.mel_buckets), vocoder=vocoder,
-        dtype=DTYPES[args.dtype], device=device)
+        dtype=DTYPES[args.dtype], device=device, dp=args.dp)
     rows = read_manifest(args.manifest)
+    results = syn.synthesize_all(rows, seed=args.seed)
+    if mesh_lib.rank() != 0:
+        return
     os.makedirs(args.out_dir, exist_ok=True)
-    for row in syn.synthesize_all(rows, seed=args.seed):
+    for row in results:
         utt_id, mel = row[0], row[1]
         path = os.path.join(args.out_dir, f"{utt_id}.mel.npy")
         np.save(path, mel)
@@ -338,3 +386,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    mesh_lib.shutdown_distributed()

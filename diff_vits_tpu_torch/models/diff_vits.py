@@ -63,7 +63,8 @@ class DiffVits(nn.Module):
                 mas_noise_scale: float = 0.0,
                 t: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None,
-                dur_noise: Optional[torch.Tensor] = None
+                dur_noise: Optional[torch.Tensor] = None,
+                rank_mean: Optional[masking.Reduce] = None
                 ) -> Tuple[torch.Tensor, Tuple[Dict[str, torch.Tensor],
                                                torch.Tensor, torch.Tensor]]:
         """Training loss. text/tone/language [B, Tx]; spec [B, Ty, 100] the
@@ -74,6 +75,9 @@ class DiffVits(nn.Module):
         given and the posterior and MAS noise are zero: the parity mode,
         where ``dur_noise`` [B, Tx, 2] injects the stochastic duration
         predictor's posterior draw (``VITS.forward``).
+        ``rank_mean`` (data parallelism: a statistic -> its mean over the
+        ranks) is ``VITS.forward``'s; ``loss_diff``, a mean of per-item
+        means, needs none.
         Returns (loss, (metrics, model_out, target))."""
         if generator is None and (t is None or noise is None):
             raise ValueError("generator=None needs injected t and noise")
@@ -81,7 +85,7 @@ class DiffVits(nn.Module):
         content, lengths, (l_length, loss_kl, loss_kl_ph) = self.vits(
             text, text_lengths, spec, spec_lengths, tone, language,
             mas_noise_scale=mas_noise_scale, dur_noise=dur_noise,
-            generator=generator)
+            generator=generator, rank_mean=rank_mean)
 
         b = spec.shape[0]
         if t is None:

@@ -3,7 +3,9 @@
 Port of ``diff_vits_tpu/models/diffusion_encoder.py``: the prompt mel is
 encoded once per utterance into cross-attention keys; each denoiser call
 runs the UNet on [noisy mel, content] with those keys. ``forward`` is the
-training call: both, with the UNet embedding its own timesteps.
+training call: both, with the UNet embedding its own timesteps. With
+``moe_experts`` > 0 every transformer block of the UNet has the MoE
+feed-forward (``parallel.moe``), as in JAX (diffusion_encoder.py:37-38).
 """
 from __future__ import annotations
 
@@ -25,8 +27,6 @@ class DiffusionEncoder(nn.Module):
                  device: DeviceLike = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError("MoE feed-forward is not ported")
         device = resolve_device(device)
         c = cfg
         kw = dict(device=device, dtype=dtype)
@@ -38,7 +38,8 @@ class DiffusionEncoder(nn.Module):
             out_channels=c.out_channels,
             block_out_channels=c.block_out_channels, norm_num_groups=8,
             cross_attention_dim=c.hidden_channels,
-            attention_head_dim=c.n_heads, addition_embed_type="text", **kw)
+            attention_head_dim=c.n_heads, addition_embed_type="text",
+            moe_experts=c.moe_experts, moe_top_k=c.moe_top_k, **kw)
         self.to(**kw)
 
     def forward(self, x, t, cond, prompt, cond_lengths, prompt_lengths, *,

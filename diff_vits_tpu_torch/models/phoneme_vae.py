@@ -111,13 +111,15 @@ class PhonemeVAE(nn.Module):
 
     def forward(self, z, attn, x_hidden, x_mask, g=None, *,
                 noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                rank_mean: Optional[masking.Reduce] = None):
         """Training path (phoneme_vae.py:122): z [B, Ty, C] the frame
         latent, attn [B, Ty, Tx] the MAS path, x_hidden [B, Tx, H] the text
         hiddens, x_mask [B, Tx, 1]. The posterior draw is ``noise``
         [B, Tx, C] or from ``generator``; with neither it is the mean.
-        ``generator`` also draws the dropout masks. Returns (prosody
-        [B, Ty, C], loss_kl_ph)."""
+        ``generator`` also draws the dropout masks. ``rank_mean``
+        is ``masking.kl_loss``'s. Returns (prosody [B, Ty, C],
+        loss_kl_ph)."""
         z_ph = group_by_alignment(z, attn)
         z_q_ph, _, logs_q_ph = self.ph_encoder_q(z_ph, x_mask, noise=noise,
                                                  generator=generator)
@@ -125,7 +127,7 @@ class PhonemeVAE(nn.Module):
         _, m_p_ph, logs_p_ph = self.ph_enc_p(x_hidden, x_mask,
                                              generator=generator)
         loss_kl_ph = masking.kl_loss(z_p_ph, logs_q_ph, m_p_ph, logs_p_ph,
-                                     x_mask)
+                                     x_mask, rank_mean)
         return expand_by_alignment(z_q_ph, attn), loss_kl_ph
 
     def infer(self, attn, x_hidden, x_mask, g=None, *,

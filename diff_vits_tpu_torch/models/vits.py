@@ -98,7 +98,8 @@ class VITS(nn.Module):
     def forward(self, x, x_lengths, y, y_lengths, tone, language, *,
                 mas_noise_scale: float = 0.0,
                 dur_noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                rank_mean: Optional[masking.Reduce] = None):
         """Training forward (vits.py:85-166). x/tone/language [B, Tx]; y
         [B, Ty, 100] the target mel. ``generator`` draws the posterior and
         MAS noise, the stochastic duration predictor's posterior draw and
@@ -108,7 +109,11 @@ class VITS(nn.Module):
         from ``generator``, else from a generator seeded 0 (JAX draws from
         PRNGKey(0) there). With the phoneme VAE, ``generator`` also draws
         its posterior noise (zero without one) and the prosody is added to
-        z before ``o_proj``. Returns (content [B, Ty, C], y_lengths,
+        z before ``o_proj``. ``rank_mean`` (data parallelism: a
+        statistic -> its mean over the ranks) makes the batch statistics
+        global: the mask sums that divide l_length, loss_kl and loss_kl_ph
+        (``masking.kl_loss``) and the standard deviation that scales the
+        MAS noise. Returns (content [B, Ty, C], y_lengths,
         (l_length, loss_kl, loss_kl_ph)), loss_kl_ph 0 without the VAE."""
         kind = self.cfg.duration_predictor
         g = self.ref_enc(y)[:, None, :]
@@ -121,7 +126,7 @@ class VITS(nn.Module):
             z_p = self.flow(z, y_mask, g=g, generator=generator)
         attn_mask = y_mask[:, :, 0][:, :, None] * x_mask[:, :, 0][:, None, :]
         attn = self._alignment(z_p, m_p, logs_p, attn_mask, mas_noise_scale,
-                               generator)
+                               generator, rank_mean)
 
         w = attn.sum(dim=1)                                     # [B, Tx]
         if kind == "sdp":
@@ -130,7 +135,8 @@ class VITS(nn.Module):
                                         torch.Generator().manual_seed(0))
             nll = self.dp(x_h, x_mask, w=w[..., None], g=g, noise=dur_noise,
                           generator=generator)
-            l_length = torch.sum(nll.float()) / torch.sum(x_mask.float())
+            l_length = torch.sum(nll.float()) / masking.denominator(
+                torch.sum(x_mask.float()), rank_mean)
         else:
             logw_ = torch.log(w + 1e-6)[..., None] * x_mask
             if kind == "conv":
@@ -138,25 +144,30 @@ class VITS(nn.Module):
             else:
                 logw = self.dp(x_h, x_lengths, y, y_lengths)
             l_length = torch.sum((logw - logw_) ** 2, dim=(1, 2)) \
-                / torch.sum(x_mask)
+                / masking.denominator(torch.sum(x_mask), rank_mean)
             l_length = torch.sum(l_length.float())
 
         m_p_e = torch.matmul(attn, m_p.float())
         logs_p_e = torch.matmul(attn, logs_p.float())
-        loss_kl = masking.kl_loss(z_p, logs_q, m_p_e, logs_p_e, y_mask)
+        loss_kl = masking.kl_loss(z_p, logs_q, m_p_e, logs_p_e, y_mask,
+                                  rank_mean)
         loss_kl_ph = torch.zeros((), device=l_length.device)
         if self.phoneme_vae is not None:
-            prosody, loss_kl_ph = self.phoneme_vae(z, attn, x_h, x_mask, g=g,
-                                                   generator=generator)
+            prosody, loss_kl_ph = self.phoneme_vae(
+                z, attn, x_h, x_mask, g=g, generator=generator,
+                rank_mean=rank_mean)
             z = z + prosody
         content = self.o_proj(z, y_lengths, g=g, generator=generator)
         return content, y_lengths, (l_length, loss_kl, loss_kl_ph)
 
     @torch.no_grad()
     def _alignment(self, z_p, m_p, logs_p, attn_mask, mas_noise_scale,
-                   generator):
+                   generator, rank_mean=None):
         """MAS on the negative cross-entropy of z under the prior, in
-        float32 with autocast off and no gradient (vits.py:104-124)."""
+        float32 with autocast off and no gradient (vits.py:104-124). The
+        noise is scaled by the population std of the batch's scores (of the
+        global batch under data parallelism, whose ranks hold equal
+        shapes)."""
         with torch.autocast(z_p.device.type, enabled=False):
             zf, m_pf, logs_pf = z_p.float(), m_p.float(), logs_p.float()
             s_p_sq_r = torch.exp(-2.0 * logs_pf)                # [B, Tx, D]
@@ -171,8 +182,13 @@ class VITS(nn.Module):
                 # jnp.std is the population std
                 noise = torch.randn(neg_cent.shape, generator=generator,
                                     device=neg_cent.device)
-                neg_cent = neg_cent + torch.std(neg_cent, correction=0) \
-                    * noise * mas_noise_scale
+                if rank_mean is None:
+                    std = torch.std(neg_cent, correction=0)
+                else:
+                    mean = rank_mean(neg_cent.mean())
+                    std = torch.sqrt(rank_mean(((neg_cent - mean) ** 2)
+                                               .mean()))
+                neg_cent = neg_cent + std * noise * mas_noise_scale
             return maximum_path(neg_cent.contiguous(), attn_mask.float())
 
     def _predict_durations(self, x, x_lengths, y, y_lengths, tone, language,

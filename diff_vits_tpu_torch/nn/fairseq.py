@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from diff_vits_tpu_torch.nn.layers import Conv1d, dropout
+from diff_vits_tpu_torch.nn.remat import remat_call
 from diff_vits_tpu_torch.ops.flash_attention import flash_ok, sdpa
 
 
@@ -68,13 +69,15 @@ class EncSALayer(nn.Module):
     """Pre-LN self-attention (no qkv bias, -inf key padding) + conv FFN;
     registry code 8: 8 heads, FFN kernel 9, no attention-probability dropout
     (fairseq.py:189), so the flash route (``use_flash``, the keep mask as
-    the key mask) computes the same function."""
+    the key mask) computes the same function. ``remat`` is its
+    ``nn.remat`` policy."""
 
     def __init__(self, c: int, num_heads: int = 8, kernel_size: int = 9,
                  p_dropout: float = 0.0):
         super().__init__()
         self.num_heads, self.p_dropout = num_heads, p_dropout
         self.use_flash = False
+        self.remat = "none"
         self.layer_norm1 = nn.LayerNorm(c, eps=1e-5)
         self.in_proj = nn.Linear(c, 3 * c, bias=False)
         self.out_proj = nn.Linear(c, c, bias=False)
@@ -89,6 +92,11 @@ class EncSALayer(nn.Module):
 
     def forward(self, x, keep_mask, *,
                 generator: Optional[torch.Generator] = None):
+        return remat_call(self.remat, self._forward, x, keep_mask,
+                          generator=generator)
+
+    def _forward(self, x, keep_mask, *,
+                 generator: Optional[torch.Generator] = None):
         b, t, c = x.shape
         d = c // self.num_heads
         q, k, v = self.in_proj(self.layer_norm1(x)).chunk(3, dim=-1)

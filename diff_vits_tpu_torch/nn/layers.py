@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diff_vits_tpu_torch.nn.remat import remat_call
 from diff_vits_tpu_torch.ops.rel_attention import (
     fused_rel_self_attention, fused_rel_self_attention_plain)
 
@@ -95,13 +96,15 @@ class WN(nn.Module):
     """WaveNet core: dilated k-wide convs, gated tanh * sigmoid, res/skip
     1x1s, per-layer slices of one speaker-conditioning projection
     (layers.py:141-190). No dropout: its one user, the posterior encoder,
-    keeps the JAX module's p = 0."""
+    keeps the JAX module's p = 0. ``remat`` is the ``nn.remat`` policy of
+    each layer (the dilated conv, the gate and the res/skip 1x1)."""
 
     def __init__(self, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, n_layers: int, gin_channels: int = 0):
         super().__init__()
         h = hidden_channels
         self.hidden_channels, self.n_layers = h, n_layers
+        self.remat = "none"
         self.cond_layer = (nn.Linear(gin_channels, 2 * h * n_layers)
                            if gin_channels else None)
         for i in range(n_layers):
@@ -119,17 +122,23 @@ class WN(nn.Module):
         g_all = (self.cond_layer(g) if g is not None
                  and self.cond_layer is not None else None)
         for i in range(self.n_layers):
-            acts = getattr(self, f"in_{i}")(x)
-            if g_all is not None:
-                acts = acts + g_all[..., 2 * h * i:2 * h * (i + 1)]
-            acts = torch.tanh(acts[..., :h]) * torch.sigmoid(acts[..., h:])
-            res_skip = getattr(self, f"res_skip_{i}")(acts)
+            g_i = (None if g_all is None
+                   else g_all[..., 2 * h * i:2 * h * (i + 1)])
+            res_skip = remat_call(self.remat, self._layer, i, x, g_i)
             if i < self.n_layers - 1:
                 x = (x + res_skip[..., :h]) * x_mask
                 output = output + res_skip[..., h:]
             else:
                 output = output + res_skip
         return output * x_mask
+
+    def _layer(self, i: int, x, g_i):
+        h = self.hidden_channels
+        acts = getattr(self, f"in_{i}")(x)
+        if g_i is not None:
+            acts = acts + g_i
+        acts = torch.tanh(acts[..., :h]) * torch.sigmoid(acts[..., h:])
+        return getattr(self, f"res_skip_{i}")(acts)
 
 
 class MultiHeadAttention(nn.Module):
@@ -210,7 +219,8 @@ class FFN(nn.Module):
 
 class Encoder(nn.Module):
     """Post-LN relative-position transformer encoder; the speaker embedding
-    is added before layer ``cond_layer_idx`` (layers.py:446-487)."""
+    is added before layer ``cond_layer_idx`` (layers.py:446-487). ``remat``
+    is the ``nn.remat`` policy of each layer (attention and FFN)."""
 
     def __init__(self, hidden_channels: int, filter_channels: int,
                  n_heads: int, n_layers: int, kernel_size: int = 1,
@@ -219,6 +229,7 @@ class Encoder(nn.Module):
         super().__init__()
         self.n_layers, self.cond_layer_idx = n_layers, cond_layer_idx
         self.p_dropout = p_dropout
+        self.remat = "none"
         h = hidden_channels
         if gin_channels and n_layers > cond_layer_idx:
             self.spk_emb_linear = nn.Linear(gin_channels, h)
@@ -241,10 +252,15 @@ class Encoder(nn.Module):
             if (i == self.cond_layer_idx and g is not None
                     and self.spk_emb_linear is not None):
                 x = (x + self.spk_emb_linear(g)) * x_mask
-            y = getattr(self, f"attn_{i}")(x, lengths, generator=generator)
-            y = dropout(y, self.p_dropout, self.training, generator)
-            x = getattr(self, f"norm1_{i}")(x + y)
-            y = getattr(self, f"ffn_{i}")(x, x_mask, generator=generator)
-            y = dropout(y, self.p_dropout, self.training, generator)
-            x = getattr(self, f"norm2_{i}")(x + y)
+            x = remat_call(self.remat, self._layer, i, x, x_mask, lengths,
+                           generator=generator)
         return x * x_mask
+
+    def _layer(self, i: int, x, x_mask, lengths, *,
+               generator: Optional[torch.Generator] = None):
+        y = getattr(self, f"attn_{i}")(x, lengths, generator=generator)
+        y = dropout(y, self.p_dropout, self.training, generator)
+        x = getattr(self, f"norm1_{i}")(x + y)
+        y = getattr(self, f"ffn_{i}")(x, x_mask, generator=generator)
+        y = dropout(y, self.p_dropout, self.training, generator)
+        return getattr(self, f"norm2_{i}")(x + y)

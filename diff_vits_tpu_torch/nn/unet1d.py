@@ -30,11 +30,13 @@ from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
 from diff_vits_tpu_torch.nn.embeddings import (
     TextTimeEmbedding, TimestepEmbedding, Timesteps)
 from diff_vits_tpu_torch.nn.layers import Conv1d
+from diff_vits_tpu_torch.nn.remat import remat_call
 from diff_vits_tpu_torch.ops import (
     fused_cross_attention, fused_geglu_ff, fused_resnet_block,
     fused_self_attention)
 from diff_vits_tpu_torch.ops.flash_attention import (
     bias_to_keep_mask, flash_ok, sdpa)
+from diff_vits_tpu_torch.parallel.moe import MoEFeedForward
 
 
 def _group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
@@ -111,14 +113,21 @@ class GEGLUFeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """LN -> self-attn, LN -> cross-attn, LN -> GEGLU FF (unet1d.py:135)."""
+    """LN -> self-attn, LN -> cross-attn, LN -> GEGLU FF (unet1d.py:135);
+    with ``moe_experts`` > 0 the feed-forward is ``ff_moe``, a top-k gated
+    ``MoEFeedForward`` (unet1d.py:214-219), and the block takes its plain
+    route whatever ``use_fused`` says, as JAX's ``_fused_enabled`` does
+    (:157-160). ``remat`` is its ``nn.remat`` policy."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
                  cross_attention_dim: Optional[int] = None,
-                 use_fused: bool = True):
+                 use_fused: bool = True, moe_experts: int = 0,
+                 moe_top_k: int = 2):
         super().__init__()
         self.dim, self.num_heads, self.head_dim = dim, num_heads, head_dim
         self.use_fused = use_fused
+        self.moe_experts = moe_experts
+        self.remat = "none"
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = CrossAttention(dim, num_heads, head_dim)
         self.has_cross = cross_attention_dim is not None
@@ -127,15 +136,22 @@ class BasicTransformerBlock(nn.Module):
             self.attn2 = CrossAttention(dim, num_heads, head_dim,
                                         cross_attention_dim)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = GEGLUFeedForward(dim)
+        if moe_experts:
+            self.ff_moe = MoEFeedForward(dim, moe_experts, top_k=moe_top_k)
+        else:
+            self.ff = GEGLUFeedForward(dim)
 
     def _fused_enabled(self, attention_bias) -> bool:
         return (self.use_fused and not self.training
-                and attention_bias is None
+                and attention_bias is None and not self.moe_experts
                 and self.num_heads * self.head_dim == self.dim)
 
     def forward(self, x, context=None, attention_bias=None,
                 context_bias=None):
+        return remat_call(self.remat, self._forward, x, context,
+                          attention_bias, context_bias)
+
+    def _forward(self, x, context, attention_bias, context_bias):
         if self._fused_enabled(attention_bias):
             cdt = self.norm1.weight.dtype
 
@@ -156,7 +172,8 @@ class BasicTransformerBlock(nn.Module):
         x = x + self.attn1(self.norm1(x), None, attention_bias)
         if self.has_cross:
             x = x + self.attn2(self.norm2(x), context, context_bias)
-        return x + self.ff(self.norm3(x))
+        ff = self.ff_moe if self.moe_experts else self.ff
+        return x + ff(self.norm3(x))
 
 
 class Transformer1D(nn.Module):
@@ -165,7 +182,8 @@ class Transformer1D(nn.Module):
     def __init__(self, in_channels: int, num_heads: int, head_dim: int,
                  num_layers: int = 1,
                  cross_attention_dim: Optional[int] = None,
-                 norm_num_groups: int = 32):
+                 norm_num_groups: int = 32, moe_experts: int = 0,
+                 moe_top_k: int = 2):
         super().__init__()
         inner = num_heads * head_dim
         self.num_layers = num_layers
@@ -174,7 +192,8 @@ class Transformer1D(nn.Module):
         for i in range(num_layers):
             self.add_module(f"block_{i}", BasicTransformerBlock(
                 inner, num_heads, head_dim,
-                cross_attention_dim=cross_attention_dim))
+                cross_attention_dim=cross_attention_dim,
+                moe_experts=moe_experts, moe_top_k=moe_top_k))
         self.proj_out = nn.Linear(inner, in_channels)
 
     def forward(self, x, context=None, attention_bias=None,
@@ -188,7 +207,8 @@ class Transformer1D(nn.Module):
 
 class ResnetBlock1D(nn.Module):
     """GN -> SiLU -> conv, FiLM (scale_shift) after GN2, SiLU -> conv,
-    + 1x1 or identity shortcut (unet1d.py:376)."""
+    + 1x1 or identity shortcut (unet1d.py:376). ``remat`` is its
+    ``nn.remat`` policy."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: int, groups: int = 32, eps: float = 1e-5,
@@ -203,6 +223,7 @@ class ResnetBlock1D(nn.Module):
         self.conv2 = Conv1d(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (nn.Linear(in_channels, out_channels)
                               if in_channels != out_channels else None)
+        self.remat = "none"
 
     def _fused_enabled(self) -> bool:
         return (self.use_fused and not self.training
@@ -210,6 +231,9 @@ class ResnetBlock1D(nn.Module):
                 and self.out_channels % self.groups == 0)
 
     def forward(self, x, temb):
+        return remat_call(self.remat, self._forward, x, temb)
+
+    def _forward(self, x, temb):
         if self._fused_enabled():
             # film = silu(temb) @ wt + bt in float32, outside the kernel
             # (unet1d.py:426)
@@ -269,7 +293,7 @@ class CrossAttnDownBlock1D(nn.Module):
 
     def __init__(self, in_channels, out_channels, temb_channels,
                  num_layers=2, num_heads=8, cross_attention_dim=128,
-                 groups=8, add_downsample=True):
+                 groups=8, add_downsample=True, **moe):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
@@ -279,7 +303,7 @@ class CrossAttnDownBlock1D(nn.Module):
             self.add_module(f"attn_{i}", Transformer1D(
                 out_channels, num_heads, out_channels // num_heads,
                 cross_attention_dim=cross_attention_dim,
-                norm_num_groups=groups))
+                norm_num_groups=groups, **moe))
         self.downsample = (Downsample1D(out_channels, out_channels)
                            if add_downsample else None)
 
@@ -326,7 +350,7 @@ class MidBlock1DCrossAttn(nn.Module):
     """Resnet + (Transformer + Resnet) x N."""
 
     def __init__(self, in_channels, temb_channels, num_layers=1,
-                 num_heads=8, cross_attention_dim=128, groups=8):
+                 num_heads=8, cross_attention_dim=128, groups=8, **moe):
         super().__init__()
         self.num_layers = num_layers
         self.resnet_0 = ResnetBlock1D(in_channels, in_channels,
@@ -335,7 +359,7 @@ class MidBlock1DCrossAttn(nn.Module):
             self.add_module(f"attn_{i}", Transformer1D(
                 in_channels, num_heads, in_channels // num_heads,
                 cross_attention_dim=cross_attention_dim,
-                norm_num_groups=groups))
+                norm_num_groups=groups, **moe))
             self.add_module(f"resnet_{i + 1}", ResnetBlock1D(
                 in_channels, in_channels, temb_channels, groups=groups))
 
@@ -361,7 +385,8 @@ class CrossAttnUpBlock1D(nn.Module):
 
     def __init__(self, in_channels, out_channels, prev_output_channel,
                  temb_channels, num_layers=3, num_heads=8,
-                 cross_attention_dim=128, groups=8, add_upsample=True):
+                 cross_attention_dim=128, groups=8, add_upsample=True,
+                 **moe):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
@@ -372,7 +397,7 @@ class CrossAttnUpBlock1D(nn.Module):
             self.add_module(f"attn_{i}", Transformer1D(
                 out_channels, num_heads, out_channels // num_heads,
                 cross_attention_dim=cross_attention_dim,
-                norm_num_groups=groups))
+                norm_num_groups=groups, **moe))
         self.upsample = (Upsample1D(out_channels, out_channels)
                          if add_upsample else None)
 
@@ -419,7 +444,9 @@ class UNet1DConditionModel(nn.Module):
     additive embedding by attention pooling over the cross-attention keys.
 
     ``in_channels`` is the width of ``sample`` (flax infers conv_in's input
-    width from the data; the port needs it up front).
+    width from the data; the port needs it up front). ``moe_experts`` > 0
+    gives every transformer block a ``moe_top_k``-gated MoE feed-forward
+    (unet1d.py:696-697).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -429,12 +456,14 @@ class UNet1DConditionModel(nn.Module):
                  addition_embed_type: Optional[str] = "text",
                  addition_embed_type_num_heads: int = 64,
                  flip_sin_to_cos: bool = True, freq_shift: float = 0.0,
+                 moe_experts: int = 0, moe_top_k: int = 2,
                  *, device: DeviceLike = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         ch = tuple(block_out_channels)
         n = len(ch)
         heads, groups = attention_head_dim, norm_num_groups
+        moe = dict(moe_experts=moe_experts, moe_top_k=moe_top_k)
         temb = ch[0] * 4
         self.block_out_channels = ch
         self.layers_per_block = layers_per_block
@@ -457,7 +486,7 @@ class UNet1DConditionModel(nn.Module):
                 blk = CrossAttnDownBlock1D(
                     in_ch, ch[i], temb, num_layers=layers_per_block,
                     num_heads=heads, cross_attention_dim=cross_attention_dim,
-                    groups=groups, add_downsample=True)
+                    groups=groups, add_downsample=True, **moe)
             else:
                 blk = DownBlock1D(in_ch, ch[i], temb,
                                   num_layers=layers_per_block, groups=groups,
@@ -465,7 +494,7 @@ class UNet1DConditionModel(nn.Module):
             self.add_module(f"down_{i}", blk)
         self.mid = MidBlock1DCrossAttn(
             ch[-1], temb, num_heads=heads,
-            cross_attention_dim=cross_attention_dim, groups=groups)
+            cross_attention_dim=cross_attention_dim, groups=groups, **moe)
         rev = list(reversed(ch))
         prev_out = rev[0]
         for i in range(n):
@@ -480,7 +509,7 @@ class UNet1DConditionModel(nn.Module):
                     in_ch, out_ch, prev_out, temb,
                     num_layers=layers_per_block + 1, num_heads=heads,
                     cross_attention_dim=cross_attention_dim, groups=groups,
-                    add_upsample=not final)
+                    add_upsample=not final, **moe)
             self.add_module(f"up_{i}", blk)
             prev_out = out_ch
         self.conv_norm_out = nn.GroupNorm(groups, ch[0], eps=1e-5)

@@ -7,10 +7,18 @@ writes it) on the card unless ``--device`` names another device.
 converted by ``utils.convert``, and a trainer state of the JAX package
 (``Trainer.load``).
 
+Under ``torchrun`` every rank joins the process group first
+(``parallel.mesh.init_distributed``: NCCL on the cards, gloo with
+``--device cpu``) and the ``Trainer`` trains data parallel over the ranks;
+rank 0 alone writes checkpoints and logs. A ``train.mesh_shape`` whose
+product is not the number of ranks falls back to all of them, as in JAX.
+
 Usage:
   python -m diff_vits_tpu_torch.train.cli -c config.json --workdir runs/a \
       [--resume auto|<checkpoint>] [--steps N] [--log_every 100] \
       [--device cpu]
+  torchrun --nproc_per_node N -m diff_vits_tpu_torch.train.cli \
+      -c configs/multi_chip_dp.json --workdir runs/dp [--resume auto]
 """
 from __future__ import annotations
 
@@ -39,8 +47,10 @@ def main(argv=None):
                              "raises when there is none)")
     args = parser.parse_args(argv)
 
+    from diff_vits_tpu_torch.parallel.mesh import init_distributed
     from diff_vits_tpu_torch.train.trainer import Trainer
 
+    init_distributed(device=args.device)
     cfg = load_config(args.config) if os.path.exists(args.config) else Config()
     trainer = Trainer(cfg, workdir=args.workdir, device=args.device)
     if args.resume == "auto":
@@ -53,3 +63,5 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    from diff_vits_tpu_torch.parallel.mesh import shutdown_distributed
+    shutdown_distributed()

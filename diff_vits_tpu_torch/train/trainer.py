@@ -1,7 +1,9 @@
 """Training loop of the port: loss, backward, clipped AdamW, EMA,
 checkpoints.
 
-Port of ``diff_vits_tpu/train/trainer.py`` for one process on one device:
+Port of ``diff_vits_tpu/train/trainer.py``, on one process or, under
+``torchrun``, data parallel over the ranks of a ``torch.distributed``
+process group (``parallel.mesh``):
 
 * ``make_optimizer``: AdamW with optax.adamw's weight decay (1e-4, not
   torch's 1e-2 default), betas and eps from the config;
@@ -14,7 +16,35 @@ Port of ``diff_vits_tpu/train/trainer.py`` for one process on one device:
 * EMA as a float32 copy of the parameters, never an alias of them,
   updated after each optimizer step (trainer.py:159-163, :216-222);
 * bfloat16 ``torch.autocast`` on the card when ``train.compute_dtype`` is
-  "bfloat16", over float32 master weights.
+  "bfloat16", over float32 master weights;
+* ``train.remat_policy`` "none", "dots" or "full" (trainer.py:84-113),
+  block by block through ``nn.remat`` (which says why the block and not
+  the whole loss is the unit, and how the dropout generator is replayed).
+
+Data parallelism (trainer.py:175-184, :225-252): ``train.mesh_shape``
+over the world size as JAX's ``make_mesh`` takes it (``parallel.mesh``;
+only the ``data`` axis may exceed 1). Each rank holds the whole model
+(the same initial weights from ``train.seed``), takes
+``train_batch_size / world`` rows (the loaders' ``host_id`` / ``num_hosts``
+shard), and the step equals JAX's step on the global batch:
+
+* the two loss terms that divide by a sum over the whole batch (l_length
+  and the KL terms) divide by that sum's mean over the ranks, and the MAS
+  noise is scaled by the global batch's std (``rank_mean``);
+  ``loss_diff`` is a mean of per-item means and needs none;
+* the gradients are averaged once per optimizer step, after the
+  accumulation loop and before the clip, by one all-reduce of every
+  parameter's gradient (zeros for a parameter unused on a rank; a
+  parameter unused on every rank keeps no gradient, as it would on one
+  process);
+* t, the diffusion, posterior and MAS noise and the dropout masks come
+  from a generator seeded by (``train.seed``, rank), rank 0's being the
+  one-process generator; the refer1/refer2 coin is the same on every rank;
+* metrics are averaged over the ranks before they are logged; checkpoints,
+  ``save_flax``, tensorboard and ``eval_sample`` are rank 0's, the others
+  waiting at a barrier; ``resume_latest`` loads on every rank; a SIGTERM
+  seen by any rank stops every rank at the same step (the stop flag is
+  all-reduced each step).
 
 Checkpoints: ``save`` writes the port's own format; ``save_flax`` the JAX
 package's trainer state (``params``, optax's ``opt_state``,
@@ -79,7 +109,9 @@ from diff_vits_tpu_torch.data.batch import Batch
 from diff_vits_tpu_torch.data.dataset import TextMelDataset, TrainLoader
 from diff_vits_tpu_torch.models.diff_vits import (
     DiffVits, eval_mode, synthesize)
+from diff_vits_tpu_torch.nn.remat import check_policy, set_remat
 from diff_vits_tpu_torch.nn.unet1d import set_use_flash
+from diff_vits_tpu_torch.parallel import mesh as mesh_lib
 from diff_vits_tpu_torch.text.symbols import symbols
 from diff_vits_tpu_torch.train import checkpoint as ckpt_lib
 from diff_vits_tpu_torch.utils.convert import (
@@ -188,20 +220,9 @@ def make_loader(ds: TextMelDataset, cfg: Config, **kw):
     return TrainLoader(ds, cfg, **kw), "python", reason
 
 
-def _check_unported(cfg: Config) -> None:
-    """Refuse the JAX trainer's options that the port does not run yet,
-    rather than train without them: rematerialisation (ROADMAP Queue 1,
-    item 4, ``torch.utils.checkpoint``) and a device mesh (Queue 1, item
-    7). JAX raises on an unknown policy too (trainer.py:105-112)."""
-    if cfg.train.remat_policy != "none":
-        raise ValueError(
-            f"train.remat_policy {cfg.train.remat_policy!r} is not ported "
-            "(ROADMAP Queue 1, item 4); the port trains with 'none'")
-    if math.prod(cfg.train.mesh_shape) != 1:
-        raise ValueError(
-            f"train.mesh_shape {tuple(cfg.train.mesh_shape)} spans more than "
-            "one device, which the port does not train on yet (ROADMAP "
-            "Queue 1, item 7)")
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s generator: ``seed`` itself on rank 0."""
+    return seed + 1_000_003 * rank
 
 
 class Trainer:
@@ -217,12 +238,24 @@ class Trainer:
                  *, dataset: Optional[TextMelDataset] = None,
                  device: DeviceLike = None, workdir: Optional[str] = None):
         self.cfg = cfg
-        _check_unported(cfg)
+        check_policy(cfg.train.remat_policy)
+        self.mesh = mesh_lib.make_mesh(cfg.train.mesh_shape,
+                                       cfg.train.mesh_axes)
+        self.rank, self.world = mesh_lib.rank(), mesh_lib.world_size()
+        # under a process group (torchrun, even of one rank) the step takes
+        # the data-parallel path and its collectives
+        self.dp = mesh_lib.distributed()
+        if cfg.train.train_batch_size % self.world:
+            raise ValueError(
+                f"train.train_batch_size={cfg.train.train_batch_size} must "
+                f"be divisible by the mesh 'data' axis ({self.world} ranks):"
+                " the global batch shards over that axis")
         self.device = resolve_device(device)
         self.model = DiffVits(cfg, len(symbols), device=self.device)
         init_random(self.model, torch.Generator().manual_seed(cfg.train.seed))
         self.model.train()
         set_use_flash(self.model, self.device.type == "cuda")
+        set_remat(self.model, cfg.train.remat_policy)
         self.params = list(self.model.parameters())
         self.optimizer = make_optimizer(cfg, self.params)
         # a copy, never the parameters' own storage
@@ -231,7 +264,7 @@ class Trainer:
         self.step = 0
         self.accum = max(1, cfg.train.gradient_accumulate_every)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.train.seed)
+            rank_seed(cfg.train.seed, self.rank))
         self._py_rng = random.Random(cfg.train.seed + 17)
         self.bf16 = (self.device.type == "cuda"
                      and cfg.train.compute_dtype == "bfloat16")
@@ -252,7 +285,9 @@ class Trainer:
         """The training loader (:func:`make_loader`); prints the choice and
         records it in ``loader_kind``."""
         loader, self.loader_kind, reason = make_loader(
-            self.ds, self.cfg, seed=self.cfg.train.seed)
+            self.ds, self.cfg, seed=self.cfg.train.seed,
+            batch_size=self.cfg.train.train_batch_size // self.world,
+            host_id=self.rank, num_hosts=self.world)
         if self.loader_kind == "native":
             print("loader: native C++ (csrc/loader.cc)", flush=True)
         elif self.cfg.train.use_native_loader:
@@ -289,17 +324,21 @@ class Trainer:
                               0.0)
         inputs = [forward_inputs(mb, self._py_rng.random() < 0.5)
                   for mb in micro]
+        rank_mean = self._mean_over_ranks if self.dp else None
         self.optimizer.zero_grad(set_to_none=True)
         sums: Dict[str, torch.Tensor] = {}
         for mb in inputs:
             with self._autocast():
                 loss, (metrics, _, _) = self.model(
                     **mb, generator=self.generator,
-                    mas_noise_scale=mas_noise_scale)
+                    mas_noise_scale=mas_noise_scale,
+                    rank_mean=rank_mean)
             (loss / len(inputs)).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach().float()
         metrics = {k: v / len(inputs) for k, v in sums.items()}
+        if self.dp:
+            self._average_grads()
         grads = [p.grad for p in self.params if p.grad is not None]
         metrics["loss/grad"] = clip_by_global_norm_scheduled(
             grads, self.step, self.cfg)
@@ -311,6 +350,43 @@ class Trainer:
                 torch._foreach_add_(self.ema, self.params, alpha=1.0 - d)
         self.step += 1
         return metrics
+
+    # -- data parallelism --------------------------------------------------
+
+    def _mean_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        return mesh_lib.all_reduce_sum(t) / self.world
+
+    def _average_grads(self) -> None:
+        """Every parameter's gradient replaced by its mean over the ranks,
+        in one all-reduce; a parameter that no rank used keeps None."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        used = torch.tensor([float(p.grad is not None) for p in self.params],
+                            device=self.device)
+        flat = mesh_lib.all_reduce_sum(torch.cat(
+            [g.reshape(-1).float() for g in grads] + [used]))
+        used = flat[-len(self.params):].cpu()
+        off = 0
+        for p, g, u in zip(self.params, grads, used):
+            n = g.numel()
+            p.grad = (None if u == 0 else (flat[off:off + n] / self.world)
+                      .view_as(g).to(g.dtype))
+            off += n
+
+    def global_metrics(self, metrics: Dict[str, torch.Tensor]
+                        ) -> Dict[str, float]:
+        """``metrics`` averaged over the ranks, as floats (a host sync)."""
+        names = sorted(metrics)
+        vals = torch.stack([metrics[k].float() for k in names])
+        vals = self._mean_over_ranks(vals) if self.dp else vals
+        return dict(zip(names, vals.tolist()))
+
+    def _any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` is true on any rank (every rank must ask)."""
+        if not self.dp:
+            return flag
+        t = torch.tensor([float(flag)], device=self.device)
+        return bool(mesh_lib.all_reduce_sum(t).item() > 0)
 
     # -- input pipeline ----------------------------------------------------
 
@@ -411,7 +487,8 @@ class Trainer:
         num_steps = num_steps or self.cfg.train.train_num_steps
         log_every = max(1, min(log_every, num_steps))
         every = self.cfg.train.save_and_sample_every
-        writer = summary_writer(self.logs_folder)
+        lead = self.rank == 0
+        writer = summary_writer(self.logs_folder) if lead else None
         batches = self.device_batches(iter(self.batches), prefetch)
         preempted: List[int] = []
 
@@ -427,9 +504,15 @@ class Trainer:
             except ValueError:  # not the main thread
                 pass
         logged: Dict[str, float] = {}
+        stopped = False
         t0 = time.time()
         try:
-            while self.step < num_steps and not preempted:
+            while self.step < num_steps:
+                # every rank stops at the same step: a signal on one rank
+                # is every rank's (the collectives of a step need them all)
+                stopped = self._any_rank(bool(preempted))
+                if stopped:
+                    break
                 try:
                     micro = next(batches)
                 except StopIteration:
@@ -437,15 +520,16 @@ class Trainer:
                 try:
                     metrics = self.step_on(micro)
                 except Exception:
-                    # a checkpoint of what is left, never hiding the error
+                    # a checkpoint of what is left, never hiding the error;
+                    # no barrier: the other ranks may not have failed
                     try:
-                        self.save(self.step)
+                        self.save(self.step, sync=False)
                     except Exception as save_err:
                         print(f"crash checkpoint failed: {save_err}",
                               flush=True)
                     raise
                 if self.step % log_every == 0:
-                    logged = {k: float(v) for k, v in metrics.items()}
+                    logged = self.global_metrics(metrics)
                     if not math.isfinite(logged["loss/all"]):
                         self.save(self.step)
                         raise FloatingPointError(
@@ -454,8 +538,9 @@ class Trainer:
                     t0 = time.time()
                     line = " ".join(f"{k}={v:.4f}"
                                     for k, v in sorted(logged.items()))
-                    print(f"step {self.step} {line} steps/s={sps:.2f}",
-                          flush=True)
+                    if lead:
+                        print(f"step {self.step} {line} steps/s={sps:.2f}",
+                              flush=True)
                     if writer is not None:
                         for k, v in logged.items():
                             writer.add_scalar(k, v, self.step)
@@ -463,12 +548,13 @@ class Trainer:
                                           self.step)
                 if self.step % every == 0:
                     self.save(self.step)
-                    if self.ds is not None:
+                    if self.ds is not None and lead:
                         try:
                             self.eval_sample(self.step, writer)
                         except Exception as e:  # eval never stops training
                             print(f"eval_sample failed: "
                                   f"{type(e).__name__}: {e}", flush=True)
+                    mesh_lib.barrier()
         finally:
             batches.close()
             for sig, h in old_handlers.items():
@@ -477,10 +563,10 @@ class Trainer:
                 writer.close()
         if self.step % every != 0:
             self.save(self.step)
-        if preempted:
+        if lead and (stopped or preempted):
             print(f"preempted: checkpointed at step {self.step}; rerun to "
                   "auto-resume", flush=True)
-        else:
+        elif lead:
             print("training complete", flush=True)
         return logged
 
@@ -609,17 +695,32 @@ class Trainer:
 
     # -- checkpoints -------------------------------------------------------
 
-    def save(self, step: int) -> str:
-        state = {"model": self.model.state_dict(),
-                 "optimizer": self.optimizer.state_dict(),
-                 "generator": self.generator.get_state(),
-                 "py_rng": self._py_rng.getstate()}
-        if self.ema is not None:
-            state["ema"] = self.ema
-        return ckpt_lib.save_checkpoint(self.logs_folder, step, state,
-                                        keep=self.cfg.train.keep_ckpts)
+    def save(self, step: int, sync: bool = True) -> Optional[str]:
+        """Write the checkpoint of ``step`` on rank 0 (its path; None on the
+        other ranks), every rank then waiting at a barrier unless not
+        ``sync``. Under data parallelism with ``sync`` the file also holds
+        every rank's generator state (``generators``, gathered here)."""
+        gens = None
+        if sync and self.dp:
+            gens = mesh_lib.all_gather_rows(
+                self.generator.get_state()[None].to(self.device)).cpu()
+        path = None
+        if self.rank == 0:
+            state = {"model": self.model.state_dict(),
+                     "optimizer": self.optimizer.state_dict(),
+                     "generator": self.generator.get_state(),
+                     "py_rng": self._py_rng.getstate()}
+            if self.ema is not None:
+                state["ema"] = self.ema
+            if gens is not None:
+                state["generators"] = gens
+            path = ckpt_lib.save_checkpoint(self.logs_folder, step, state,
+                                            keep=self.cfg.train.keep_ckpts)
+        if sync:
+            mesh_lib.barrier()
+        return path
 
-    def save_flax(self, step: int) -> str:
+    def save_flax(self, step: int) -> Optional[str]:
         """Write the trainer state as the JAX package's ``Trainer.save``
         does (diff_vits_tpu/train/trainer.py:289-300): ``{"params",
         "opt_state", "ema_params"}`` with the flax names, optax.adamw's
@@ -627,7 +728,11 @@ class Trainer:
         (:func:`make_optimizer` says why the moments carry over): ``mu`` /
         ``nu`` the AdamW ``exp_avg`` / ``exp_avg_sq`` (zero for a parameter
         that has had no step), ``count`` the AdamW step as int32. Not the
-        random streams, which a JAX state does not hold."""
+        random streams, which a JAX state does not hold. Rank 0 writes
+        (None on the others), every rank then waiting at a barrier."""
+        if self.rank != 0:
+            mesh_lib.barrier()
+            return None
         names = [n for n, _ in self.model.named_parameters()]
         mu, nu, count = {}, {}, 0
         for n, p in zip(names, self.params):
@@ -644,8 +749,10 @@ class Trainer:
         if self.ema is not None:
             state["ema_params"] = to_flax_params(self.model,
                                                  dict(zip(names, self.ema)))
-        return ckpt_lib.save_flax_checkpoint(
+        path = ckpt_lib.save_flax_checkpoint(
             self.logs_folder, step, state, keep=self.cfg.train.keep_ckpts)
+        mesh_lib.barrier()
+        return path
 
     def _load_flax_state(self, path: str, state) -> None:
         """A JAX trainer state (diff_vits_tpu/train/trainer.py:302-328):
@@ -702,7 +809,13 @@ class Trainer:
                 self.optimizer.load_state_dict(state["optimizer"])
             else:
                 self.optimizer = make_optimizer(self.cfg, self.params)
-            if "generator" in state:
+            gens = state.get("generators")
+            if gens is not None and len(gens) == self.world:
+                # a fresh host copy: the file may map to the card, and
+                # set_state of a row view reads out of bounds
+                self.generator.set_state(gens[self.rank].to("cpu",
+                                                            copy=True))
+            elif "generator" in state and self.rank == 0:
                 self.generator.set_state(state["generator"].cpu())
             if "py_rng" in state:
                 self._py_rng.setstate(state["py_rng"])

@@ -7,7 +7,9 @@ pass placing the rows in both buckets; each mel has the frame count the
 JAX package's ``serve`` writes for the same manifest and checkpoint (two
 rows in one mel bucket there: JAX compiles a program for each bucket,
 ~25 s each on a CPU). ``read_manifest`` equals JAX's and refuses a
-malformed line; ``--dp`` and unknown samplers are refused."""
+malformed line; ``--dp`` without a process group runs as one rank and
+writes what the run without it writes; unknown samplers are refused."""
+import os
 import sys
 
 import numpy as np
@@ -105,10 +107,18 @@ def test_read_manifest_matches_jax(manifest, tmp_path):
         serve.read_manifest(str(bad))
 
 
-def test_serve_refuses_dp_and_unknown_samplers(files, manifest, tmp_path):
-    with pytest.raises(ValueError, match="Queue 1, item 7"):
-        serve.main(_args(files, manifest, tmp_path, "--device", "cpu",
-                         "--dp"))
+def test_serve_refuses_dp_and_unknown_samplers(files, manifest, tmp_path,
+                                              no_cmudict, capsys):
+    serve.main(_args(files, manifest, tmp_path / "dp", "--device", "cpu",
+                     "--dp"))
+    assert "serve --dp: 1 data-parallel rank(s) (no process group" \
+        in capsys.readouterr().out
+    serve.main(_args(files, manifest, tmp_path / "one", "--device", "cpu"))
+    names = sorted(os.listdir(tmp_path / "one"))
+    assert names == sorted(os.listdir(tmp_path / "dp")) and names
+    for name in names:
+        np.testing.assert_array_equal(np.load(tmp_path / "dp" / name),
+                                      np.load(tmp_path / "one" / name))
     with pytest.raises(SystemExit):
         serve.main(_args(files, manifest, tmp_path, "--device", "cpu",
                          "--sample_method", "euler"))

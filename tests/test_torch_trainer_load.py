@@ -2,8 +2,11 @@
 a params-only checkpoint (``{"model": ...}``, the kind converted from the
 reference) loads as ``diff_vits_tpu/train/trainer.py`` ``Trainer.load``
 loads it (a fresh optimizer, the random streams kept, the EMA a copy of
-the params) and trains on; a ``train.remat_policy`` or ``train.mesh_shape``
-that the port does not run is refused instead of ignored."""
+the params) and trains on; every ``train.remat_policy`` JAX takes builds
+and steps and a misspelled one raises; a ``train.mesh_shape`` whose
+product is not the world size falls back to the world size as JAX's
+``make_mesh`` does (one process here), and a ``model`` axis larger than 1
+is refused."""
 from pathlib import Path
 
 import dataclasses
@@ -13,6 +16,7 @@ import pytest
 import torch
 
 from diff_vits_tpu_torch.core.config import load_config
+from diff_vits_tpu_torch.parallel.mesh import make_mesh
 from diff_vits_tpu_torch.train import checkpoint as ckpt_lib
 from diff_vits_tpu_torch.train.trainer import Trainer
 from test_torch_trainer import _batch, _cfg
@@ -64,22 +68,46 @@ def test_params_only_checkpoint_loads_and_trains(tmp_path):
 
 
 @pytest.mark.parametrize("train,match", [
-    (dict(remat_policy="dots"), "remat_policy"),
-    (dict(remat_policy="full"), "remat_policy"),
+    (dict(remat_policy="dots"), None),
+    (dict(remat_policy="full"), None),
     (dict(remat_policy="dotz"), "remat_policy"),
-    (dict(mesh_shape=(4,)), "mesh_shape"),
-    (dict(mesh_shape=(2, 2)), "mesh_shape"),
+    (dict(mesh_shape=(4,)), None),
+    (dict(mesh_shape=(2, 2)), None),
 ], ids=["dots", "full", "misspelled", "dp4", "mesh2x2"])
 def test_trainer_refuses_what_it_does_not_run(train, match):
-    with pytest.raises(ValueError, match=match):
-        Trainer(_cfg(**train), [], device="cpu")
+    """What JAX runs builds and steps (a mesh over the one process, as
+    JAX's make_mesh takes a shape that is not the device count); what JAX
+    refuses is refused."""
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            Trainer(_cfg(**train), [], device="cpu")
+        return
+    tr = Trainer(_cfg(**train), [], device="cpu")
+    assert tr.mesh == {"data": 1} and tr.world == 1
+    assert all(getattr(m, "remat", tr.cfg.train.remat_policy)
+               == tr.cfg.train.remat_policy for m in tr.model.modules())
+    metrics = tr.train_step(_batch(0))
+    assert tr.step == 1 and np.isfinite(float(metrics["loss/all"]))
+
+
+def test_trainer_mesh_refuses_a_model_axis():
+    """The Trainer's mesh (``make_mesh`` of ``train.mesh_shape`` over the
+    ranks): a ``model`` axis of 2 over 2 ranks, which JAX would shard the
+    UNet over, is refused; over one process it falls back to (1, 1)."""
+    shape, axes = (1, 2), ("data", "model")
+    with pytest.raises(ValueError, match="Queue 1, item 7"):
+        make_mesh(shape, axes, world=2)
+    tr = Trainer(_cfg(mesh_shape=shape, mesh_axes=axes), [], device="cpu")
+    assert tr.mesh == {"data": 1, "model": 1}
 
 
 def test_trainer_takes_the_defaults_and_refuses_the_multi_chip_config():
+    """The multi-chip config builds on one process: its mesh (4,) falls
+    back to the one rank (torchrun spreads it over the ranks)."""
     tr = Trainer(_cfg(remat_policy="none", mesh_shape=(1,)), [],
                  device="cpu")
     assert tr.step == 0
     cfg = load_config(str(CONFIGS / "multi_chip_dp.json"))
     assert tuple(cfg.train.mesh_shape) == (4,)
-    with pytest.raises(ValueError, match="Queue 1, item 7"):
-        Trainer(cfg, [], device="cpu")
+    tr = Trainer(cfg, [], device="cpu")
+    assert tr.mesh == {"data": 1} and tr.world == 1
