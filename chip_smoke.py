@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--out DIR]
 
 ``--out DIR`` also writes the kernel rows, the serving numbers (the
-command lines' and the samplers' under ``cli``), the training numbers
+command lines' and the samplers' under ``cli``, the sampler library's
+under ``samplers``), the training numbers
 (flash route off and on), the variant's serving and training numbers, the training command
 line's, the checkpoint bridge's, bv2's, rematerialisation's, the MoE
 model's and data parallelism's numbers as ``DIR/kernels.json``,
@@ -220,7 +221,24 @@ Phases, each of which fails the run:
    algorithms, losses within rel 1e-5, params within 1e-4, the ranks
    equal) and
    ``BatchSynthesizer(dp=True)`` against one process (mels within 5e-3).
-   Multi-GPU speed is not measured (one card).
+   Multi-GPU speed is not measured (one card);
+21. samplers (the sampler library): model3 at ``reference_parity``
+   widths (random weights from seed 4), b=8, mel bucket 400, content and
+   prompt keys taken once, every solver driven from one injected x_T with
+   a 2-argument callback over ``DiffusionEncoder.denoise``: 30-step UniPC
+   bh2 (the serving default) and 20-step DPM-Solver++ multistep order 3,
+   singlestep order 3 on the logSNR grid, singlestep_fixed order 2 on the
+   quadratic grid, DPM-Solver (noise prediction) order 2 taylor, order 2
+   with dynamic thresholding and ``denoise_to_zero``, UniPC bh1 order 3,
+   vary_coeff order 2 on the quadratic grid and bh2 noise prediction: the
+   bf16 run's denoiser calls equal the setting's model evaluations, its
+   launches 22/16/16/16 a call (the core 32) and no K5-K8, the float32
+   kernel route against the plain route within 5e-3 (gated); ms a
+   request and a denoiser call (median of 3 warmed bf16 runs) and the
+   distance to a 100-step DPM-Solver++ solve (printed); the adaptive
+   solver (order 2, JAX's controls) at b=1, its launches matching its
+   evaluations and its mel finite (gated), its evaluations and wall time
+   printed; an ``inverse_dpmpp`` round trip of one mel (printed).
 
 The launch counts in the kernel table are those of each kernel's own path:
 serving for K1-K4 and the attention core, training for K6, the variant's
@@ -1167,6 +1185,8 @@ def main(argv=None) -> int:
     phases.update(dp_ok)
     dp_ok, dp["gloo"] = dp_gloo_phase(torch, dev, card)
     phases.update(dp_ok)
+    s_ok, details["samplers"] = samplers_phase(torch, dev, card)
+    phases.update(s_ok)
     log(f"training the variant, flash off vs on: median step "
         f"{variant_train['off']['step_s'] * 1e3:.1f} vs "
         f"{variant_train['on']['step_s'] * 1e3:.1f} ms, peak "
@@ -2170,12 +2190,14 @@ def _counted(torch, fn):
         FT.attention_plain = orig_plain
 
 
-def _cli_counts_ok(torch, what, calls, counts, routes, plain, models=()):
+def _cli_counts_ok(torch, what, calls, counts, routes, plain, models=(),
+                   rel=True):
     """The counters of a run against its counted calls: exactly 22/16/16/16
     a UNet call (the core 32), one K5 launch an encoder layer, all on the
-    tensor-core K5 kernel, K6, K7 and K8 at 0, no call of the core's plain
-    version, every floating parameter of ``models`` in bfloat16 (the
-    tensor-core GEMM and attention routes)."""
+    tensor-core K5 kernel (``rel``; without it, a run of no encoder layer,
+    K5 at 0), K6, K7 and K8 at 0, no call of the core's plain version,
+    every floating parameter of ``models`` in bfloat16 (the tensor-core
+    GEMM and attention routes)."""
     want = _want(calls)
     bf16 = all(p.dtype == torch.bfloat16 for m in models
                for p in m.parameters() if p.is_floating_point())
@@ -2183,6 +2205,8 @@ def _cli_counts_ok(torch, what, calls, counts, routes, plain, models=()):
     log(f"{what}: UNet calls {calls['unet'][0]}, encoder layers "
         f"{calls['encoder_layers'][0]}; launches {counts} (want {want}); "
         f"attention_plain calls {plain} (want 0); bf16 weights {bf16}")
+    if not rel:
+        return good
     return _rel_mma_only(routes, counts["fused_rel_self_attention"],
                          what) and good
 
@@ -2366,6 +2390,197 @@ def cli_phase(torch, dev, card):
     del syn
     tmp.cleanup()
     torch.cuda.empty_cache()
+    return ok, numbers
+
+
+# -- the sampler library: every solver setting over the denoiser ---------
+
+SAMPLER_BATCH, SAMPLER_FRAMES, SAMPLER_STEPS, DENSE_STEPS = 8, 400, 20, 100
+# (name, sampler, keyword arguments, model evaluations); the first row is
+# the serving default, the reference of the table
+SAMPLER_SETTINGS = (
+    ("unipc bh2 o2 30 (serving)", "unipc", dict(steps=30), 30),
+    ("dpm++ multistep o3", "dpm", dict(order=3), 20),
+    ("dpm++ singlestep o3 logSNR", "dpm",
+     dict(method="singlestep", order=3, skip_type="logSNR"), 20),
+    ("dpm++ singlestep_fixed o2 quadratic", "dpm",
+     dict(method="singlestep_fixed", order=2, skip_type="time_quadratic"),
+     20),
+    ("dpmsolver multistep o2 taylor", "dpm",
+     dict(algorithm_type="dpmsolver", solver_type="taylor"), 20),
+    ("dpm++ multistep o2 thresholding + denoise_to_zero", "dpm",
+     dict(correcting_x0_fn="dynamic_thresholding", denoise_to_zero=True),
+     21),
+    ("unipc bh1 o3", "unipc", dict(variant="bh1", order=3), 20),
+    ("unipc vary_coeff o2 quadratic", "unipc",
+     dict(variant="vary_coeff", skip_type="time_quadratic"), 20),
+    ("unipc noise_prediction bh2 o2", "unipc",
+     dict(algorithm_type="noise_prediction"), 20),
+)
+
+
+def _sample(sampler, ns, x0_fn, x, **kw):
+    """The port's ``sample_dpmpp`` (``sampler`` "dpm") or ``sample_unipc``
+    under inference mode, ``SAMPLER_STEPS`` steps unless given."""
+    import torch
+    from diff_vits_tpu_torch.diffusion.dpm_solver import sample_dpmpp
+    from diff_vits_tpu_torch.diffusion.uni_pc import sample_unipc
+    kw = {"steps": SAMPLER_STEPS, **kw}
+    with torch.inference_mode():
+        return (sample_dpmpp if sampler == "dpm" else sample_unipc)(
+            x0_fn, ns, x, **kw)
+
+
+def _denoiser(torch, model, batch, rows=slice(None)):
+    """``model``'s content (``VITS.infer``, zero prior noise, mel bucket
+    ``SAMPLER_FRAMES``) and prompt keys for ``batch``, taken once, and the
+    2-argument x0 callback over ``DiffusionEncoder.denoise`` for the items
+    ``rows``; returns (callback, evaluations counted by it)."""
+    dm = model.diff_model
+    with torch.inference_mode():
+        content, _ = model.vits.infer(*batch, noise_scale=0.0,
+                                      max_len=SAMPLER_FRAMES)
+        prompt_h, prompt_keep = dm.encode_prompt(batch[2], batch[3])
+    content, prompt_h, prompt_keep = (
+        t[rows] for t in (content, prompt_h, prompt_keep))
+    evals = [0]
+
+    def x0_fn(x, t_discrete):
+        evals[0] += 1
+        return dm.denoise(x, t_discrete, content, prompt_h, prompt_keep)
+    return x0_fn, evals
+
+
+def samplers_phase(torch, dev, card):
+    """The sampler library at ``reference_parity`` widths (random weights
+    from seed 4; ``BatchSynthesizer``'s bf16 model and a float32 copy):
+    b=8, text bucket 128, mel bucket 400, content and prompt keys taken
+    once from ``VITS.infer`` / ``encode_prompt``, the solvers driven from
+    one injected x_T with a 2-argument callback over
+    ``DiffusionEncoder.denoise``. For each fixed-grid setting of
+    ``SAMPLER_SETTINGS``: the bf16 run's denoiser calls (hooks) equal the
+    setting's model evaluations and its launches 22/16/16/16 a call (the
+    core 32), no K5-K8 and no ``attention_plain`` (gated); the float32
+    kernel route against the plain route, max |mel diff| <= 5e-3 (gated);
+    the median of 3 warmed bf16 runs (host clock, synchronised) as ms a
+    request and ms a denoiser call, and the float32 kernel route's max
+    |diff| to a ``DENSE_STEPS``-step DPM-Solver++ order-2 solve from the
+    same x_T (printed). Then the adaptive solver (order 2, JAX's
+    controls) at b=1 in bf16: launches match its own evaluations, the mel
+    finite (gated), its evaluations and wall time printed; and one mel of
+    the dense solve through ``inverse_dpmpp`` and back (20 steps each,
+    float32), its error printed. Returns ({phase: ok}, numbers)."""
+    from diff_vits_tpu_torch.core.config import load_config
+    from diff_vits_tpu_torch.diffusion.dpm_solver import inverse_dpmpp
+    from diff_vits_tpu_torch.diffusion.noise_schedule import NoiseScheduleVP
+    from diff_vits_tpu_torch.diffusion.schedule import linear_beta_schedule
+    from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
+    from diff_vits_tpu_torch.models.diff_vits import DiffVits
+    from diff_vits_tpu_torch.nn.unet1d import set_use_fused
+    from diff_vits_tpu_torch.text.symbols import symbols
+    from diff_vits_tpu_torch.utils.init import init_random
+
+    t_phase = time.perf_counter()
+    ok, numbers = {}, dict(card=card, settings={})
+    cfg = load_config(str(ROOT / "configs" / "reference_parity.json"))
+    model32 = DiffVits(cfg, len(symbols), device=dev)
+    init_random(model32, torch.Generator().manual_seed(4))
+    model32.eval()
+    syn = BatchSynthesizer(cfg, model32.state_dict(),
+                           batch_size=SAMPLER_BATCH,
+                           mel_buckets=(SAMPLER_FRAMES,),
+                           dtype=torch.bfloat16, device=dev)
+    reqs = _requests(torch, torch.Generator().manual_seed(5), len(symbols),
+                     syn.refer_frames)
+    short = [r for r in reqs if len(r[1]) <= 128]
+    batch = syn.pad_batch([short[i % len(short)]
+                           for i in range(SAMPLER_BATCH)], 128)
+    ns = NoiseScheduleVP(linear_beta_schedule(cfg.train.timesteps))
+    x_T = torch.randn(SAMPLER_BATCH, SAMPLER_FRAMES, 100,
+                      generator=torch.Generator().manual_seed(6)).to(dev)
+    bf16_fn, _ = _denoiser(torch, syn.model, batch)
+    fp32_fn, _ = _denoiser(torch, model32, batch)
+    dense = _sample("dpm", ns, fp32_fn, x_T, steps=DENSE_STEPS)
+    log(f"samplers: reference_parity widths, random weights (seed 4), b="
+        f"{SAMPLER_BATCH}, mel bucket {SAMPLER_FRAMES}, 2-argument "
+        f"callback; dense reference: {DENSE_STEPS}-step DPM-Solver++ order "
+        f"2, float32 kernel route, max |mel| {dense.abs().max().item():.3f}")
+
+    for name, sampler, kw, evals in SAMPLER_SETTINGS:
+        calls, handles = _count_path_calls(syn.model)
+        mel, counts, routes, plain = _counted(
+            torch, lambda: _sample(sampler, ns, bf16_fn, x_T, **kw))
+        for h in handles:
+            h.remove()
+        counted = _cli_counts_ok(torch, f"samplers {name}", calls, counts,
+                                 routes, plain, [syn.model], rel=False)
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _sample(sampler, ns, bf16_fn, x_T, **kw)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        lat = sorted(runs)[1]
+        out = {}
+        for route in (True, False):
+            set_use_fused(model32, route)
+            out[route] = _sample(sampler, ns, fp32_fn, x_T, **kw)
+        set_use_fused(model32, True)
+        err = (out[True] - out[False]).abs().max().item()
+        dist = (out[True] - dense).abs().max().item()
+        finite = bool(torch.isfinite(mel).all())
+        ok[f"samplers_{name}"] = (counted and calls["unet"][0] == evals
+                                  and finite and err <= 5e-3)
+        numbers["settings"][name] = dict(
+            kwargs=kw, evaluations=calls["unet"][0], launches=counts,
+            ms_per_request=lat * 1e3, ms_per_call=lat * 1e3 / evals,
+            runs_s=runs, parity_max_abs=err, dense_max_abs=dist)
+        log(f"samplers {name}: {calls['unet'][0]} denoiser calls (want "
+            f"{evals}), bf16 b={SAMPLER_BATCH} {lat * 1e3:.1f} ms a request "
+            f"(median of {[round(r * 1e3, 1) for r in runs]}), "
+            f"{lat * 1e3 / evals:.2f} ms a call; fp32 kernels vs plain max "
+            f"|diff| {err:.3e} (gate 5e-3); max |diff| to the dense solve "
+            f"{dist:.3e}; card {card}")
+
+    # -- the adaptive solver, b=1, bf16, JAX's controls ---------------------
+    one_fn, one_evals = _denoiser(torch, syn.model, batch, rows=slice(0, 1))
+    calls, handles = _count_path_calls(syn.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mel, counts, routes, plain = _counted(torch, lambda: _sample(
+        "dpm", ns, one_fn, x_T[:1], method="adaptive", order=2))
+    wall = time.perf_counter() - t0
+    for h in handles:
+        h.remove()
+    counted = _cli_counts_ok(torch, "samplers adaptive o2 b=1", calls,
+                             counts, routes, plain, [syn.model], rel=False)
+    ok["samplers_adaptive"] = (counted and calls["unet"][0] == one_evals[0]
+                               and bool(torch.isfinite(mel).all()))
+    numbers["adaptive"] = dict(evaluations=one_evals[0], launches=counts,
+                               wall_s=wall)
+    log(f"samplers adaptive (DPM-Solver++ order 2, atol 0.0078, rtol 0.05, "
+        f"b=1, bf16): {one_evals[0]} evaluations ({calls['unet'][0]} "
+        f"denoiser calls) in {wall:.2f} s, {wall * 1e3 / one_evals[0]:.1f} "
+        f"ms an evaluation with the host's E test; finite "
+        f"{bool(torch.isfinite(mel).all())}; card {card}")
+
+    # -- inversion round trip: one mel of the dense solve, float32 ----------
+    inv_fn, _ = _denoiser(torch, model32, batch, rows=slice(0, 1))
+    with torch.inference_mode():
+        x_inv = inverse_dpmpp(inv_fn, ns, dense[:1], steps=SAMPLER_STEPS)
+    back = _sample("dpm", ns, inv_fn, x_inv)
+    trip = (back - dense[:1]).abs().max().item()
+    numbers["round_trip"] = dict(
+        mel_max_abs=trip, x_T_max_abs=(x_inv - x_T[:1]).abs().max().item())
+    log(f"samplers round trip (inverse_dpmpp then sample_dpmpp, 20 steps "
+        f"each, float32, one mel of the dense solve): max |mel diff| "
+        f"{trip:.3e}, recovered x_T against the drawn one max |diff| "
+        f"{numbers['round_trip']['x_T_max_abs']:.3e} (not gated)")
+    del syn, model32
+    torch.cuda.empty_cache()
+    numbers["wall_s"] = time.perf_counter() - t_phase
+    log(f"samplers phase: {numbers['wall_s']:.1f} s wall")
     return ok, numbers
 
 

@@ -90,6 +90,22 @@ def test_walk_covers_the_data_and_training_modules():
         == (ROOT / "csrc" / "loader.cc").read_bytes()
 
 
+def test_walk_covers_the_sampler_library_and_utils_modules():
+    """The whole sampler library and the f0, content and hparams helpers
+    are in the walk above, and the content helper reaches for no
+    ``transformers`` (its HuBERT loader is not ported)."""
+    names = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    assert {"diff_vits_tpu_torch/diffusion/noise_schedule.py",
+            "diff_vits_tpu_torch/diffusion/dpm_solver.py",
+            "diff_vits_tpu_torch/diffusion/uni_pc.py",
+            "diff_vits_tpu_torch/utils/f0.py",
+            "diff_vits_tpu_torch/utils/content.py",
+            "diff_vits_tpu_torch/utils/hparams.py"} <= names
+    bad = [(f.relative_to(ROOT), m) for f in _port_files()
+           for m in _imported(f) if m.split(".")[0] == "transformers"]
+    assert bad == []
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
     from diff_vits_tpu_torch.models.diff_vits import synthesize
