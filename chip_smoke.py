@@ -11,7 +11,8 @@ line's, the checkpoint bridge's, bv2's, rematerialisation's, the MoE
 model's and data parallelism's numbers as ``DIR/kernels.json``,
 ``DIR/path.json``, ``DIR/train.json``, ``DIR/variant.json``,
 ``DIR/train_cli.json``, ``DIR/ckpt_bridge.json``, ``DIR/bv2.json``,
-``DIR/remat.json``, ``DIR/moe.json`` and ``DIR/dp.json``.
+``DIR/remat.json``, ``DIR/moe.json``, ``DIR/dp.json`` and
+``DIR/shard.json``.
 
 Phases, each of which fails the run:
 
@@ -238,14 +239,22 @@ Phases, each of which fails the run:
    distance to a 100-step DPM-Solver++ solve (printed); the adaptive
    solver (order 2, JAX's controls) at b=1, its launches matching its
    evaluations and its mel finite (gated), its evaluations and wall time
-   printed; an ``inverse_dpmpp`` round trip of one mel (printed).
+   printed; an ``inverse_dpmpp`` round trip of one mel (printed);
+22. shard (the state sharded as JAX's ``state_sharding_rules`` shard it):
+   two gloo ranks on the card, model3 B=32, one step each on the meshes
+   (1 data, 2 model), (1 data, 2 fsdp) and (1 data, 2 expert; 4 experts)
+   against one process's float32 step (losses rel 1e-5, params 1e-4),
+   a bfloat16 step's loss finite, each rank's held parameters, moments
+   and EMA against the rules' shapes and bytes, one K6 and as many K8
+   backward as forward launches a rank, K8 at the local 4 heads on the
+   ``model`` mesh's split sites and there against ``sdpa_plain``.
 
 The launch counts in the kernel table are those of each kernel's own path:
 serving for K1-K4 and the attention core, training for K6, the variant's
 serving for K5 and K7,
 training with the flash route on for K8 (forward and backward); the
-ckpt_bridge, bv2, remat and moe phases gate their own counts and print
-them.
+ckpt_bridge, bv2, remat, moe and shard phases gate their own counts and
+print them.
 The last line of standard output is one JSON object with the device; the
 line before it the kernel table. Exits non-zero, printing no result, when
 there is no CUDA device or the port's package is not beside this script.
@@ -1187,6 +1196,8 @@ def main(argv=None) -> int:
     phases.update(dp_ok)
     s_ok, details["samplers"] = samplers_phase(torch, dev, card)
     phases.update(s_ok)
+    sh_ok, shard = shard_phase(torch, dev, card)
+    phases.update(sh_ok)
     log(f"training the variant, flash off vs on: median step "
         f"{variant_train['off']['step_s'] * 1e3:.1f} vs "
         f"{variant_train['on']['step_s'] * 1e3:.1f} ms, peak "
@@ -1209,7 +1220,8 @@ def main(argv=None) -> int:
         (out_dir / "ckpt_bridge.json").write_text(json.dumps(bridge,
                                                              indent=1))
         (out_dir / "bv2.json").write_text(json.dumps(bv2, indent=1))
-        for name, numbers in (("remat", remat), ("moe", moe), ("dp", dp)):
+        for name, numbers in (("remat", remat), ("moe", moe), ("dp", dp),
+                              ("shard", shard)):
             (out_dir / f"{name}.json").write_text(json.dumps(
                 numbers, indent=1, default=str))
 
@@ -4530,6 +4542,259 @@ def dp_gloo_phase(torch, dev, card, cfg=None):
         "Multi-GPU speed: not measured (one card)")
     return ok, numbers
 
+
+
+# -- slice 15: the state sharded over model, fsdp and expert ---------------
+
+# (axes, shape, MoE experts): the meshes the shard phase trains on
+SHARD_MESHES = ((("data", "model"), (1, 2), 0),
+                (("data", "fsdp"), (1, 2), 0),
+                (("data", "expert"), (1, 2), 4))
+
+
+def _shard_cfgs(cfg, axes, shape, moe):
+    """(the float32 config of a shard step, its bfloat16 twin): ``cfg`` on
+    the mesh, lr and eps 1e-2 as the dp phase has them, ``moe`` experts."""
+    import dataclasses
+    diff = dataclasses.replace(cfg.diffusion_encoder,
+                               **(dict(MOE, moe_experts=moe) if moe else {}))
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        out.append(dataclasses.replace(
+            cfg, diffusion_encoder=diff, train=dataclasses.replace(
+                cfg.train, compute_dtype=dtype, train_lr=1e-2, eps=1e-2,
+                mesh_axes=axes, mesh_shape=shape)))
+    return tuple(out)
+
+
+def _shard_rank(cfg, batch, device, bf16_cfg):
+    """One rank of the shard phase: ``parallel.launch.train_step`` of
+    ``cfg`` (float32, under :func:`_exact`) with its step timed alone (the
+    whole parameters' gather after it not included), the peak memory of
+    the step, the kernel launches of the step, and the [B, H, T, d] and S
+    of each K8 forward; then one step of ``bf16_cfg`` for its loss. The
+    whole parameters come back from rank 0 only."""
+    import torch
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.ops import flash_attention as FA
+    from diff_vits_tpu_torch.parallel import launch
+    seen, out = [], {}
+    flash = FA.FlashSDPA
+
+    class Recorded:         # what ``sdpa`` calls on the card
+        @staticmethod
+        def apply(q, k, *args):
+            seen.append((tuple(q.shape), int(k.shape[2])))
+            return flash.apply(q, k, *args)
+
+    def hook(tr):
+        step = tr.train_step
+
+        def timed(b):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            seen.clear()
+            t0 = time.perf_counter()
+            metrics = step(b)
+            torch.cuda.synchronize()
+            out.update(step_s=time.perf_counter() - t0,
+                       launches=ops.launch_counts(), k8_shapes=list(seen),
+                       peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+            return metrics
+        tr.train_step = timed
+    FA.FlashSDPA = Recorded
+    try:
+        params, metrics, info = _exact(launch.train_step, cfg, [batch],
+                                       device, None, 1 << 16, True, hook)
+    finally:
+        FA.FlashSDPA = flash
+    _, bf16 = launch.train_step(bf16_cfg, [batch], device)
+    return dict(out, metrics=metrics, info=info, bf16_loss=bf16["loss/all"],
+                params=params if info["rank"] == 0 else None)
+
+
+def _rule_shapes(cfg, mesh_):
+    """Parameter name -> (the rank-local shape ``parallel.mesh``'s rules
+    give on ``mesh_`` at JAX's min_size, the whole shape), from
+    ``DiffVits(cfg)`` on the meta device."""
+    import math
+    from diff_vits_tpu_torch.models.diff_vits import DiffVits
+    from diff_vits_tpu_torch.parallel import mesh
+    from diff_vits_tpu_torch.text.symbols import symbols
+    from diff_vits_tpu_torch.utils.convert import flax_leaves
+    model = DiffVits(cfg, len(symbols), device="meta")
+    params = dict(model.named_parameters())
+    walk = flax_leaves(model)
+    flat = {path: tuple(params[n].shape[d] for d in dims)
+            for n, (path, dims) in walk.items()}
+    specs = mesh.state_sharding_rules(mesh_, flat)
+    out = {}
+    for n, (path, dims) in walk.items():
+        local = list(params[n].shape)
+        for i, a in enumerate(specs[path]):
+            if a:
+                local[dims[i]] //= mesh_[a]
+        out[n] = (tuple(local), tuple(params[n].shape))
+    assert all(math.prod(w) > 0 for _, w in out.values())
+    return out
+
+
+def _k8_local_heads(torch, dev, shapes):
+    """K8 forward and backward at the rank-local shapes ``shapes`` ((B, H,
+    T, d), S) against ``sdpa_plain`` and autograd of it on the same inputs
+    (float32 and bfloat16, a ragged key mask; gates ``TOL``). Returns (ok,
+    rows)."""
+    from diff_vits_tpu_torch.ops import flash_attention as FA
+    ok, rows = True, []
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for (b, h, t, d), s in shapes:
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            q, k, v = (torch.randn(b, h, n, d, generator=gen, device=dev)
+                       .to(dtype) for n in (t, s, s))
+            lengths = torch.tensor([max(1, s - (s * i) // b)
+                                    for i in range(b)], device=dev)
+            keep = torch.arange(s, device=dev)[None] < lengths[:, None]
+            scale = d ** -0.5
+            o, lse = FA.flash_attention_forward(q, k, v, keep, scale)
+            do = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
+            grads = FA.flash_attention_backward(q, k, v, o, lse, do, keep,
+                                                scale)
+            ref_o, ref_lse = FA.sdpa_plain(q, k, v, keep, sm_scale=scale,
+                                           with_lse=True)
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            auto = torch.autograd.grad(
+                FA.sdpa_plain(*leaves, keep, sm_scale=scale), leaves, do)
+            errs = {"o": _rel_err(o, ref_o)[1], "lse": _rel_err(lse,
+                                                               ref_lse)[1]}
+            errs.update({f"d{n}": _rel_err(g, a)[1]
+                         for n, g, a in zip("qkv", grads, auto)})
+            good = all(e <= TOL[dname] for e in errs.values())
+            ok &= good
+            rows.append(dict(shape=[b, h, t, s, d], dtype=dname, errors=errs,
+                             ok=good))
+            log(f"shard K8 at the local heads B={b} H={h} T={t} S={s} d={d}"
+                f" {dname}: " + " ".join(f"{k}={v:.2e}"
+                                         for k, v in errs.items())
+                + f" (gate {TOL[dname]:g}) {'ok' if good else 'FAIL'}")
+    return ok, rows
+
+
+def shard_phase(torch, dev, card, cfg=None):
+    """Training with the state sharded as JAX's ``state_sharding_rules``
+    shard it (``parallel.sharding``): two gloo ranks on the one card (NCCL
+    refuses two ranks on one device), one ``Trainer`` step each at ``cfg``
+    (default ``reference_parity``, B=32) on the meshes of
+    :data:`SHARD_MESHES` (``model`` 2: Megatron tensor parallelism;
+    ``fsdp`` 2: ZeRO-3, 16 rows a rank; ``expert`` 2 with the MoE
+    feed-forward, 4 experts top 2). Each float32 step against one
+    process's step on the whole batch on the card (gates: every loss
+    within rel 1e-5, parameters within 1e-4), then a bfloat16 step's loss
+    finite. Per rank: the held parameters, moments and EMA against the
+    rules' local shapes and bytes (the prediction), the step's peak memory
+    and time, the K6 and K8 launches (one K6; K8 forward and backward the
+    same count), the K8 shapes (the ``model`` mesh's split sites at H = 4
+    of 8, the other meshes' at 8). K8 forward and backward at the
+    rank-local shapes against ``sdpa_plain``. Step time over gloo through
+    the host is no speed measure. On the CPU (``cfg`` at tiny widths, a
+    rehearsal) the launch and route gates fail. Returns ({phase: ok},
+    numbers)."""
+    import numpy as np
+    from diff_vits_tpu_torch.parallel import launch
+    from diff_vits_tpu_torch.text.symbols import symbols
+
+    ok, numbers = {}, dict(card=card, meshes={})
+    cfg = cfg or _train_cfg()
+    b, t_y = cfg.train.train_batch_size, cfg.data.max_mel_len
+    batch = next(_train_batches(np, b, cfg.data.max_text_len * 2 + 1, t_y,
+                                t_y * 2 // 3 + 1, len(symbols), seed=8))
+    cfgs = [_shard_cfgs(cfg, *m) for m in SHARD_MESHES]
+    jobs = [(_shard_rank, (f32, batch, str(dev), b16)) for f32, b16 in cfgs]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(launch.calls, 2, jobs, backend="gloo",
+                             timeout=900)
+    numbers["gloo_two_ranks_wall_s"] = time.perf_counter() - t0
+    one = {}
+    local_shapes = set()
+    for i, ((axes, shape, moe), (f32, _)) in enumerate(zip(SHARD_MESHES,
+                                                           cfgs)):
+        name = "x".join(f"{a}{s}" for a, s in zip(axes, shape))
+        if moe not in one:
+            one[moe] = _exact(launch.train_step, f32, [batch], str(dev))
+        p_one, m_one = one[moe]
+        r0, r1 = ranks[0][i], ranks[1][i]
+        gap = max(float(np.abs(r0["params"][n] - p_one[n]).max())
+                  for n in p_one)
+        loss_gap = max(abs(r["metrics"][k] - m_one[k])
+                       / max(abs(m_one[k]), 1e-12)
+                       for r in (r0, r1) for k in m_one)
+        mesh_ = dict(zip(axes, shape))
+        rules = _rule_shapes(f32, mesh_)
+        copies = 4 if f32.train.use_ema else 3      # param, 2 moments, EMA
+        predicted = sum(4 * copies * int(np.prod(loc))
+                        for loc, _ in rules.values())
+        whole_bytes = sum(4 * copies * int(np.prod(w))
+                          for _, w in rules.values())
+        good = gap <= 1e-4 and loss_gap <= 1e-5
+        per_rank = []
+        for r in (r0, r1):
+            info = r["info"]
+            shapes_ok = all(set(sh.values()) == {rules[n][0]}
+                            for n, sh in info["shapes"].items())
+            heads = sorted({q[1] for q, _ in r["k8_shapes"]})
+            launches = r["launches"]
+            k8 = launches["flash_attention_forward"]
+            launch_ok = (launches["maximum_path"] == 1 and k8 > 0
+                         and launches["flash_attention_backward"] == k8
+                         and k8 == len(r["k8_shapes"]))
+            heads_ok = (heads == [4, 8] if "model" in axes else heads == [8])
+            finite = bool(np.isfinite(r["bf16_loss"]))
+            # the rules' bytes of what the rank holds (a moment once its
+            # parameter has had a gradient)
+            held_rules = sum(4 * len(sh) * int(np.prod(rules[n][0]))
+                             for n, sh in info["shapes"].items())
+            good &= (shapes_ok and info["held_bytes"] == held_rules
+                     and launch_ok and heads_ok and finite)
+            if "model" in axes:
+                local_shapes |= {(tuple(q), s) for q, s in r["k8_shapes"]
+                                 if q[1] == 4}
+            per_rank.append(dict(
+                coords=info["coords"], held_bytes=info["held_bytes"],
+                held_rules_bytes=held_rules, predicted_bytes=predicted,
+                whole_bytes=whole_bytes,
+                shapes_ok=shapes_ok, peak_GB=r["peak_GB"],
+                step_s=r["step_s"], k6=launches["maximum_path"],
+                k8_forward=k8, k8_backward=launches[
+                    "flash_attention_backward"],
+                k8_heads=heads, k8_shapes=r["k8_shapes"],
+                sites=len(info["sites"]), bf16_loss=r["bf16_loss"]))
+            log(f"shard {name} rank {info['rank']} {info['coords']}: held "
+                f"{info['held_bytes']} B (the rules' bytes of the tensors "
+                f"held {held_rules}; predicted with every moment "
+                f"{predicted}, whole {whole_bytes}; shapes {shapes_ok}), "
+                f"{len(info['sites'])} sites on their "
+                f"shards, step {r['step_s']:.3f} s, peak "
+                f"{r['peak_GB']:.2f} GB, K6 {launches['maximum_path']}, "
+                f"K8 {k8} + {launches['flash_attention_backward']} at H "
+                f"{heads}, bf16 loss {r['bf16_loss']:.4f}; card {card}")
+        ok[f"shard_{name}"] = good
+        numbers["meshes"][name] = dict(
+            param_gap=gap, loss_rel_gap=loss_gap, ranks=per_rank,
+            metrics_one=m_one, metrics_rank0=r0["metrics"])
+        log(f"shard {name} (B={b}, float32, deterministic algorithms) "
+            f"against one process: params max |diff| {gap:.2e} (gate 1e-4)"
+            f", losses rel {loss_gap:.2e} (gate 1e-5): "
+            f"{'ok' if good else 'FAIL'}; card {card}")
+    ok["shard_k8_local_heads"], numbers["k8_local_heads"] = _k8_local_heads(
+        torch, dev, sorted({(q, s) for q, s in local_shapes}))
+    ok["shard_k8_local_heads"] &= bool(local_shapes)
+    log(f"shard phase: {numbers['gloo_two_ranks_wall_s']:.1f} s wall for the"
+        f" ranks (spawn and 6 trainers included); card {card}. Step time "
+        "over gloo on one card is no speed measure; multi-GPU NCCL speed: "
+        "not measured (one card)")
+    return ok, numbers
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -40,9 +40,10 @@ class TrainConfig:
     # equivalent). They are kept so that the same JSON loads to the same
     # dataclass. The port's Trainer reads compute_dtype, use_ema,
     # ema_decay, remat_policy ("none" / "dots" / "full", nn/remat.py) and
-    # the mesh (parallel/mesh.py: data parallelism over the ranks; a
-    # "model", "expert" or "seq" axis larger than 1 is refused), not
-    # dropout_rng_impl (the port draws from a torch.Generator).
+    # the mesh (parallel/mesh.py: any of the axes "data", "fsdp", "model",
+    # "expert", "seq"; parallel/sharding.py shards the state as JAX's
+    # state_sharding_rules do), not dropout_rng_impl (the port draws from
+    # a torch.Generator).
     compute_dtype: str = "bfloat16"
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ("data",)

@@ -8,6 +8,13 @@ Dropout (train mode only, from the caller's generator) sits where the JAX
 layers have it: the FFN's ReLU (:161), the attention output (:217) and the
 FFN output (:226); registry code 8 sets the attention-probability dropout
 (:211) to 0.
+
+Under tensor parallelism (``parallel.sharding`` sets ``tp``), ``EncSALayer``
+computes the rank's heads (``in_proj`` holds ``[q_i | k_i | v_i]``,
+``out_proj`` their input features, summed over the group) and
+``TransformerFFNLayer`` the rank's hidden units; the FFN's dropout draws
+the whole width's mask and keeps the rank's columns, so that every rank
+draws what one process draws.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ class TransformerFFNLayer(nn.Module):
                  kernel_size: int = 1, p_dropout: float = 0.0):
         super().__init__()
         self.kernel_size, self.p_dropout = kernel_size, p_dropout
+        self.tp = None
         if kernel_size == 1:
             self.ffn_1 = nn.Linear(hidden_size, filter_size)
         else:
@@ -55,14 +63,21 @@ class TransformerFFNLayer(nn.Module):
         self.ffn_2 = nn.Linear(filter_size, hidden_size)
 
     def forward(self, x, *, generator: Optional[torch.Generator] = None):
-        k = self.kernel_size
+        k, tp = self.kernel_size, self.tp
+        if tp is not None:
+            x = tp.enter(x)
         if k == 1:
             x = self.ffn_1(x)
         else:
             pad_l = (k - 1) // 2
             x = self.ffn_1(F.pad(x, (0, 0, pad_l, k - 1 - pad_l))) * k ** -0.5
-        x = dropout(torch.relu(x), self.p_dropout, self.training, generator)
-        return self.ffn_2(x)
+        if tp is None:
+            x = dropout(torch.relu(x), self.p_dropout, self.training,
+                        generator)
+            return self.ffn_2(x)
+        x = dropout(torch.relu(x), self.p_dropout, self.training, generator,
+                    columns=(tp.index, tp.size))
+        return tp.row(self.ffn_2, x)
 
 
 class EncSALayer(nn.Module):
@@ -78,6 +93,7 @@ class EncSALayer(nn.Module):
         self.num_heads, self.p_dropout = num_heads, p_dropout
         self.use_flash = False
         self.remat = "none"
+        self.tp = None
         self.layer_norm1 = nn.LayerNorm(c, eps=1e-5)
         self.in_proj = nn.Linear(c, 3 * c, bias=False)
         self.out_proj = nn.Linear(c, c, bias=False)
@@ -98,11 +114,13 @@ class EncSALayer(nn.Module):
     def _forward(self, x, keep_mask, *,
                  generator: Optional[torch.Generator] = None):
         b, t, c = x.shape
-        d = c // self.num_heads
-        q, k, v = self.in_proj(self.layer_norm1(x)).chunk(3, dim=-1)
+        d, tp = c // self.num_heads, self.tp
+        heads = self.num_heads if tp is None else self.num_heads // tp.size
+        h = self.layer_norm1(x)
+        q, k, v = self.in_proj(h if tp is None else tp.enter(h)).chunk(3, -1)
 
         def split(a):
-            return a.reshape(b, t, self.num_heads, d).transpose(1, 2)
+            return a.reshape(b, t, heads, d).transpose(1, 2)
 
         if self.uses_flash(t, c):
             out = sdpa(split(q), split(k), split(v), keep_mask[:, :, 0] > 0,
@@ -113,7 +131,8 @@ class EncSALayer(nn.Module):
             pad = keep_mask[:, None, None, :, 0] == 0
             scores = scores.masked_fill(pad, float("-inf"))
             out = torch.matmul(torch.softmax(scores, dim=-1), split(v))
-        out = self.out_proj(out.transpose(1, 2).reshape(b, t, c))
+        out = out.transpose(1, 2).reshape(b, t, heads * d)
+        out = self.out_proj(out) if tp is None else tp.row(self.out_proj, out)
         out = dropout(out, self.p_dropout, self.training, generator)
         x = (x + out) * keep_mask
         h = self.ffn(self.layer_norm2(x), generator=generator)

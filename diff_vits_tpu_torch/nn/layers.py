@@ -15,7 +15,7 @@ values by 1 / (1 - p).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,14 +27,23 @@ from diff_vits_tpu_torch.ops.rel_attention import (
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            columns: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout drawn from ``generator``; identity in eval mode or
-    at p = 0. Training with p > 0 needs a generator on x's device."""
+    at p = 0. Training with p > 0 needs a generator on x's device.
+    ``columns`` (i, n): ``x`` is block i of n equal blocks of the last dim
+    of a wider tensor; the wider tensor's mask is drawn and block i kept."""
     if not training or p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training mode needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    if columns is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    else:
+        i, n = columns
+        c = x.shape[-1]
+        keep = torch.rand(x.shape[:-1] + (c * n,), generator=generator,
+                          device=x.device)[..., i * c:(i + 1) * c] >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 

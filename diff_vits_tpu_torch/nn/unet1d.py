@@ -58,7 +58,10 @@ class CrossAttention(nn.Module):
     bias [B, 1, S] (unet1d.py:34). With ``use_flash`` (off by default, as
     in JAX) a call that passes the flash gate (unet1d.py:70-74) goes through
     ``ops.flash_attention.sdpa``: K8 on the card, its plain version on the
-    CPU."""
+    CPU. With a ``tp`` group (``parallel.sharding``: ``to_q`` / ``to_k`` /
+    ``to_v`` hold the rank's heads, ``to_out`` their input features) the
+    module computes ``heads / tp.size`` heads and sums ``to_out`` over the
+    group."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None):
@@ -67,6 +70,7 @@ class CrossAttention(nn.Module):
         ctx_dim = cross_attention_dim or query_dim
         self.heads, self.dim_head = heads, dim_head
         self.use_flash = False
+        self.tp = None
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(ctx_dim, inner, bias=False)
         self.to_v = nn.Linear(ctx_dim, inner, bias=False)
@@ -79,11 +83,16 @@ class CrossAttention(nn.Module):
                         (None, self.heads, s, self.dim_head), self.use_flash)
 
     def forward(self, x, context=None, attention_bias=None):
+        tp = self.tp
+        if tp is not None:
+            x = tp.enter(x)
+            context = None if context is None else tp.enter(context)
         ctx = x if context is None else context
         b, t, _ = x.shape
+        heads = self.heads if tp is None else self.heads // tp.size
 
         def split(a):
-            return a.reshape(b, -1, self.heads, self.dim_head).transpose(1, 2)
+            return a.reshape(b, -1, heads, self.dim_head).transpose(1, 2)
 
         q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), \
             split(self.to_v(ctx))
@@ -96,20 +105,26 @@ class CrossAttention(nn.Module):
             if attention_bias is not None:
                 scores = scores + attention_bias[:, None].to(scores.dtype)
             out = torch.matmul(torch.softmax(scores, dim=-1), v)
-        return self.to_out(out.transpose(1, 2).reshape(b, t, -1))
+        out = out.transpose(1, 2).reshape(b, t, -1)
+        return self.to_out(out) if tp is None else tp.row(self.to_out, out)
 
 
 class GEGLUFeedForward(nn.Module):
-    """GEGLU feed-forward, mult 4, exact-erf GELU."""
+    """GEGLU feed-forward, mult 4, exact-erf GELU. With a ``tp`` group
+    ``proj`` holds the rank's block of the value and of the gate units and
+    ``out`` their input features."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
+        self.tp = None
         self.proj = nn.Linear(dim, 2 * dim * mult)
         self.out = nn.Linear(dim * mult, dim)
 
     def forward(self, x):
-        h, gate = self.proj(x).chunk(2, dim=-1)
-        return self.out(h * F.gelu(gate))
+        tp = self.tp
+        h, gate = self.proj(x if tp is None else tp.enter(x)).chunk(2, dim=-1)
+        h = h * F.gelu(gate)
+        return self.out(h) if tp is None else tp.row(self.out, h)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -142,9 +157,11 @@ class BasicTransformerBlock(nn.Module):
             self.ff = GEGLUFeedForward(dim)
 
     def _fused_enabled(self, attention_bias) -> bool:
+        # the fused kernels take whole weights: none under tensor parallelism
         return (self.use_fused and not self.training
                 and attention_bias is None and not self.moe_experts
-                and self.num_heads * self.head_dim == self.dim)
+                and self.num_heads * self.head_dim == self.dim
+                and self.attn1.tp is None)
 
     def forward(self, x, context=None, attention_bias=None,
                 context_bias=None):

@@ -1,5 +1,5 @@
-"""Data parallelism run in spawned processes on one host, and the
-data-parallel checks that the CPU tests and ``chip_smoke.py`` hold to one
+"""Parallel training and serving run in spawned processes on one host,
+and the checks that the CPU tests and ``chip_smoke.py`` hold to one
 process.
 
 :func:`run_ranks` starts ``world`` processes (``spawn``), each a rank of a
@@ -10,8 +10,11 @@ the same for real runs. A function sent to the ranks must be importable
 checks live here and not in the tests:
 
 * :func:`train_step` runs one ``Trainer`` step on the rank's rows of
-  global micro-batches; :func:`serve` runs ``BatchSynthesizer(dp=True)``;
-  :func:`train_cli` the training command line.
+  global micro-batches, on any mesh (``train.mesh_axes``; the rank's
+  state sharded as ``parallel.sharding`` says) and returns the whole
+  parameters after it; :func:`serve` runs ``BatchSynthesizer(dp=True)``;
+  :func:`train_cli` the training command line; :func:`checkpoint_cycle`
+  loads, steps, saves, exports and resumes a (sharded) ``Trainer``.
   On one process (no process group) they are the single-process step and
   serving run the ranks are held to. :func:`calls` runs several such
   calls in one set of ranks.
@@ -120,17 +123,39 @@ def batch_rows(batch, rows_: slice):
         for f in dataclasses.fields(batch)})
 
 
+def shard_info(tr) -> Dict[str, Any]:
+    """What rank ``tr.rank`` holds: its mesh coordinates, the bytes of its
+    parameters, AdamW moments and EMA, and each one's shape by parameter
+    name (``param``, ``exp_avg``, ``exp_avg_sq``, ``ema``; a moment only
+    once the parameter has had a step)."""
+    shapes: Dict[str, Dict[str, tuple]] = {}
+    for i, (n, p) in enumerate(zip(tr.names, tr.params)):
+        st = tr.optimizer.state.get(p, {})
+        shapes[n] = dict(param=tuple(p.shape), **{
+            k: tuple(st[k].shape) for k in ("exp_avg", "exp_avg_sq")
+            if k in st})
+        if tr.ema is not None:
+            shapes[n]["ema"] = tuple(tr.ema[i].shape)
+    return dict(rank=tr.rank, mesh=dict(tr.mesh), coords=tr.layout.coords,
+                held_bytes=tr.held_state_bytes(), shapes=shapes,
+                sites=[type(m).__name__ for m in tr.plan.sites])
+
+
 def train_step(cfg, micro: Sequence, device: str = "cpu",
                inject: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]]
-               = None) -> Tuple[Dict[str, np.ndarray], Dict[str, float]]:
+               = None, min_size: int = 1 << 16, info: bool = False,
+               trainer: Optional[Callable] = None):
     """One ``Trainer(cfg)`` step on this rank's rows of the global
     micro-batches ``micro`` (``train.gradient_accumulate_every`` of them);
-    returns (the parameters after it by name as float32 arrays, the
-    metrics averaged over the ranks).
+    returns (the whole parameters after it by name as float32 arrays,
+    gathered from every rank's shards; the metrics averaged over the data
+    ranks), and with ``info`` also :func:`shard_info`. ``min_size`` is the
+    sharding rules' threshold; ``trainer`` is called with the ``Trainer``
+    before the step (to hook it).
 
     The draws are the single process's: every rank's generator restarts
-    from ``train.seed`` (rank 0's), and each draw of the global batch's
-    shape is made whole and cut to the rank's rows
+    from ``train.seed`` (data rank 0's), and each draw of the global
+    batch's shape is made whole and cut to the rank's rows
     (``mesh.global_batch_draws``). With ``inject`` (one (t [B], noise
     [B, Ty, C]) per micro-batch) the step is the deterministic parity
     mode of ``DiffVits.forward`` instead: eval mode on the plain routes
@@ -139,8 +164,11 @@ def train_step(cfg, micro: Sequence, device: str = "cpu",
     from diff_vits_tpu_torch.nn.unet1d import set_use_fused
     from diff_vits_tpu_torch.parallel import mesh
     from diff_vits_tpu_torch.train.trainer import Trainer
-    tr = Trainer(cfg, [], device=device)
-    rows_ = mesh.rows(cfg.train.train_batch_size, tr.rank, tr.world)
+    tr = Trainer(cfg, [], device=device, min_size=min_size)
+    if trainer is not None:
+        trainer(tr)
+    rows_ = mesh.rows(cfg.train.train_batch_size, tr.data_rank,
+                      tr.data_ranks)
     local = [batch_rows(mb, rows_) for mb in micro]
     if inject is not None:
         given = iter(inject)
@@ -160,28 +188,118 @@ def train_step(cfg, micro: Sequence, device: str = "cpu",
         with mesh.global_batch_draws(tr.generator, rows_,
                                      cfg.train.train_batch_size):
             metrics = tr.train_step(local)
-    params = {n: p.detach().float().cpu().numpy()
-              for n, p in tr.model.named_parameters()}
-    return params, tr.global_metrics(metrics)
+    metrics = tr.global_metrics(metrics)
+    whole = tr.whole_state()["model"]
+    params = {n: whole[n].detach().float().cpu().numpy() for n in tr.names}
+    if info:
+        return params, metrics, shard_info(tr)
+    return params, metrics
 
 
-def train_cli(argv: Sequence[str]) -> Tuple[int, List[str]]:
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A copy of ``t`` as a numpy array (never a view of a live tensor)."""
+    return t.detach().cpu().numpy().copy()
+
+
+def _numpy_state(whole) -> Dict[str, Any]:
+    """A :meth:`Trainer.whole_state` as numpy arrays: params by name,
+    moments by "index/key", the EMA by index."""
+    opt = {f"{i}/{k}": _array(v)
+           for i, st in whole["optimizer"]["state"].items()
+           for k, v in st.items() if k in ("exp_avg", "exp_avg_sq")}
+    return dict(model={k: _array(v) for k, v in whole["model"].items()},
+                optimizer=opt,
+                ema=None if whole["ema"] is None
+                else [_array(e) for e in whole["ema"]])
+
+
+def checkpoint_cycle(cfg, batches: Sequence, workdir: str,
+                     start: Optional[str] = None, device: str = "cpu",
+                     min_size: int = 1 << 16) -> Dict[str, Any]:
+    """A (sharded) ``Trainer(cfg)``'s checkpoints on this rank, every rank
+    in its own copy of the steps (rows of ``batches``, one a step): load
+    ``start`` (a one-process checkpoint) and keep its shards
+    (``loaded``: :func:`shard_info` and the whole state gathered from
+    them again); one step on
+    ``batches[0]``, ``save`` and ``save_flax`` into ``workdir``
+    (``whole``: the whole state the files hold; ``eval``: the fixed-t
+    losses of the whole model gathered as ``eval_sample`` gathers it, on
+    ``batches[0]``); one step on
+    ``batches[1]`` (``straight``: the whole parameters after it); then a
+    fresh ``Trainer`` that ``resume_latest`` from ``workdir`` (the
+    checkpoint just saved) and steps on ``batches[1]`` (``resumed``)."""
+    import os
+    from diff_vits_tpu_torch.parallel import mesh, sharding
+    from diff_vits_tpu_torch.train import checkpoint
+    from diff_vits_tpu_torch.train.trainer import Trainer
+
+    def step(tr, batch):
+        rows_ = mesh.rows(cfg.train.train_batch_size, tr.data_rank,
+                          tr.data_ranks)
+        tr.train_step(batch_rows(batch, rows_))
+
+    def whole_params(tr):
+        w = tr.whole_state()["model"]
+        return {n: _array(w[n]) for n in tr.names}
+
+    out: Dict[str, Any] = {}
+    tr = Trainer(cfg, [], device=device, workdir=workdir, min_size=min_size)
+    if start is not None:
+        tr.load(start)
+        out["loaded"] = dict(shard_info(tr),
+                             whole=_numpy_state(tr.whole_state()))
+    step(tr, batches[0])
+    out["saved"] = tr.save(tr.step)
+    ema = tr.whole_ema()
+    with sharding.whole(tr.model, tr.plan):     # as eval_sample runs it
+        out["eval"] = tr.eval_fixed_t_loss(batches[0], ema=ema)
+    flax_dir = os.path.join(workdir, "flax")
+    tr.logs_folder = flax_dir
+    out["saved_flax"] = tr.save_flax(tr.step)
+    tr.logs_folder = workdir
+    out["whole"] = _numpy_state(tr.whole_state())
+    step(tr, batches[1])
+    out["straight"] = whole_params(tr)
+    resumed = Trainer(cfg, [], device=device, workdir=workdir,
+                      min_size=min_size)
+    out["resumed_from"] = checkpoint.latest_checkpoint_path(workdir)
+    if not resumed.resume_latest() or resumed.step != tr.step - 1:
+        raise RuntimeError(f"resume_latest in {workdir} reached step "
+                           f"{resumed.step}, not {tr.step - 1}")
+    step(resumed, batches[1])
+    out["resumed"] = whole_params(resumed)
+    return out
+
+
+def train_cli(argv: Sequence[str], min_size: Optional[int] = None):
     """``train.cli.main(argv)`` on this rank; returns (the step it reached,
-    the checkpoints this rank wrote: rank 0's, none on the others)."""
+    the checkpoints this rank wrote: rank 0's, none on the others). With
+    ``min_size`` the ``Trainer`` the command line builds takes it as the
+    sharding rules' threshold, and :func:`shard_info` of it comes back
+    third."""
     from diff_vits_tpu_torch.train import checkpoint, cli
+    from diff_vits_tpu_torch.train import trainer as trainer_lib
     written: List[str] = []
-    save = checkpoint.save_checkpoint
+    save, cls = checkpoint.save_checkpoint, trainer_lib.Trainer
 
     def recorded(*args, **kwargs):
         path = save(*args, **kwargs)
         written.append(path)
         return path
+
+    class Sized(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, min_size=min_size, **kwargs)
     checkpoint.save_checkpoint = recorded
+    if min_size is not None:
+        trainer_lib.Trainer = Sized
     try:
         trainer = cli.main(list(argv))
     finally:
-        checkpoint.save_checkpoint = save
-    return trainer.step, written
+        checkpoint.save_checkpoint, trainer_lib.Trainer = save, cls
+    if min_size is None:
+        return trainer.step, written
+    return trainer.step, written, shard_info(trainer)
 
 
 def serve(cfg, state_dict, requests, device: str = "cpu", **kw):

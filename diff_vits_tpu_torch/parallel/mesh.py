@@ -1,23 +1,35 @@
-"""Data parallelism of the port on ``torch.distributed``.
+"""The mesh of the port on ``torch.distributed``, and the sharding rules.
 
-Port of the data-parallel part of ``diff_vits_tpu/parallel/mesh.py:20-52``.
-JAX declares a ``data`` mesh axis and lets GSPMD insert the collectives;
-here every rank is one process (``torchrun`` starts them), holds the whole
-model, takes its rows of each global batch and joins explicit collectives:
+Port of ``diff_vits_tpu/parallel/mesh.py``. JAX declares mesh axes and
+lets GSPMD insert the collectives; here every rank is one process
+(``torchrun`` starts them) at one point of the mesh, and the collectives
+are explicit (``parallel/sharding.py``):
 
 * :func:`init_distributed` joins the process group that torchrun's
   ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR`` /
   ``MASTER_PORT`` describe (a no-op without ``RANK``), with NCCL for the
   card and gloo for the CPU unless told otherwise, and prints the choice;
 * :func:`make_mesh` keeps JAX's rule: a ``mesh_shape`` whose product is
-  not the world size becomes ``(world,) + (1,) * ...``; an axis other than
-  ``data`` larger than 1 (tensor, expert or sequence parallelism, ROADMAP
-  Queue 1 item 7) is refused;
-* :func:`rows` is the rank's row range of a global batch, and
+  not the world size becomes ``(world,) + (1,) * ...``. It takes the axes
+  JAX's ``Trainer`` takes (:data:`AXES`) and refuses any other name. Rank
+  r sits at ``np.unravel_index(r, shape)``, as ``create_device_mesh``
+  lays out a host's devices. Rows of a global batch go over
+  :data:`DATA_AXES` (``data``, and ``fsdp``, ZeRO-3's data-parallel
+  axis); ranks that differ only on ``model``, ``expert`` or ``seq`` take
+  the same rows (:func:`data_index`);
+* :func:`state_sharding_rules` (and ``parallel/moe.py``'s
+  ``expert_sharding_rules``) are JAX's rules as pure functions over flax
+  paths and flax-layout shapes (``utils.convert.flax_leaves`` gives them
+  for the port's parameters): Megatron column / row tensor parallelism
+  over ``model``, ZeRO-3 scattering of large kernels over ``fsdp`` and
+  the MoE expert kernels over ``expert`` (else ``model``). A spec is a
+  tuple with one entry per flax dimension: the axis that splits it, or
+  None;
+* :func:`rows` is a data rank's row range of a global batch, and
   :class:`global_batch_draws` makes a rank's random draws the rows of the
   global batch's draws (data-parallel serving draws the noise of one
   process that way);
-* the collectives (:func:`all_reduce_sum`, :func:`all_gather_rows`,
+* the world collectives (:func:`all_reduce_sum`, :func:`all_gather_rows`,
   :func:`barrier`) take tensors on any device: under gloo a CUDA tensor
   goes through the host, since gloo reduces host memory.
 
@@ -29,13 +41,16 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.overrides import TorchFunctionMode
 
-MODEL_AXES = ("model", "expert", "seq")
+AXES = ("data", "fsdp", "model", "expert", "seq")
+DATA_AXES = ("data", "fsdp")
+Spec = Tuple[Optional[str], ...]
 
 
 def init_distributed(backend: Optional[str] = None,
@@ -78,24 +93,108 @@ def make_mesh(mesh_shape: Optional[Sequence[int]] = None,
     """The mesh as {axis name: size} over ``world`` ranks (default: the
     process group's size). As JAX's ``make_mesh``, a shape whose product is
     not the world size is replaced by ``(world,) + (1,) * (len(axes) - 1)``.
-    Refuses an axis of :data:`MODEL_AXES` larger than 1."""
+    Refuses an axis that is not one of :data:`AXES`, or named twice."""
     n = world_size() if world is None else world
     axis_names = tuple(axis_names)
+    unknown = [a for a in axis_names if a not in AXES]
+    if unknown or len(set(axis_names)) != len(axis_names):
+        raise ValueError(f"mesh axes {axis_names}: each must be one of "
+                         f"{AXES}, once")
     if mesh_shape is None or math.prod(mesh_shape) != n:
         mesh_shape = (n,) + (1,) * (len(axis_names) - 1)
-    mesh = dict(zip(axis_names, (int(s) for s in mesh_shape)))
-    wide = {a: s for a, s in mesh.items() if a in MODEL_AXES and s > 1}
-    if wide:
-        raise ValueError(
-            f"mesh {mesh}: the port runs data parallelism only; the axes "
-            f"{sorted(wide)} (tensor, expert or sequence parallelism) wait "
-            "for ROADMAP Queue 1, item 7")
-    return mesh
+    return dict(zip(axis_names, (int(s) for s in mesh_shape)))
+
+
+def coords(mesh: Mapping[str, int], rank_: int) -> Dict[str, int]:
+    """Rank ``rank_``'s coordinate on each axis of ``mesh`` (row-major)."""
+    at = np.unravel_index(rank_, tuple(mesh.values())) if mesh else ()
+    return {a: int(c) for a, c in zip(mesh, at)}
+
+
+def data_size(mesh: Mapping[str, int]) -> int:
+    """The number of data-parallel ranks: the product of the
+    :data:`DATA_AXES` sizes."""
+    return math.prod(mesh.get(a, 1) for a in DATA_AXES)
+
+
+def data_index(mesh: Mapping[str, int], rank_: int) -> int:
+    """Rank ``rank_``'s data coordinate: which of the :func:`data_size`
+    row blocks of a global batch it takes (``data`` major, ``fsdp``
+    minor)."""
+    c = coords(mesh, rank_)
+    axes = [a for a in mesh if a in DATA_AXES]
+    if not axes:
+        return 0
+    return int(np.ravel_multi_index([c[a] for a in axes],
+                                    [mesh[a] for a in axes]))
+
+
+# Megatron-style tensor parallelism by parameter path (JAX's lists). A
+# "column" kernel splits its output features over 'model'; the matching
+# "row" kernel its input features, and one all-reduce completes the block.
+_COLUMN_HINTS = ("to_q", "to_k", "to_v", "in_proj", "w_q", "w_k", "w_v",
+                 "ffn_1", "ff/proj", "pwconv1", "query", "key", "value")
+_ROW_HINTS = ("to_out", "out_proj", "ffn_2", "ff/out", "pwconv2", "fc")
+
+
+def tp_spec(path: str, shape: Sequence[int], model_size: int,
+            min_size: int, fsdp_size: int = 1,
+            fsdp_axis: str = "fsdp") -> Spec:
+    """JAX's ``_tp_spec`` on the flax path ``path`` ('/'-joined) of a leaf
+    of flax-layout ``shape``: replicated below 2 dimensions or
+    ``min_size`` elements; else a column kernel splits dim -1 and a row
+    kernel dim -2 over ``model``, when divisible; then ZeRO-3 puts
+    ``fsdp_axis`` on the first of dims -2, -1 that is free and
+    divisible."""
+    spec: List[Optional[str]] = [None] * len(shape)
+    if len(shape) < 2 or math.prod(shape) < min_size:
+        return tuple(spec)
+    if model_size > 1:
+        if any(h in path for h in _COLUMN_HINTS) and \
+                shape[-1] % model_size == 0:
+            spec[-1] = "model"
+        elif any(h in path for h in _ROW_HINTS) and \
+                shape[-2] % model_size == 0:
+            spec[-2] = "model"
+    if fsdp_size > 1:
+        for dim in (-2, -1):
+            if spec[dim] is None and shape[dim] % fsdp_size == 0:
+                spec[dim] = fsdp_axis
+                break
+    return tuple(spec)
+
+
+def state_sharding_rules(mesh: Mapping[str, int],
+                         leaves: Mapping[str, Sequence[int]],
+                         min_size: int = 1 << 16,
+                         fsdp_axis: str = "fsdp") -> Dict[str, Spec]:
+    """JAX's ``state_sharding_rules`` over ``leaves`` (flax path -> flax
+    shape): each leaf's spec. The AdamW moments and the EMA of a parameter
+    take the parameter's spec (JAX's hints match the moment's path, of
+    which the parameter's is a suffix). MoE expert leaves (``w1``, ``b1``,
+    ``w2``, ``b2`` under ``ff_moe``) split their leading expert dim over
+    ``expert`` when that axis exceeds 1, else over ``model``."""
+    model_size = mesh.get("model", 1)
+    fsdp_size = mesh.get(fsdp_axis, 1)
+    ep_axis = "expert" if mesh.get("expert", 1) > 1 else "model"
+    ep_size = mesh.get(ep_axis, 1)
+    out = {}
+    for path, shape in leaves.items():
+        shape = tuple(shape)
+        if "ff_moe" in path and ep_size > 1 and len(shape) >= 2 and \
+                path.rsplit("/", 1)[-1] in ("w1", "w2", "b1", "b2") and \
+                shape[0] % ep_size == 0:
+            out[path] = (ep_axis,) + (None,) * (len(shape) - 1)
+        else:
+            out[path] = tp_spec(path, shape, model_size, min_size,
+                                fsdp_size, fsdp_axis)
+    return out
 
 
 def rows(batch_size: int, rank_: int, world: int) -> slice:
-    """The rows of a global batch of ``batch_size`` that rank ``rank_`` of
-    ``world`` takes; ValueError unless ``world`` divides it."""
+    """The rows of a global batch of ``batch_size`` that data rank
+    ``rank_`` of ``world`` takes; ValueError unless ``world`` divides
+    it."""
     if batch_size % world:
         raise ValueError(f"batch size {batch_size} must be divisible by the "
                          f"{world} data-parallel ranks: each takes an equal "

@@ -9,9 +9,13 @@ converted by ``utils.convert``, and a trainer state of the JAX package
 
 Under ``torchrun`` every rank joins the process group first
 (``parallel.mesh.init_distributed``: NCCL on the cards, gloo with
-``--device cpu``) and the ``Trainer`` trains data parallel over the ranks;
-rank 0 alone writes checkpoints and logs. A ``train.mesh_shape`` whose
-product is not the number of ranks falls back to all of them, as in JAX.
+``--device cpu``) and the ``Trainer`` trains over the ranks on the mesh of
+``train.mesh_shape`` / ``train.mesh_axes``: data parallel over ``data``,
+and with its state sharded as JAX's ``state_sharding_rules`` shard it over
+``fsdp`` (ZeRO-3), ``model`` (tensor parallelism) and ``expert`` (the MoE
+experts); rank 0 alone writes checkpoints and logs, from the state every
+rank gathers. A ``train.mesh_shape`` whose product is not the number of
+ranks falls back to all of them on ``data``, as in JAX.
 
 Usage:
   python -m diff_vits_tpu_torch.train.cli -c config.json --workdir runs/a \
@@ -19,6 +23,9 @@ Usage:
       [--device cpu]
   torchrun --nproc_per_node N -m diff_vits_tpu_torch.train.cli \
       -c configs/multi_chip_dp.json --workdir runs/dp [--resume auto]
+  # a config with "mesh_shape": [2, 2], "mesh_axes": ["fsdp", "model"]
+  torchrun --nproc_per_node 4 -m diff_vits_tpu_torch.train.cli \
+      -c tp_fsdp.json --workdir runs/tp
 """
 from __future__ import annotations
 

@@ -21,30 +21,45 @@ process group (``parallel.mesh``):
   block by block through ``nn.remat`` (which says why the block and not
   the whole loss is the unit, and how the dropout generator is replayed).
 
-Data parallelism (trainer.py:175-184, :225-252): ``train.mesh_shape``
-over the world size as JAX's ``make_mesh`` takes it (``parallel.mesh``;
-only the ``data`` axis may exceed 1). Each rank holds the whole model
-(the same initial weights from ``train.seed``), takes
-``train_batch_size / world`` rows (the loaders' ``host_id`` / ``num_hosts``
-shard), and the step equals JAX's step on the global batch:
+Parallelism (trainer.py:175-245, :286-330): ``train.mesh_shape`` over
+the world size as JAX's ``make_mesh`` takes it (``parallel.mesh``), with
+any of the axes JAX's ``Trainer`` takes: ``data``, ``fsdp``, ``model``,
+``expert``, ``seq``. Every rank builds the same initial weights from
+``train.seed``; then ``parallel.sharding.shard_model`` leaves it holding
+only its shard of every parameter JAX's ``state_sharding_rules`` split
+(Megatron tensor parallelism over ``model``, ZeRO-3 over ``fsdp``, MoE
+experts over ``expert``, else over ``model``; leaves of at least
+``min_size`` elements, 1 << 16 as in JAX), and the AdamW moments and the
+EMA are made from the shards. The step equals JAX's step on the global
+batch:
 
+* rows go over the data axes only (``data`` and ``fsdp``: ZeRO-3 is data
+  parallel); the ranks that differ only on ``model``, ``expert`` or
+  ``seq`` take the same rows. A data rank takes ``train_batch_size /
+  data ranks`` rows (the loaders' ``host_id`` / ``num_hosts`` shard);
 * the two loss terms that divide by a sum over the whole batch (l_length
-  and the KL terms) divide by that sum's mean over the ranks, and the MAS
-  noise is scaled by the global batch's std (``rank_mean``);
+  and the KL terms) divide by that sum's mean over the data ranks, and the
+  MAS noise is scaled by the global batch's std (``rank_mean``);
   ``loss_diff`` is a mean of per-item means and needs none;
-* the gradients are averaged once per optimizer step, after the
-  accumulation loop and before the clip, by one all-reduce of every
-  parameter's gradient (zeros for a parameter unused on a rank; a
-  parameter unused on every rank keeps no gradient, as it would on one
-  process);
+* the split leaves a site cannot use as shards are gathered at the start
+  of the step; after the accumulation loop and before the clip each
+  gradient is cut back to its shard and averaged over the data ranks that
+  hold that shard (``Plan.reduce_grads``: zeros for a parameter unused on
+  a rank; a parameter unused on every rank keeps no gradient, as it would
+  on one process); the clip's global norm counts every shard once;
 * t, the diffusion, posterior and MAS noise and the dropout masks come
-  from a generator seeded by (``train.seed``, rank), rank 0's being the
-  one-process generator; the refer1/refer2 coin is the same on every rank;
-* metrics are averaged over the ranks before they are logged; checkpoints,
-  ``save_flax``, tensorboard and ``eval_sample`` are rank 0's, the others
-  waiting at a barrier; ``resume_latest`` loads on every rank; a SIGTERM
-  seen by any rank stops every rank at the same step (the stop flag is
-  all-reduced each step).
+  from a generator seeded by (``train.seed``, data coordinate), data rank
+  0's being the one-process generator, so the ranks that share rows draw
+  the same; the refer1/refer2 coin is the same on every rank;
+* metrics are averaged over the data ranks before they are logged;
+  checkpoints, ``save_flax``, tensorboard and ``eval_sample`` are rank
+  0's, on the whole state that every rank gathers first (the files are
+  those of one process, and either loads into the other), the others
+  waiting at a barrier; ``load`` and ``resume_latest`` read the whole
+  state on every rank and keep the rank's shards; a SIGTERM seen by any
+  rank stops every rank at the same step (the stop flag is all-reduced
+  each step). A step that raises under sharding leaves no checkpoint: the
+  gather needs every rank, and the others may not have failed.
 
 Checkpoints: ``save`` writes the port's own format; ``save_flax`` the JAX
 package's trainer state (``params``, optax's ``opt_state``,
@@ -112,6 +127,7 @@ from diff_vits_tpu_torch.models.diff_vits import (
 from diff_vits_tpu_torch.nn.remat import check_policy, set_remat
 from diff_vits_tpu_torch.nn.unet1d import set_use_flash
 from diff_vits_tpu_torch.parallel import mesh as mesh_lib
+from diff_vits_tpu_torch.parallel import sharding
 from diff_vits_tpu_torch.text.symbols import symbols
 from diff_vits_tpu_torch.train import checkpoint as ckpt_lib
 from diff_vits_tpu_torch.utils.convert import (
@@ -143,14 +159,19 @@ def make_optimizer(cfg: Config, params) -> torch.optim.AdamW:
 
 
 def clip_by_global_norm_scheduled(grads: Sequence[torch.Tensor], step: int,
-                                  cfg: Config) -> torch.Tensor:
+                                  cfg: Config,
+                                  g_norm: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
     """Scale ``grads`` in place by min(1, max_norm / (norm + 1e-6)),
     max_norm ``clip_before`` before ``clip_switch_step`` and
     ``clip_after`` from it on. Returns the pre-clip global norm (a device
-    scalar: no host sync)."""
+    scalar: no host sync); ``g_norm`` is that norm when the caller has it
+    (shards of a sharded state)."""
     max_norm = (cfg.train.clip_before if step < cfg.train.clip_switch_step
                 else cfg.train.clip_after)
-    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if g_norm is None:
+        g_norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
     torch._foreach_mul_(grads, torch.clamp(max_norm / (g_norm + 1e-6),
                                            max=1.0))
     return g_norm
@@ -221,7 +242,8 @@ def make_loader(ds: TextMelDataset, cfg: Config, **kw):
 
 
 def rank_seed(seed: int, rank: int) -> int:
-    """The seed of rank ``rank``'s generator: ``seed`` itself on rank 0."""
+    """The seed of data rank ``rank``'s generator: ``seed`` itself on data
+    rank 0."""
     return seed + 1_000_003 * rank
 
 
@@ -232,30 +254,38 @@ class Trainer:
     ``TextMelDataset(cfg)``) through its loader. ``train_step`` runs one
     optimizer step, ``train`` the loop; checkpoints, samples and
     tensorboard events go to ``workdir`` (default a new timestamped folder
-    under ``train.logs_folder``)."""
+    under ``train.logs_folder``). ``min_size``: the fewest elements of a
+    leaf that the sharding rules split (JAX's default)."""
 
     def __init__(self, cfg: Config, batches: Optional[Iterable[Batch]] = None,
                  *, dataset: Optional[TextMelDataset] = None,
-                 device: DeviceLike = None, workdir: Optional[str] = None):
+                 device: DeviceLike = None, workdir: Optional[str] = None,
+                 min_size: int = 1 << 16):
         self.cfg = cfg
         check_policy(cfg.train.remat_policy)
         self.mesh = mesh_lib.make_mesh(cfg.train.mesh_shape,
                                        cfg.train.mesh_axes)
         self.rank, self.world = mesh_lib.rank(), mesh_lib.world_size()
         # under a process group (torchrun, even of one rank) the step takes
-        # the data-parallel path and its collectives
+        # the parallel path and its collectives
         self.dp = mesh_lib.distributed()
-        if cfg.train.train_batch_size % self.world:
+        self.layout = sharding.Layout(self.mesh, self.rank)
+        self.data_rank = self.layout.data_index
+        self.data_ranks = self.layout.data_size
+        if cfg.train.train_batch_size % self.data_ranks:
             raise ValueError(
                 f"train.train_batch_size={cfg.train.train_batch_size} must "
-                f"be divisible by the mesh 'data' axis ({self.world} ranks):"
-                " the global batch shards over that axis")
+                f"be divisible by the {self.data_ranks} data-parallel ranks "
+                f"(the 'data' x 'fsdp' axes of the mesh {self.mesh}): the "
+                "global batch shards over them")
         self.device = resolve_device(device)
         self.model = DiffVits(cfg, len(symbols), device=self.device)
         init_random(self.model, torch.Generator().manual_seed(cfg.train.seed))
         self.model.train()
         set_use_flash(self.model, self.device.type == "cuda")
         set_remat(self.model, cfg.train.remat_policy)
+        self.plan = sharding.shard_model(self.model, self.layout, min_size)
+        self.names = [n for n, _ in self.model.named_parameters()]
         self.params = list(self.model.parameters())
         self.optimizer = make_optimizer(cfg, self.params)
         # a copy, never the parameters' own storage
@@ -264,7 +294,7 @@ class Trainer:
         self.step = 0
         self.accum = max(1, cfg.train.gradient_accumulate_every)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            rank_seed(cfg.train.seed, self.rank))
+            rank_seed(cfg.train.seed, self.data_rank))
         self._py_rng = random.Random(cfg.train.seed + 17)
         self.bf16 = (self.device.type == "cuda"
                      and cfg.train.compute_dtype == "bfloat16")
@@ -286,8 +316,8 @@ class Trainer:
         records it in ``loader_kind``."""
         loader, self.loader_kind, reason = make_loader(
             self.ds, self.cfg, seed=self.cfg.train.seed,
-            batch_size=self.cfg.train.train_batch_size // self.world,
-            host_id=self.rank, num_hosts=self.world)
+            batch_size=self.cfg.train.train_batch_size // self.data_ranks,
+            host_id=self.data_rank, num_hosts=self.data_ranks)
         if self.loader_kind == "native":
             print("loader: native C++ (csrc/loader.cc)", flush=True)
         elif self.cfg.train.use_native_loader:
@@ -326,22 +356,27 @@ class Trainer:
                   for mb in micro]
         rank_mean = self._mean_over_ranks if self.dp else None
         self.optimizer.zero_grad(set_to_none=True)
+        params = dict(zip(self.names, self.params))
+        working = self.plan.working(params) if self.plan.active else {}
         sums: Dict[str, torch.Tensor] = {}
         for mb in inputs:
-            with self._autocast():
-                loss, (metrics, _, _) = self.model(
-                    **mb, generator=self.generator,
-                    mas_noise_scale=mas_noise_scale,
-                    rank_mean=rank_mean)
-            (loss / len(inputs)).backward()
+            with self.plan.bind(self.model, working):
+                with self._autocast():
+                    loss, (metrics, _, _) = self.model(
+                        **mb, generator=self.generator,
+                        mas_noise_scale=mas_noise_scale,
+                        rank_mean=rank_mean)
+                (loss / len(inputs)).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach().float()
         metrics = {k: v / len(inputs) for k, v in sums.items()}
         if self.dp:
-            self._average_grads()
+            self.plan.reduce_grads(params, working)
+        del working
         grads = [p.grad for p in self.params if p.grad is not None]
         metrics["loss/grad"] = clip_by_global_norm_scheduled(
-            grads, self.step, self.cfg)
+            grads, self.step, self.cfg,
+            self.plan.grad_norm(params) if self.plan.active else None)
         self.optimizer.step()
         if self.ema is not None:
             d = self.cfg.train.ema_decay
@@ -351,27 +386,69 @@ class Trainer:
         self.step += 1
         return metrics
 
-    # -- data parallelism --------------------------------------------------
+    # -- parallelism -------------------------------------------------------
 
     def _mean_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
-        return mesh_lib.all_reduce_sum(t) / self.world
+        """``t``'s mean over the data ranks (the ranks sharing rows hold the
+        same ``t``)."""
+        return self.layout.group("dp").all_reduce(t) / self.data_ranks
 
-    def _average_grads(self) -> None:
-        """Every parameter's gradient replaced by its mean over the ranks,
-        in one all-reduce; a parameter that no rank used keeps None."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
-        used = torch.tensor([float(p.grad is not None) for p in self.params],
-                            device=self.device)
-        flat = mesh_lib.all_reduce_sum(torch.cat(
-            [g.reshape(-1).float() for g in grads] + [used]))
-        used = flat[-len(self.params):].cpu()
-        off = 0
-        for p, g, u in zip(self.params, grads, used):
-            n = g.numel()
-            p.grad = (None if u == 0 else (flat[off:off + n] / self.world)
-                      .view_as(g).to(g.dtype))
-            off += n
+    def held_state_bytes(self) -> int:
+        """The bytes of this rank's parameters, AdamW moments and EMA."""
+        moments = [v for st in self.optimizer.state.values()
+                   for k, v in st.items() if k in ("exp_avg", "exp_avg_sq")]
+        return sum(t.numel() * t.element_size()
+                   for t in self.params + moments + (self.ema or []))
+
+    def whole_state(self) -> Dict[str, object]:
+        """The whole training state, gathered from the ranks' shards (every
+        rank must call it): ``model`` (the state dict), ``optimizer`` (its
+        state dict) and ``ema`` (a list, or None), each as one process
+        holds it."""
+        sd = self.model.state_dict()
+        opt = self.optimizer.state_dict()
+        if not self.plan.active:
+            return dict(model=sd, optimizer=opt, ema=self.ema)
+        sd.update(self._gather_list(self.params))
+        state = opt["state"]
+        for key in ("exp_avg", "exp_avg_sq"):
+            got = self._gather_list([state.get(i, {}).get(key)
+                                     for i in range(len(self.names))])
+            for i, n in enumerate(self.names):
+                if n in got:
+                    state[i] = dict(state[i], **{key: got[n]})
+        return dict(model=sd, optimizer=opt, ema=self.whole_ema())
+
+    def whole_ema(self) -> Optional[List[torch.Tensor]]:
+        """The EMA as one process holds it (every rank must call it)."""
+        if self.ema is None or not self.plan.active:
+            return self.ema
+        got = self._gather_list(self.ema)
+        return [got.get(n, e) for n, e in zip(self.names, self.ema)]
+
+    def _gather_list(self, values: Sequence[Optional[torch.Tensor]]
+                     ) -> Dict[str, torch.Tensor]:
+        """The whole tensors of the split parameters' ``values`` (one a
+        parameter, in order; None where there is none), by name."""
+        return self.plan.gather({n: v for n, v in zip(self.names, values)
+                                 if n in self.plan.leaves and v is not None})
+
+    def _shard_state(self, sd: Dict[str, torch.Tensor],
+                     opt: Optional[Dict] = None,
+                     ema: Optional[Sequence[torch.Tensor]] = None):
+        """The rank's shards of a whole state (``sd`` a model state dict,
+        ``opt`` an optimizer state dict, ``ema`` a list): the inverse of
+        :meth:`whole_state`."""
+        sd = {k: self.plan.shard(k, v) for k, v in sd.items()}
+        if opt is not None:
+            opt = dict(opt, state={
+                i: {k: (self.plan.shard(self.names[i], v)
+                        if k in ("exp_avg", "exp_avg_sq") else v)
+                    for k, v in st.items()}
+                for i, st in opt["state"].items()})
+        if ema is not None:
+            ema = [self.plan.shard(n, e) for n, e in zip(self.names, ema)]
+        return sd, opt, ema
 
     def global_metrics(self, metrics: Dict[str, torch.Tensor]
                         ) -> Dict[str, float]:
@@ -548,7 +625,8 @@ class Trainer:
                                           self.step)
                 if self.step % every == 0:
                     self.save(self.step)
-                    if self.ds is not None and lead:
+                    # under sharding every rank gathers the parameters
+                    if self.ds is not None and (lead or self.plan.active):
                         try:
                             self.eval_sample(self.step, writer)
                         except Exception as e:  # eval never stops training
@@ -589,13 +667,15 @@ class Trainer:
 
     @torch.no_grad()
     def eval_fixed_t_loss(self, batch: Batch,
-                          t_fracs=(0.1, 0.3, 0.5, 0.7, 0.9)
+                          t_fracs=(0.1, 0.3, 0.5, 0.7, 0.9),
+                          ema: Optional[Sequence[torch.Tensor]] = None
                           ) -> Dict[str, float]:
         """Diffusion loss at fixed steps with fixed noise (trainer.py:523):
         eval mode (no dropout; the kernel routes), refer1, zero posterior
         and MAS noise, noise from ``train.seed + 2``, in float32. The raw
-        parameters per step fraction and their mean; the EMA's mean when
-        there is one."""
+        parameters per step fraction and their mean; the EMA's (``ema``,
+        default the trainer's own) mean when there is one. Under sharding
+        it runs inside :meth:`eval_sample`, on the whole state."""
         inputs = device_batch(batch, True, self.device)
         gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.train.seed + 2)
@@ -617,9 +697,9 @@ class Trainer:
         with eval_mode(self.model):
             out = {f"eval/diff_t{f:g}": loss_at(f) for f in t_fracs}
             out["eval/diff_fixed_t"] = float(np.mean(list(out.values())))
-            if self.ema is not None:
-                names = [n for n, _ in self.model.named_parameters()]
-                ema = dict(zip(names, self.ema))
+            ema = self.ema if ema is None else ema
+            if ema is not None:
+                ema = dict(zip(self.names, ema))
                 out["eval/ema_diff_fixed_t"] = float(np.mean(
                     [loss_at(f, ema) for f in t_fracs]))
         return out
@@ -633,7 +713,16 @@ class Trainer:
         to :meth:`eval_fixed_t_loss`; write ``sample-<milestone>.mel.npy``
         and, with ``train.vocoder_ckpt``, ``sample-<milestone>.wav``; log
         the metrics, both mels' images and the audio to ``writer``.
-        Returns the metrics, also kept in ``last_eval_metrics``."""
+        Returns the metrics, also kept in ``last_eval_metrics``. Under
+        sharding every rank calls it and gathers the whole state; rank 0
+        samples and the others return {}."""
+        ema = self.whole_ema()
+        with sharding.whole(self.model, self.plan):
+            if self.rank != 0 and self.plan.active:
+                return {}
+            return self._eval_sample(step, writer, sampling_steps, ema)
+
+    def _eval_sample(self, step, writer, sampling_steps, ema):
         from diff_vits_tpu_torch.data.audio import write_wav
         batch = self._eval_batch()
         fields = forward_inputs(batch_to_device(batch, self.device), True)
@@ -644,7 +733,7 @@ class Trainer:
             fields["refer"], fields["refer_lengths"], fields["tone"],
             fields["language"], generator=gen, sampling_steps=sampling_steps,
             max_len=self.cfg.data.max_mel_len, device=self.device)
-        eval_metrics = self.eval_fixed_t_loss(batch)
+        eval_metrics = self.eval_fixed_t_loss(batch, ema=ema)
         mel_np = mel[0, :int(lengths[0])].float().cpu().numpy()
         gt_np = np.asarray(batch.spec[0][:int(batch.spec_lengths[0])],
                            np.float32)
@@ -699,19 +788,27 @@ class Trainer:
         """Write the checkpoint of ``step`` on rank 0 (its path; None on the
         other ranks), every rank then waiting at a barrier unless not
         ``sync``. Under data parallelism with ``sync`` the file also holds
-        every rank's generator state (``generators``, gathered here)."""
+        every rank's generator state (``generators``, gathered here). A
+        sharded state is gathered first (:meth:`whole_state`), so the file
+        is one process's; without ``sync`` (no collective) a sharded state
+        writes nothing."""
+        if not sync and self.plan.active:
+            print(f"no checkpoint at step {step}: a sharded state is "
+                  "gathered by every rank", flush=True)
+            return None
         gens = None
         if sync and self.dp:
             gens = mesh_lib.all_gather_rows(
                 self.generator.get_state()[None].to(self.device)).cpu()
+        whole = self.whole_state()
         path = None
         if self.rank == 0:
-            state = {"model": self.model.state_dict(),
-                     "optimizer": self.optimizer.state_dict(),
+            state = {"model": whole["model"],
+                     "optimizer": whole["optimizer"],
                      "generator": self.generator.get_state(),
                      "py_rng": self._py_rng.getstate()}
-            if self.ema is not None:
-                state["ema"] = self.ema
+            if whole["ema"] is not None:
+                state["ema"] = whole["ema"]
             if gens is not None:
                 state["generators"] = gens
             path = ckpt_lib.save_checkpoint(self.logs_folder, step, state,
@@ -729,26 +826,29 @@ class Trainer:
         ``nu`` the AdamW ``exp_avg`` / ``exp_avg_sq`` (zero for a parameter
         that has had no step), ``count`` the AdamW step as int32. Not the
         random streams, which a JAX state does not hold. Rank 0 writes
-        (None on the others), every rank then waiting at a barrier."""
+        (None on the others) the whole state every rank gathers first,
+        every rank then waiting at a barrier."""
+        whole = self.whole_state()
         if self.rank != 0:
             mesh_lib.barrier()
             return None
-        names = [n for n, _ in self.model.named_parameters()]
+        names = self.names
+        params = {n: whole["model"][n] for n in names}
         mu, nu, count = {}, {}, 0
-        for n, p in zip(names, self.params):
-            st = self.optimizer.state.get(p, {})
-            mu[n] = st.get("exp_avg", torch.zeros_like(p))
-            nu[n] = st.get("exp_avg_sq", torch.zeros_like(p))
+        for i, n in enumerate(names):
+            st = whole["optimizer"]["state"].get(i, {})
+            mu[n] = st.get("exp_avg", torch.zeros_like(params[n]))
+            nu[n] = st.get("exp_avg_sq", torch.zeros_like(params[n]))
             count = max(count, int(st.get("step", 0)))
-        state = {"params": to_flax_params(self.model),
+        state = {"params": to_flax_params(self.model, params),
                  "opt_state": {
                      "0": {"count": np.asarray(count, np.int32),
                            "mu": to_flax_params(self.model, mu),
                            "nu": to_flax_params(self.model, nu)},
                      "1": {}, "2": {}}}
-        if self.ema is not None:
-            state["ema_params"] = to_flax_params(self.model,
-                                                 dict(zip(names, self.ema)))
+        if whole["ema"] is not None:
+            state["ema_params"] = to_flax_params(
+                self.model, dict(zip(names, whole["ema"])))
         path = ckpt_lib.save_flax_checkpoint(
             self.logs_folder, step, state, keep=self.cfg.train.keep_ckpts)
         mesh_lib.barrier()
@@ -759,8 +859,9 @@ class Trainer:
         ``params`` through ``from_flax_params``; optax.adamw's ``mu`` /
         ``nu`` / ``count`` as AdamW's ``exp_avg`` / ``exp_avg_sq`` / step
         (a state without ``opt_state`` restarts the optimizer, as JAX
-        does); ``ema_params`` as the EMA, else a copy of the params."""
-        names = [n for n, _ in self.model.named_parameters()]
+        does); ``ema_params`` as the EMA, else a copy of the params. Each
+        rank keeps its shards."""
+        names = self.names
         sd = from_flax_params(state["params"], self.cfg)
         want = set(self.model.state_dict())
         missing, unexpected = want - set(sd), set(sd) - want
@@ -769,22 +870,25 @@ class Trainer:
                 f"{path}: the JAX trainer state's params do not fit this "
                 f"configuration (missing {sorted(missing)[:5]}, unexpected "
                 f"{sorted(unexpected)[:5]})")
-        self.model.load_state_dict(sd, strict=True)
+        self.model.load_state_dict(self._shard_state(sd)[0], strict=True)
         self.optimizer = make_optimizer(self.cfg, self.params)
         if "opt_state" in state:
             adam = state["opt_state"]["0"]
             mu, nu = convert_tree(adam["mu"]), convert_tree(adam["nu"])
             step = torch.tensor(float(np.asarray(adam["count"])))
             opt = self.optimizer.state_dict()
-            opt["state"] = {i: {"step": step.clone(), "exp_avg": mu[n],
-                                "exp_avg_sq": nu[n]}
+            opt["state"] = {i: {"step": step.clone(),
+                                "exp_avg": self.plan.shard(n, mu[n]),
+                                "exp_avg_sq": self.plan.shard(n, nu[n])}
                             for i, n in enumerate(names)}
             self.optimizer.load_state_dict(opt)
         if self.ema is not None:
-            src = (convert_tree(state["ema_params"])
-                   if "ema_params" in state else dict(zip(names, self.params)))
-            self.ema = [src[n].detach().to(self.device, torch.float32).clone()
-                        for n in names]
+            src = self.params
+            if "ema_params" in state:
+                whole = convert_tree(state["ema_params"])
+                src = [self.plan.shard(n, whole[n]) for n in names]
+            self.ema = [v.detach().to(self.device, torch.float32).clone()
+                        for v in src]
         print(f"{path} is a JAX trainer state: it holds no torch random "
               "streams, so the trainer's generator and coin flips go on as "
               "they are", flush=True)
@@ -796,7 +900,8 @@ class Trainer:
         starts afresh, the random streams go on as they are and the EMA
         starts from the params; or a trainer state of the JAX package
         (``params``, ``opt_state``, ``ema_params``: :meth:`save_flax`'s
-        layout), whose random streams are not in the file either."""
+        layout), whose random streams are not in the file either. Every
+        rank reads the whole state and keeps its shards."""
         step, state = ckpt_lib.load_checkpoint(path, map_location=self.device)
         if "model" not in state and "params" in state:
             self._load_flax_state(path, state)
@@ -804,9 +909,11 @@ class Trainer:
             raise ValueError(f"{path}: the checkpoint holds neither 'model' "
                              "(the port's) nor 'params' (the JAX package's)")
         else:
-            self.model.load_state_dict(state["model"], strict=True)
-            if "optimizer" in state:
-                self.optimizer.load_state_dict(state["optimizer"])
+            sd, opt, ema = self._shard_state(
+                state["model"], state.get("optimizer"), state.get("ema"))
+            self.model.load_state_dict(sd, strict=True)
+            if opt is not None:
+                self.optimizer.load_state_dict(opt)
             else:
                 self.optimizer = make_optimizer(self.cfg, self.params)
             gens = state.get("generators")
@@ -815,12 +922,12 @@ class Trainer:
                 # set_state of a row view reads out of bounds
                 self.generator.set_state(gens[self.rank].to("cpu",
                                                             copy=True))
-            elif "generator" in state and self.rank == 0:
+            elif "generator" in state and self.data_rank == 0:
                 self.generator.set_state(state["generator"].cpu())
             if "py_rng" in state:
                 self._py_rng.setstate(state["py_rng"])
             if self.ema is not None:
-                src = state.get("ema") or self.params
+                src = ema or self.params
                 self.ema = [e.detach().float().clone() for e in src]
         self.step = step
         print(f"resumed from {path} at step {self.step}", flush=True)

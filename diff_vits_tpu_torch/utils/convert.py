@@ -113,6 +113,35 @@ def _flax_leaf(mod: nn.Module, p_name: str, a: np.ndarray
     return p_name, a
 
 
+# module type -> the torch dim behind each flax dim of its ``weight``
+_PERM = ((nn.Linear, (1, 0)), (nn.Conv1d, (2, 1, 0)))
+
+
+def flax_leaves(model: nn.Module) -> Dict[str, Tuple[str, Tuple[int, ...]]]:
+    """Each parameter of ``model`` (by its name in ``named_parameters``) ->
+    (its flax path, '/'-joined as JAX's sharding rules read it; the torch
+    dim behind each flax dim). The flax shape is ``tuple(p.shape[d] for d
+    in dims)``: a Linear weight [out, in] is the kernel [in, out], a
+    Conv1d weight [out, in, k] the kernel [k, in, out]; every other leaf
+    keeps its layout."""
+    out, seen = {}, set()
+    for mod_name, mod in model.named_modules():
+        for p_name, p in mod.named_parameters(recurse=False):
+            if id(p) in seen:
+                continue
+            seen.add(id(p))
+            leaf, dims = p_name, tuple(range(p.ndim))
+            if p_name == "weight":
+                leaf = next((name for cls, name, _ in _WEIGHT
+                             if isinstance(mod, cls)), leaf)
+                dims = next((perm for cls, perm in _PERM
+                             if isinstance(mod, cls)), dims)
+            full = f"{mod_name}.{p_name}" if mod_name else p_name
+            path = mod_name.replace(".", "/")
+            out[full] = (f"{path}/{leaf}" if path else leaf, dims)
+    return out
+
+
 def to_flax_params(model: nn.Module,
                    values: Optional[Mapping[str, torch.Tensor]] = None
                    ) -> Dict[str, Any]:

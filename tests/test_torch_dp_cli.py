@@ -7,9 +7,10 @@ start them), and the mesh rules (``serve --dp`` is in
   checkpoints and samples on rank 0 only (rank 1 writes no checkpoint),
   and ``--resume auto`` continues to step 6 from rank 0's file, each rank
   taking back its own generator;
-* ``make_mesh`` falls back to the world size as JAX's does, refuses a
-  ``model`` / ``expert`` / ``seq`` axis larger than 1, and a batch the
-  ranks cannot share equally is refused.
+* ``make_mesh`` falls back to the world size as JAX's does, takes a
+  ``model`` / ``expert`` / ``seq`` axis larger than 1 (sharded training,
+  ``test_torch_shard_*.py``), refuses an axis name JAX's ``Trainer`` does
+  not take, and a batch the ranks cannot share equally is refused.
 """
 import os
 
@@ -58,8 +59,9 @@ def test_make_mesh_takes_jax_fallback_and_refuses_model_axes():
     for shape, axes in (((2, 2), ("data", "model")),
                         ((1, 4), ("data", "expert")),
                         ((2, 2), ("data", "seq"))):
-        with pytest.raises(ValueError, match="Queue 1, item 7"):
-            mesh.make_mesh(shape, axes, world=4)
+        assert mesh.make_mesh(shape, axes, world=4) == dict(zip(axes, shape))
+    with pytest.raises(ValueError, match="mesh axes"):
+        mesh.make_mesh((2, 2), ("data", "pipe"), world=4)
     assert mesh.rows(8, 1, 2) == slice(4, 8)
     with pytest.raises(ValueError, match="divisible"):
         mesh.rows(6, 0, 4)

@@ -213,6 +213,21 @@ def test_from_flax_params_takes_the_phoneme_vae_tree():
         tree["vits"]["phoneme_vae"])) > 0
 
 
+def test_walk_covers_the_parallel_modules():
+    """The mesh and its rules, the expert rules, the state sharding and
+    the rank functions are in the walk above; the rules are the port's own
+    copy (JAX's hint lists written out, not imported)."""
+    names = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    assert {"diff_vits_tpu_torch/parallel/mesh.py",
+            "diff_vits_tpu_torch/parallel/moe.py",
+            "diff_vits_tpu_torch/parallel/sharding.py",
+            "diff_vits_tpu_torch/parallel/launch.py"} <= names
+    src = (ROOT / "diff_vits_tpu_torch" / "parallel" / "mesh.py").read_text()
+    assert "_COLUMN_HINTS = (" in src and "_ROW_HINTS = (" in src
+    assert "def expert_sharding_rules" in (
+        ROOT / "diff_vits_tpu_torch" / "parallel" / "moe.py").read_text()
+
+
 def test_walk_covers_the_checkpoint_bridge_and_phoneme_vae_modules():
     """The transplant, the converters and the phoneme VAE are in the walk
     above; the transplant is the port's own copy, not an import."""

@@ -5,8 +5,8 @@ loads it (a fresh optimizer, the random streams kept, the EMA a copy of
 the params) and trains on; every ``train.remat_policy`` JAX takes builds
 and steps and a misspelled one raises; a ``train.mesh_shape`` whose
 product is not the world size falls back to the world size as JAX's
-``make_mesh`` does (one process here), and a ``model`` axis larger than 1
-is refused."""
+``make_mesh`` does (one process here), a ``model`` axis larger than 1 is
+taken and an axis name JAX's ``Trainer`` does not take is refused."""
 from pathlib import Path
 
 import dataclasses
@@ -92,13 +92,18 @@ def test_trainer_refuses_what_it_does_not_run(train, match):
 
 def test_trainer_mesh_refuses_a_model_axis():
     """The Trainer's mesh (``make_mesh`` of ``train.mesh_shape`` over the
-    ranks): a ``model`` axis of 2 over 2 ranks, which JAX would shard the
-    UNet over, is refused; over one process it falls back to (1, 1)."""
+    ranks): a ``model`` axis of 2 over 2 ranks, which JAX shards the
+    Trainer's state over, is taken (the sharded step is held to one
+    process in ``test_torch_shard_tp.py``); over one process it falls back
+    to (1, 1); an axis JAX's Trainer does not take is refused."""
     shape, axes = (1, 2), ("data", "model")
-    with pytest.raises(ValueError, match="Queue 1, item 7"):
-        make_mesh(shape, axes, world=2)
+    assert make_mesh(shape, axes, world=2) == {"data": 1, "model": 2}
     tr = Trainer(_cfg(mesh_shape=shape, mesh_axes=axes), [], device="cpu")
     assert tr.mesh == {"data": 1, "model": 1}
+    assert not tr.plan.active and tr.data_ranks == 1
+    with pytest.raises(ValueError, match="mesh axes"):
+        Trainer(_cfg(mesh_shape=shape, mesh_axes=("data", "pipe")), [],
+                device="cpu")
 
 
 def test_trainer_takes_the_defaults_and_refuses_the_multi_chip_config():
