@@ -11,8 +11,9 @@ line's, the checkpoint bridge's, bv2's, rematerialisation's, the MoE
 model's and data parallelism's numbers as ``DIR/kernels.json``,
 ``DIR/path.json``, ``DIR/train.json``, ``DIR/variant.json``,
 ``DIR/train_cli.json``, ``DIR/ckpt_bridge.json``, ``DIR/bv2.json``,
-``DIR/remat.json``, ``DIR/moe.json``, ``DIR/dp.json`` and
-``DIR/shard.json``.
+``DIR/remat.json``, ``DIR/moe.json``, ``DIR/dp.json``,
+``DIR/shard.json``, ``DIR/seq_parallel.json``, ``DIR/pipeline.json``
+and ``DIR/walls.json``.
 
 Phases, each of which fails the run:
 
@@ -241,20 +242,40 @@ Phases, each of which fails the run:
    evaluations and its mel finite (gated), its evaluations and wall time
    printed; an ``inverse_dpmpp`` round trip of one mel (printed);
 22. shard (the state sharded as JAX's ``state_sharding_rules`` shard it):
-   two gloo ranks on the card, model3 B=32, one step each on the meshes
+   two gloo ranks on the card, model3 B=16 (32 until PR 16: cut for the
+   time limit), one step each on the meshes
    (1 data, 2 model), (1 data, 2 fsdp) and (1 data, 2 expert; 4 experts)
    against one process's float32 step (losses rel 1e-5, params 1e-4),
    a bfloat16 step's loss finite, each rank's held parameters, moments
    and EMA against the rules' shapes and bytes, one K6 and as many K8
    backward as forward launches a rank, K8 at the local 4 heads on the
-   ``model`` mesh's split sites and there against ``sdpa_plain``.
+   ``model`` mesh's split sites and there against ``sdpa_plain``;
+23. seq_parallel (``parallel.activations``, ``parallel.ring_attention``):
+   two gloo ranks on the card on a ``seq`` axis, model3 at
+   ``reference_parity`` widths: the denoiser UNet (eval mode) at B=8 and
+   a long mel, T=800 (400 frames a rank), in float32 and bfloat16, each
+   rank's frames gathered against one process's forward (gates ``TOL``),
+   each rank's launches K1 22, K2 16 (the ring core), K3 16, K4 16, the
+   core 16 and K8 2 x 16 forward (the ring's blocks); one ``Trainer`` step
+   (B=8, T=800, ZeRO-3 over ``seq``) in float32 against one process's
+   (loss rel 1e-4, params 1e-4) with 2 x 16 ring K8 forward and backward
+   launches, a bfloat16 step's loss finite; K8 at the ring's block shapes
+   against ``sdpa_plain``; each rank's peak memory and time;
+24. pipeline (``parallel.pipeline``): two gloo ranks on the card, a
+   ``stage`` each, ``o_proj``'s six EncSALayers (C=256, 8 heads, flash
+   route on, float32), batch 8 of 400 frames in 4 micro-batches, against
+   the sequential stack in one process on the same micro-batches (output
+   and gradients within ``TOL``) and on the whole batch (output), K8 12
+   forward and 12 backward launches a stage.
+
+Every phase's wall time is printed (``DIR/walls.json`` with ``--out``).
 
 The launch counts in the kernel table are those of each kernel's own path:
 serving for K1-K4 and the attention core, training for K6, the variant's
 serving for K5 and K7,
 training with the flash route on for K8 (forward and backward); the
-ckpt_bridge, bv2, remat, moe and shard phases gate their own counts and
-print them.
+ckpt_bridge, bv2, remat, moe, shard, seq_parallel and pipeline phases
+gate their own counts and print them.
 The last line of standard output is one JSON object with the device; the
 line before it the kernel table. Exits non-zero, printing no result, when
 there is no CUDA device or the port's package is not beside this script.
@@ -262,6 +283,7 @@ there is no CUDA device or the port's package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import subprocess
@@ -1119,21 +1141,34 @@ def main(argv=None) -> int:
     log(build_log)
 
     phases = {}
+    walls = {}
+    last = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        walls[name] = now - last[0]
+        last[0] = now
+        log(f"phase {name}: {walls[name]:.1f} s wall")
     k_ok, rows, summary = kernel_phase(torch, dev)
     phases["kernels"] = k_ok
+    lap("kernels")
     v_ok, v_rows, v_summary, k5_route = vits_kernel_phase(torch, dev)
     phases["kernels_vits"] = v_ok
     rows += v_rows
     summary.update(v_summary)
+    lap("kernels_vits")
     phases["kernels_flash"], f_rows, f_summary = flash_kernel_phase(torch,
                                                                     dev)
     rows += f_rows
     summary.update(f_summary)
+    lap("kernels_flash")
     phases["mas"], summary["maximum_path"] = mas_phase(torch, dev, card)
+    lap("mas")
     # no one PyTorch call
     summary["maximum_path"].update(library_ms=None, library_device_ms=None)
     phases["grad"] = grad_phase(torch, dev)
     phases["flash_grad"], flash_grad = flash_grad_phase(torch, dev, card)
+    lap("grad, flash_grad")
 
     phases["vocoder"], vocoder, vocoder_numbers = vocoder_phase(torch, dev,
                                                                 card)
@@ -1144,18 +1179,22 @@ def main(argv=None) -> int:
     details["vocoder"] = vocoder_numbers
     del vocoder
     phases.update(p_ok)
+    lap("vocoder, path")
     cli_ok, details["cli"] = cli_phase(torch, dev, card)
     phases.update(cli_ok)
+    lap("cli")
     phases["train"], train_counts, train_numbers, trainer, eval_batch = \
         train_phase(torch, dev, card)
     counts["maximum_path"] = train_counts["maximum_path"]
     phases["eval_parity"], train_numbers["eval"] = eval_phase(
         torch, trainer, eval_batch)
+    lap("train, eval_parity")
     del trainer
     torch.cuda.empty_cache()
     phases["train_flash"], flash_counts, flash_numbers, trainer, _ = \
         train_run(torch, dev, card, _train_cfg(), "train (flash on)",
                   use_flash=True, steps=7, profile=True)
+    lap("train_flash")
     for name in ("flash_attention_forward", "flash_attention_backward"):
         counts[name] = flash_counts[name]
     flash_site_table(f_rows, flash_numbers["flash_site_launches_per_step"],
@@ -1171,33 +1210,50 @@ def main(argv=None) -> int:
         f"{flash_numbers['max_memory_allocated_GB']:.2f} GB; card {card}")
     var_ok, var_counts, variant = variant_phase(torch, dev, card)
     phases.update(var_ok)
+    lap("variant")
     for name in ("fused_rel_self_attention", "unconstrained_rqs"):
         counts[name] = var_counts[name]
     vt_ok, variant_train, _ = variant_train_phase(torch, dev, card)
     phases.update(vt_ok)
+    lap("variant_train")
     tc_ok, train_cli = train_cli_phase(torch, dev, card)
     phases.update(tc_ok)
+    lap("train_cli")
     cb_ok, bridge = ckpt_bridge_phase(torch, dev, card)
     phases.update(cb_ok)
+    lap("ckpt_bridge")
     bv_ok, bv2 = bv2_phase(torch, dev, card,
                            variant_train["on"]["step_s"])
     phases.update(bv_ok)
+    lap("bv2")
     rm_ok, remat = remat_phase(torch, dev, card)
     phases.update(rm_ok)
+    lap("remat")
     dense = dict(b1=details["numbers"]["b1"]["latency_s"],
                  b8=details["numbers"]["b8"]["latency_s"],
                  step_s=flash_numbers["step_s"],
                  peak_GB=flash_numbers["max_memory_allocated_GB"])
     moe_ok, moe = moe_phase(torch, dev, card, dense)
     phases.update(moe_ok)
+    lap("moe")
     dp_ok, dp = dp_nccl_phase(torch, dev, card)
     phases.update(dp_ok)
+    lap("dp_nccl")
     dp_ok, dp["gloo"] = dp_gloo_phase(torch, dev, card)
     phases.update(dp_ok)
+    lap("dp_gloo")
     s_ok, details["samplers"] = samplers_phase(torch, dev, card)
     phases.update(s_ok)
+    lap("samplers")
     sh_ok, shard = shard_phase(torch, dev, card)
     phases.update(sh_ok)
+    lap("shard")
+    sp_ok, seq_par = seq_parallel_phase(torch, dev, card)
+    phases.update(sp_ok)
+    lap("seq_parallel")
+    pp_ok, pipe = pipeline_phase(torch, dev, card)
+    phases.update(pp_ok)
+    lap("pipeline")
     log(f"training the variant, flash off vs on: median step "
         f"{variant_train['off']['step_s'] * 1e3:.1f} vs "
         f"{variant_train['on']['step_s'] * 1e3:.1f} ms, peak "
@@ -1221,7 +1277,8 @@ def main(argv=None) -> int:
                                                              indent=1))
         (out_dir / "bv2.json").write_text(json.dumps(bv2, indent=1))
         for name, numbers in (("remat", remat), ("moe", moe), ("dp", dp),
-                              ("shard", shard)):
+                              ("shard", shard), ("seq_parallel", seq_par),
+                              ("pipeline", pipe), ("walls", walls)):
             (out_dir / f"{name}.json").write_text(json.dumps(
                 numbers, indent=1, default=str))
 
@@ -1235,6 +1292,8 @@ def main(argv=None) -> int:
         library_device_ms=row["library_device_ms"])
         for name, row in summary.items()]}
     log(f"phases: {phases}")
+    log("phase walls (s): " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in walls.items()))
     if not all(phases.values()):
         log("chip_smoke: FAILED")
         return 1
@@ -4547,6 +4606,7 @@ def dp_gloo_phase(torch, dev, card, cfg=None):
 # -- slice 15: the state sharded over model, fsdp and expert ---------------
 
 # (axes, shape, MoE experts): the meshes the shard phase trains on
+SHARD_BATCH = 16
 SHARD_MESHES = ((("data", "model"), (1, 2), 0),
                 (("data", "fsdp"), (1, 2), 0),
                 (("data", "expert"), (1, 2), 4))
@@ -4640,11 +4700,11 @@ def _rule_shapes(cfg, mesh_):
     return out
 
 
-def _k8_local_heads(torch, dev, shapes):
+def _k8_local_heads(torch, dev, shapes, what="shard K8 at the local heads"):
     """K8 forward and backward at the rank-local shapes ``shapes`` ((B, H,
     T, d), S) against ``sdpa_plain`` and autograd of it on the same inputs
-    (float32 and bfloat16, a ragged key mask; gates ``TOL``). Returns (ok,
-    rows)."""
+    (float32 and bfloat16, a ragged key mask; gates ``TOL``), logged as
+    ``what``. Returns (ok, rows)."""
     from diff_vits_tpu_torch.ops import flash_attention as FA
     ok, rows = True, []
     gen = torch.Generator(device=dev).manual_seed(15)
@@ -4674,7 +4734,7 @@ def _k8_local_heads(torch, dev, shapes):
             ok &= good
             rows.append(dict(shape=[b, h, t, s, d], dtype=dname, errors=errs,
                              ok=good))
-            log(f"shard K8 at the local heads B={b} H={h} T={t} S={s} d={d}"
+            log(f"{what} B={b} H={h} T={t} S={s} d={d}"
                 f" {dname}: " + " ".join(f"{k}={v:.2e}"
                                          for k, v in errs.items())
                 + f" (gate {TOL[dname]:g}) {'ok' if good else 'FAIL'}")
@@ -4685,9 +4745,9 @@ def shard_phase(torch, dev, card, cfg=None):
     """Training with the state sharded as JAX's ``state_sharding_rules``
     shard it (``parallel.sharding``): two gloo ranks on the one card (NCCL
     refuses two ranks on one device), one ``Trainer`` step each at ``cfg``
-    (default ``reference_parity``, B=32) on the meshes of
+    (default ``reference_parity``, B = :data:`SHARD_BATCH`) on the meshes of
     :data:`SHARD_MESHES` (``model`` 2: Megatron tensor parallelism;
-    ``fsdp`` 2: ZeRO-3, 16 rows a rank; ``expert`` 2 with the MoE
+    ``fsdp`` 2: ZeRO-3, 8 rows a rank; ``expert`` 2 with the MoE
     feed-forward, 4 experts top 2). Each float32 step against one
     process's step on the whole batch on the card (gates: every loss
     within rel 1e-5, parameters within 1e-4), then a bfloat16 step's loss
@@ -4700,12 +4760,16 @@ def shard_phase(torch, dev, card, cfg=None):
     the host is no speed measure. On the CPU (``cfg`` at tiny widths, a
     rehearsal) the launch and route gates fail. Returns ({phase: ok},
     numbers)."""
+    import dataclasses
     import numpy as np
     from diff_vits_tpu_torch.parallel import launch
     from diff_vits_tpu_torch.text.symbols import symbols
 
     ok, numbers = {}, dict(card=card, meshes={})
-    cfg = cfg or _train_cfg()
+    if cfg is None:     # B = 16 since PR 16 (32 before), for the time limit
+        cfg = _train_cfg()
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, train_batch_size=SHARD_BATCH))
     b, t_y = cfg.train.train_batch_size, cfg.data.max_mel_len
     batch = next(_train_batches(np, b, cfg.data.max_text_len * 2 + 1, t_y,
                                 t_y * 2 // 3 + 1, len(symbols), seed=8))
@@ -4795,6 +4859,422 @@ def shard_phase(torch, dev, card, cfg=None):
         "over gloo on one card is no speed measure; multi-GPU NCCL speed: "
         "not measured (one card)")
     return ok, numbers
+
+
+SEQ_FRAMES = 800        # a long mel: what sequence parallelism is for
+SEQ_BATCH = 8
+SEQ_SELF_SITES = 16     # the denoiser UNet's self-attention sites
+SEQ_RANKS = 2
+PIPE_MICRO = 4
+
+
+def _seq_unet(cfg, device):
+    """model3's denoiser UNet on ``device`` with random weights from seed
+    4, in eval mode (the fused routes)."""
+    import torch
+    from diff_vits_tpu_torch.models.diffusion_encoder import (
+        DiffusionEncoder)
+    from diff_vits_tpu_torch.utils.init import init_random
+    enc = DiffusionEncoder(cfg.diffusion_encoder, device="cpu",
+                           content_channels=cfg.vits.inter_channels)
+    init_random(enc, torch.Generator().manual_seed(4))
+    return enc.unet.to(device).eval()
+
+
+def _seq_unet_inputs(torch, cfg, device):
+    """x [B, T, C_in], t [B], prompt keys [B, S, C] and keep [B, S] from
+    seed 5: B = 8, T = :data:`SEQ_FRAMES`, S = 267 (ragged)."""
+    gen = torch.Generator().manual_seed(5)
+    unet_in = cfg.diffusion_encoder.in_channels + cfg.vits.inter_channels
+    x = torch.randn(SEQ_BATCH, SEQ_FRAMES, unet_in, generator=gen)
+    t = torch.randint(0, cfg.train.timesteps, (SEQ_BATCH,), generator=gen)
+    ctx = torch.randn(SEQ_BATCH, 267, cfg.diffusion_encoder.hidden_channels,
+                      generator=gen)
+    keep = torch.arange(267)[None] < torch.tensor(
+        [267 - 25 * i for i in range(SEQ_BATCH)])[:, None]
+    return [a.to(device) for a in (x, t, ctx, keep)]
+
+
+@contextlib.contextmanager
+def _ring_blocks():
+    """Inside the block, the [B, H, T, d] and S of each ring block (a K8
+    forward launch of the ring) are appended to the list it yields."""
+    from diff_vits_tpu_torch.parallel import ring_attention as RA
+    seen = []
+    block = RA._block
+
+    def recorded(q, k, *args):
+        seen.append((tuple(q.shape), int(k.shape[2])))
+        return block(q, k, *args)
+    RA._block = recorded
+    try:
+        yield seen
+    finally:
+        RA._block = block
+
+
+def _seq_forward(torch, unet, inputs, dtype, reps=3):
+    """The UNet forward on ``inputs`` in ``dtype`` (no gradient): (this
+    call's output, launches of the first call, ring block shapes, median
+    wall s of ``reps`` more, peak GB) in the active scope."""
+    from diff_vits_tpu_torch import ops
+    unet = unet.to(dtype)
+    x, t, ctx, keep = inputs
+    args = (x.to(dtype), t, ctx.to(dtype), keep)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with torch.no_grad(), _ring_blocks() as blocks:
+        out = unet(*args)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        shapes = list(blocks)
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            unet(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    return (out.float(), counts, shapes, sorted(walls)[reps // 2],
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _seq_rank(cfg, batch, one_step_cfg, device):
+    """One rank of the seq_parallel phase (both ranks on the one card):
+    model3's denoiser UNet forward at T = 800 inside the scope in float32
+    and bfloat16 (this rank's frames gathered whole; launches, ring block
+    shapes, time, peak); then one ``Trainer`` step with
+    ``sequence_parallel`` and ZeRO-3 over ``seq`` in float32 (under
+    :func:`_exact`) and one in bfloat16, each with its launches, ring
+    blocks, time and peak."""
+    import torch
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.parallel import activations, launch, mesh
+    from diff_vits_tpu_torch.parallel import sharding
+    _exact_float32(torch)
+    dev = torch.device(device)
+    layout = sharding.Layout(mesh.make_mesh(None, ("seq",)), mesh.rank())
+    out = {}
+    unet = _seq_unet(cfg, dev)
+    inputs = _seq_unet_inputs(torch, cfg, dev)
+    with activations.sequence_parallel(layout):
+        seq = activations.shard(SEQ_FRAMES, len(unet.block_out_channels))
+        for dname in ("float32", "bfloat16"):
+            y, counts, shapes, wall, peak = _seq_forward(
+                torch, unet, inputs, getattr(torch, dname))
+            out[dname] = dict(out=seq.gather(y).cpu().numpy(),
+                              launches=counts,
+                              ring=shapes, wall_s=wall, peak_GB=peak,
+                              frames=seq.stop - seq.start)
+    del unet
+    torch.cuda.empty_cache()
+    for dname, step_cfg in (("train_float32", cfg), ("train_bfloat16",
+                                                     one_step_cfg)):
+        rec = {}
+
+        def hook(tr, rec=rec):
+            step = tr.train_step
+
+            def timed(b):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                with _ring_blocks() as blocks:
+                    metrics = step(b)
+                    torch.cuda.synchronize()
+                    rec.update(step_s=time.perf_counter() - t0,
+                               launches=ops.launch_counts(),
+                               ring=list(blocks),
+                               peak_GB=torch.cuda.max_memory_allocated()
+                               / 1e9)
+                return metrics
+            tr.train_step = timed
+        args = (launch.train_step, step_cfg, [batch], device, None, 1 << 16,
+                False, hook, "seq", True)
+        params, metrics = (_exact(*args) if dname == "train_float32"
+                           else args[0](*args[1:]))
+        out[dname] = dict(rec, metrics=metrics,
+                          params=params if mesh.rank() == 0 and
+                          dname == "train_float32" else None)
+    return out
+
+
+def seq_parallel_phase(torch, dev, card, cfg=None):
+    """Sequence parallelism (``parallel.activations``, the ring of
+    ``parallel.ring_attention``): two gloo ranks on the one card, model3
+    at ``cfg`` (default ``reference_parity``) widths. The denoiser UNet
+    (eval mode: K1 with halos and merged statistics, K2 with the ring
+    core, K3, K4) at B = 8 and a long mel, T = :data:`SEQ_FRAMES` (400
+    frames a rank), in float32 and bfloat16, each rank's frames gathered
+    against one process's forward on the card (gates ``TOL`` of max
+    |plain|); each rank's launches of the float32 forward: K1 22, K2 16,
+    K3 16, K4 16 (the UNet's own), the attention core 16 (cross only) and
+    K8 :data:`SEQ_RANKS` forward launches at each of the 16 self-attention
+    sites (the ring's blocks), no backward. Then one ``Trainer`` step
+    (B = 8, T = 800 mel frames, ZeRO-3 over ``seq``, ``sequence_parallel``)
+    in float32 against one process's step (loss rel 1e-4, parameters
+    1e-4), its ring: 2 K8 forward and 2 backward launches at each of the
+    16 self sites; a bfloat16 step's loss finite. K8 forward and backward
+    at the ring's block shapes against ``sdpa_plain``. Prints each rank's
+    peak memory and time. Returns ({phase: ok}, numbers)."""
+    import dataclasses
+    import numpy as np
+    from diff_vits_tpu_torch.parallel import launch
+    from diff_vits_tpu_torch.text.symbols import symbols
+    ok, numbers = {}, dict(card=card)
+    cfg = cfg or _train_cfg()
+    n = SEQ_RANKS
+    train = dict(train_batch_size=SEQ_BATCH, train_lr=1e-2, eps=1e-2,
+                 mesh_axes=("seq",), mesh_shape=(n,))
+    f32 = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype="float32", **train))
+    b16 = dataclasses.replace(f32, train=dataclasses.replace(
+        f32.train, compute_dtype="bfloat16"))
+    batch = next(_train_batches(np, SEQ_BATCH, cfg.data.max_text_len * 2 + 1,
+                                SEQ_FRAMES, 267, len(symbols), seed=9))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(_seq_rank, n, f32, batch, b16, str(dev),
+                             backend="gloo", timeout=900)
+    numbers["ranks_wall_s"] = time.perf_counter() - t0
+    # one process on the card
+    unet = _seq_unet(cfg, dev)
+    inputs = _seq_unet_inputs(torch, cfg, dev)
+    one = {}
+    for dname in ("float32", "bfloat16"):
+        y, counts, _, wall, peak = _seq_forward(torch, unet, inputs,
+                                                getattr(torch, dname))
+        one[dname] = dict(out=y.cpu().numpy(), launches=counts,
+                          wall_s=wall, peak_GB=peak)
+    del unet
+    torch.cuda.empty_cache()
+    one_cfg = dataclasses.replace(f32, train=dataclasses.replace(
+        f32.train, mesh_axes=("data",), mesh_shape=None))
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    p_one, m_one = _exact(launch.train_step, one_cfg, [batch], str(dev))
+    one["train_s"] = time.perf_counter() - t1
+    one["train_peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    want_fwd = {"fused_resnet_block": 22, "fused_self_attention": 16,
+                "fused_cross_attention": 16, "fused_geglu_ff": 16,
+                "attention": 16, "flash_attention_forward": n * SEQ_SELF_SITES,
+                "flash_attention_backward": 0}
+    ring_shapes = set()
+    per_rank = []
+    good_fwd = good_train = True
+    for r, got in enumerate(ranks):
+        errs = {}
+        for dname in ("float32", "bfloat16"):
+            errs[dname] = _rel_err(torch.from_numpy(got[dname]["out"]),
+                                   torch.from_numpy(one[dname]["out"]))[1]
+            ring_shapes |= set(got[dname]["ring"])
+        counts = got["float32"]["launches"]
+        counts_ok = all(counts[k] == v for k, v in want_fwd.items())
+        fwd_ok = (counts_ok and errs["float32"] <= TOL["float32"]
+                  and errs["bfloat16"] <= TOL["bfloat16"]
+                  and len(got["float32"]["ring"]) == n * SEQ_SELF_SITES)
+        good_fwd &= fwd_ok
+        tr = got["train_float32"]
+        loss_gap = abs(tr["metrics"]["loss/all"] - m_one["loss/all"]) / abs(
+            m_one["loss/all"])
+        ring_calls = len(tr["ring"]) // n
+        k8f = tr["launches"]["flash_attention_forward"]
+        k8b = tr["launches"]["flash_attention_backward"]
+        ring_ok = (ring_calls == SEQ_SELF_SITES
+                   and len(tr["ring"]) == n * SEQ_SELF_SITES
+                   and k8f - len(tr["ring"]) == k8b - n * SEQ_SELF_SITES)
+        finite = bool(np.isfinite(got["train_bfloat16"]["metrics"][
+            "loss/all"]))
+        tr_ok = loss_gap <= 1e-4 and ring_ok and finite
+        ring_shapes |= set(tr["ring"])
+        if r == 0:
+            gap = max(float(np.abs(tr["params"][k] - p_one[k]).max())
+                      for k in p_one)
+            numbers["param_gap"] = gap
+            tr_ok &= gap <= 1e-4
+        good_train &= tr_ok
+        row = dict(
+            frames=got["float32"]["frames"], forward_rel_err=errs,
+            forward_launches=counts, forward_ring_blocks=len(
+                got["float32"]["ring"]),
+            forward_wall_s={d: got[d]["wall_s"] for d in errs},
+            forward_peak_GB={d: got[d]["peak_GB"] for d in errs},
+            train_loss_rel_gap=loss_gap, train_step_s=tr["step_s"],
+            train_peak_GB=tr["peak_GB"], train_k8=[k8f, k8b],
+            train_ring_blocks=len(tr["ring"]),
+            bf16_step_s=got["train_bfloat16"]["step_s"],
+            bf16_peak_GB=got["train_bfloat16"]["peak_GB"],
+            bf16_loss=got["train_bfloat16"]["metrics"]["loss/all"])
+        per_rank.append(row)
+        log(f"seq_parallel rank {r}: {row['frames']} of {SEQ_FRAMES} frames;"
+            f" UNet forward vs one process rel {errs['float32']:.2e} fp32 / "
+            f"{errs['bfloat16']:.2e} bf16 (gates {TOL['float32']:g} / "
+            f"{TOL['bfloat16']:g}), launches {counts_ok} "
+            f"(K8 {counts['flash_attention_forward']} = {n} x "
+            f"{SEQ_SELF_SITES} ring blocks), wall "
+            f"{got['float32']['wall_s'] * 1e3:.1f} / "
+            f"{got['bfloat16']['wall_s'] * 1e3:.1f} ms, peak "
+            f"{got['float32']['peak_GB']:.2f} / "
+            f"{got['bfloat16']['peak_GB']:.2f} GB; train step fp32 loss rel "
+            f"{loss_gap:.2e} (gate 1e-4), K8 {k8f} + {k8b} of which ring "
+            f"{len(tr['ring'])} + {n * SEQ_SELF_SITES}, step "
+            f"{tr['step_s']:.2f} s, peak {tr['peak_GB']:.2f} GB; bf16 step "
+            f"{got['train_bfloat16']['step_s']:.2f} s, peak "
+            f"{got['train_bfloat16']['peak_GB']:.2f} GB, loss "
+            f"{got['train_bfloat16']['metrics']['loss/all']:.4f}; card {card}")
+    ok["seq_parallel_unet"] = good_fwd
+    ok["seq_parallel_train"] = good_train
+    log(f"seq_parallel one process: UNet forward wall "
+        f"{one['float32']['wall_s'] * 1e3:.1f} / "
+        f"{one['bfloat16']['wall_s'] * 1e3:.1f} ms, peak "
+        f"{one['float32']['peak_GB']:.2f} / {one['bfloat16']['peak_GB']:.2f}"
+        f" GB; train step {one['train_s']:.2f} s, peak "
+        f"{one['train_peak_GB']:.2f} GB; params max |diff| rank 0 "
+        f"{numbers.get('param_gap', float('nan')):.2e} (gate 1e-4)")
+    ok["seq_parallel_k8_ring"], numbers["k8_ring_blocks"] = _k8_local_heads(
+        torch, dev, sorted(ring_shapes), "seq_parallel K8 at a ring block")
+    ok["seq_parallel_k8_ring"] &= bool(ring_shapes)
+    numbers.update(ranks=per_rank, one=dict(
+        forward_wall_s={d: one[d]["wall_s"] for d in ("float32", "bfloat16")},
+        forward_peak_GB={d: one[d]["peak_GB"]
+                         for d in ("float32", "bfloat16")},
+        forward_launches=one["float32"]["launches"],
+        train_s=one["train_s"], train_peak_GB=one["train_peak_GB"],
+        metrics=m_one))
+    log(f"seq_parallel phase: {numbers['ranks_wall_s']:.1f} s wall for the "
+        f"ranks; card {card}. Time over gloo through the host on one card is"
+        " no speed measure; NCCL with more than one rank: not measured")
+    return ok, numbers
+
+
+def _pipe_stack(torch, dev):
+    """(layer_fn, stacked params, x): ``o_proj``'s six EncSALayers
+    (``reference_parity``: C = 256, 8 heads, random weights from seed 6)
+    stacked, the flash route on, eval mode; x [8, 400, 256] from seed
+    7."""
+    from diff_vits_tpu_torch.nn.fairseq import EncSALayer
+    from diff_vits_tpu_torch.utils.init import init_random
+    cfg = _train_cfg()
+    c = cfg.vits.hidden_channels
+    layers = [EncSALayer(c, 8, 9, p_dropout=0.2) for _ in range(6)]
+    for i, layer in enumerate(layers):
+        init_random(layer, torch.Generator().manual_seed(60 + i))
+        layer.to(dev).eval().use_flash = True
+    template = layers[0]
+    stacked = {k: torch.stack([dict(m.named_parameters())[k].detach()
+                               for m in layers])
+               for k, _ in template.named_parameters()}
+    x = torch.randn(8, 400, c, generator=torch.Generator().manual_seed(7))
+
+    def layer_fn(p, h):
+        keep = torch.ones(h.shape[0], h.shape[1], 1, device=h.device)
+        return torch.func.functional_call(template, p, (h, keep))
+    return layer_fn, stacked, x.to(dev)
+
+
+def _pipe_run(device, n_micro, chunked=True):
+    """The stack of :func:`_pipe_stack` on ``device``: through
+    ``make_pipeline`` over the ranks' ``stage`` axis (a process group), or
+    the sequential stack (one process) on the same ``n_micro``
+    micro-batches (``chunked``) or on the whole batch; the output, the
+    gradients of sum(out * w) for the stacked parameters and x, the K8
+    launches, wall s and peak GB."""
+    import torch
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.parallel import mesh, pipeline
+    _exact_float32(torch)
+    dev = torch.device(device)
+    layer_fn, stacked, x = _pipe_stack(torch, dev)
+    params = {k: v.clone().requires_grad_(True) for k, v in stacked.items()}
+    x = x.clone().requires_grad_(True)
+    if mesh.distributed():
+        fn = pipeline.make_pipeline(layer_fn, mesh.make_mesh(None, ("stage",)),
+                                    n_micro)
+    else:
+        def fn(p, h):
+            parts = h.split(h.shape[0] // n_micro) if chunked else [h]
+            return torch.cat([pipeline.sequential(layer_fn, p, c)
+                              for c in parts])
+    w = torch.randn(x.shape, generator=torch.Generator().manual_seed(8)).to(
+        dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    y = fn(params, x)
+    (y * w).sum().backward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    return dict(out=y.detach().cpu().numpy(), dx=x.grad.cpu().numpy(),
+                grads={k: v.grad.cpu().numpy() for k, v in params.items()},
+                k8=[counts["flash_attention_forward"],
+                    counts["flash_attention_backward"]], wall_s=wall,
+                peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def pipeline_phase(torch, dev, card):
+    """GPipe (``parallel.pipeline``): two gloo ranks on the one card, each
+    a ``stage`` of three of ``o_proj``'s six EncSALayers
+    (``reference_parity`` widths, the flash route on, float32), batch 8 of
+    400 frames in :data:`PIPE_MICRO` micro-batches, against the
+    sequential stack in one process on the same micro-batches: output and
+    the gradients of sum(out * w) for every stacked parameter and x within
+    ``TOL`` of their largest magnitude; each stage launches K8 3 times a
+    micro-batch forward and as many backward. The output also against the
+    sequential stack on the whole batch (``TOL``); that run's gradients
+    are printed, not gated: at another batch shape the kernels round
+    otherwise, and a ReLU input within rounding of 0 in the feed-forward
+    flips its gradient (found on the card, PR 16: one layer's ``ffn_1``
+    weight 1.9e-2 of its largest entry apart, the sequential stack on 2
+    rows against 8 as much as the pipeline). Returns ({phase: ok},
+    numbers)."""
+    from diff_vits_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(_pipe_run, 2, str(dev), PIPE_MICRO,
+                             backend="gloo", timeout=600)
+    wall = time.perf_counter() - t0
+    one = _pipe_run(str(dev), PIPE_MICRO)
+    whole = _pipe_run(str(dev), PIPE_MICRO, chunked=False)
+    def err(a, b):
+        return _rel_err(torch.from_numpy(a), torch.from_numpy(b))[1]
+    whole_gaps = {"out": err(whole["out"], one["out"]),
+                  "dx": err(whole["dx"], one["dx"])}
+    whole_gaps.update({f"d{k}": err(whole["grads"][k], g)
+                       for k, g in one["grads"].items()})
+    good, rows = whole_gaps["out"] <= TOL["float32"], []
+    for r, got in enumerate(ranks):
+        errs = {"out": err(got["out"], one["out"]),
+                "dx": err(got["dx"], one["dx"])}
+        errs["params"] = max(err(got["grads"][k], g)
+                             for k, g in one["grads"].items())
+        k8_ok = got["k8"] == [3 * PIPE_MICRO, 3 * PIPE_MICRO]
+        ok_r = k8_ok and all(e <= TOL["float32"] for e in errs.values())
+        good &= ok_r
+        rows.append(dict(errors=errs, k8=got["k8"], wall_s=got["wall_s"],
+                         peak_GB=got["peak_GB"]))
+        log(f"pipeline stage {r}: vs the sequential stack out "
+            f"{errs['out']:.2e}, dx {errs['dx']:.2e}, params "
+            f"{errs['params']:.2e} (gate {TOL['float32']:g}); K8 "
+            f"{got['k8'][0]} + {got['k8'][1]} (want {3 * PIPE_MICRO} each); "
+            f"forward + backward {got['wall_s']:.2f} s, peak "
+            f"{got['peak_GB']:.2f} GB; card {card}")
+    # a call a layer and a micro-batch; the whole batch: a call a layer
+    good &= one["k8"] == [6 * PIPE_MICRO] * 2 and whole["k8"] == [6, 6]
+    log(f"pipeline one process: K8 {one['k8']} on the micro-batches, "
+        f"{whole['k8']} on the whole batch ({one['wall_s']:.2f} / "
+        f"{whole['wall_s']:.2f} s, peak {one['peak_GB']:.2f} / "
+        f"{whole['peak_GB']:.2f} GB); the whole batch against the "
+        f"micro-batches: out {whole_gaps['out']:.2e} (gate "
+        f"{TOL['float32']:g}), gradients up to "
+        f"{max(v for k, v in whole_gaps.items() if k != 'out'):.2e} (not "
+        f"gated: ReLU kinks); ranks {wall:.1f} s wall (spawn included); "
+        f"card {card}. Time over gloo on one card is no speed measure")
+    return {"pipeline": good}, dict(card=card, ranks=rows, one=dict(
+        k8=one["k8"], wall_s=one["wall_s"], peak_GB=one["peak_GB"]),
+        whole=dict(k8=whole["k8"], gaps=whole_gaps), ranks_wall_s=wall)
+
 
 if __name__ == "__main__":
     sys.exit(main())

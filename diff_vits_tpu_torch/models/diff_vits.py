@@ -32,6 +32,7 @@ from diff_vits_tpu_torch.diffusion.schedule import (
 from diff_vits_tpu_torch.diffusion.uni_pc import sample_unipc
 from diff_vits_tpu_torch.models.diffusion_encoder import DiffusionEncoder
 from diff_vits_tpu_torch.models.vits import VITS
+from diff_vits_tpu_torch.parallel import activations
 
 SAMPLE_METHODS = ("unipc", "dpmsolver", "ddim", "ddpm")
 
@@ -46,8 +47,9 @@ class DiffVits(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.vits = VITS(n_vocab, cfg.vits, device=device, dtype=dtype)
-        self.diff_model = DiffusionEncoder(cfg.diffusion_encoder,
-                                           device=device, dtype=dtype)
+        self.diff_model = DiffusionEncoder(
+            cfg.diffusion_encoder, content_channels=cfg.vits.inter_channels,
+            device=device, dtype=dtype)
         self._gd: Optional[GaussianDiffusion] = None
 
     def diffusion(self, device: torch.device) -> GaussianDiffusion:
@@ -78,6 +80,15 @@ class DiffVits(nn.Module):
         ``rank_mean`` (data parallelism: a statistic -> its mean over the
         ranks) is ``VITS.forward``'s; ``loss_diff``, a mean of per-item
         means, needs none.
+        Inside a ``parallel.activations`` sequence-parallel scope the UNet
+        runs on this rank's frames (the noise is drawn whole, as everything
+        outside the UNet runs whole on every ``seq`` rank, and the UNet
+        cuts its input), and ``loss`` is this rank's share of one process's
+        loss: its frames' diffusion term over the whole frame count, plus
+        the terms every ``seq`` rank computes alike divided by their
+        number, so that the gradients summed over ``seq``
+        (``Plan.reduce_grads``) are one process's; ``model_out`` and
+        ``target`` are this rank's frames, the metrics the whole loss's.
         Returns (loss, (metrics, model_out, target))."""
         if generator is None and (t is None or noise is None):
             raise ValueError("generator=None needs injected t and noise")
@@ -102,13 +113,29 @@ class DiffVits(nn.Module):
         model_out = self.diff_model(x, t, content, refer, lengths,
                                     refer_lengths, generator=generator)
         target = x_start
+        seq = activations.shard(
+            spec.shape[1], len(self.cfg.diffusion_encoder.block_out_channels))
+        if seq is not None:     # the UNet gave this rank's frames
+            target = seq.cut(target)
         mse = (model_out.float() - target.float()) ** 2
-        loss_diff = (mse.reshape(b, -1).mean(dim=-1)
-                     * gd.loss_weight[t]).mean()
-        loss = 40.0 * loss_diff + l_length + loss_kl + loss_kl_ph
+        if seq is None:
+            loss_diff = (mse.reshape(b, -1).mean(dim=-1)
+                         * gd.loss_weight[t]).mean()
+            loss = 40.0 * loss_diff + l_length + loss_kl + loss_kl_ph
+            total = loss
+        else:
+            # this rank's frames' share of the per-item means; the terms
+            # every seq rank computes alike count 1 / n_seq here
+            whole = seq.length * mse.shape[-1]
+            part = (mse.reshape(b, -1).sum(dim=-1) / whole
+                    * gd.loss_weight[t]).mean()
+            rest = l_length + loss_kl + loss_kl_ph
+            loss = 40.0 * part + rest / seq.group.size
+            loss_diff = seq.group.all_reduce(part)
+            total = 40.0 * loss_diff + rest
         metrics = {"loss/diff": loss_diff, "loss/len": l_length,
                    "loss/kl": loss_kl, "loss/kl_ph": loss_kl_ph,
-                   "loss/all": loss}
+                   "loss/all": total}
         return loss, (metrics, model_out, target)
 
 

@@ -24,17 +24,23 @@ from diff_vits_tpu_torch.nn.unet1d import UNet1DConditionModel
 class DiffusionEncoder(nn.Module):
 
     def __init__(self, cfg: DiffusionEncoderConfig, *,
+                 content_channels: Optional[int] = None,
                  device: DeviceLike = None,
                  dtype: torch.dtype = torch.float32):
+        """``content_channels``: the width of ``cond`` (the VITS content,
+        ``vits.inter_channels``), which flax's ``conv_in`` infers from the
+        data; ``hidden_channels`` unless given."""
         super().__init__()
         device = resolve_device(device)
         c = cfg
+        content = c.hidden_channels if content_channels is None \
+            else content_channels
         kw = dict(device=device, dtype=dtype)
         self.prompt_encoder = PromptEncoder(
             c.in_channels, c.hidden_channels, c.hidden_channels,
             c.n_prompt_layers, **kw)
         self.unet = UNet1DConditionModel(
-            in_channels=c.in_channels + c.hidden_channels,
+            in_channels=c.in_channels + content,
             out_channels=c.out_channels,
             block_out_channels=c.block_out_channels, norm_num_groups=8,
             cross_attention_dim=c.hidden_channels,

@@ -21,6 +21,7 @@ from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
 from diff_vits_tpu_torch.nn.flows import ConvFlow, ElementwiseAffine, Flip, Log
 from diff_vits_tpu_torch.nn.layers import Conv1d, DDSConv, dropout
 from diff_vits_tpu_torch.nn.unet1d import UNet1DConditionModel
+from diff_vits_tpu_torch.parallel import activations
 
 
 class DurationPredictorUNet(nn.Module):
@@ -52,8 +53,11 @@ class DurationPredictorUNet(nn.Module):
         prompt_keep = masking.sequence_mask(prompt_lengths, prompt.shape[1])
         prompt = prompt * prompt_keep.to(prompt.dtype)[..., None]
         x = self.pre(x) * x_mask
-        out = self.enc(x, torch.ones((), dtype=torch.int32), prompt,
-                       encoder_attention_mask=prompt_keep)
+        # whole on every rank under sequence parallelism, which shards the
+        # diffusion UNet only
+        with activations.sequence_parallel(None):
+            out = self.enc(x, torch.ones((), dtype=torch.int32), prompt,
+                           encoder_attention_mask=prompt_keep)
         return out * x_mask
 
 

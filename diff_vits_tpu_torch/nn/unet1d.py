@@ -17,6 +17,17 @@ JAX modules turn the fused route off when ``deterministic=False``) and a
 call failing the gate take the unfused PyTorch formulation (the JAX
 package's XLA path). The UNet's dropout is 0 on every path, so both routes
 compute the same function.
+
+Sequence parallelism: inside a ``parallel.activations.sequence_parallel``
+scope whose ``seq`` axis has more than one rank, ``UNet1DConditionModel``
+takes the whole inputs, keeps this rank's frames and returns this rank's
+frames of the output (``activations.SeqShard`` lays them out). Each block
+gets the ``seq`` level it runs at (an ``activations.SeqLevel``; None
+outside a scope): its k3 convs read the neighbours' halo, its GroupNorms
+take every rank's statistics, its self-attention runs the ring of
+``parallel.ring_attention`` (K8 blocks on the card), and the fused ops
+take the level as ``seq=`` (K1's halos and merged statistics, K2's ring
+core); cross-attention and the per-frame work are local.
 """
 from __future__ import annotations
 
@@ -36,11 +47,21 @@ from diff_vits_tpu_torch.ops import (
     fused_self_attention)
 from diff_vits_tpu_torch.ops.flash_attention import (
     bias_to_keep_mask, flash_ok, sdpa)
+from diff_vits_tpu_torch.parallel import activations
 from diff_vits_tpu_torch.parallel.moe import MoEFeedForward
+from diff_vits_tpu_torch.parallel.ring_attention import ring_attention
 
 
-def _group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+def _group_norm(norm: nn.GroupNorm, x: torch.Tensor, seq=None
+                ) -> torch.Tensor:
+    if seq is not None:
+        return seq.group_norm(x, norm.weight, norm.bias, norm.num_groups,
+                              norm.eps)
     return norm(x.transpose(1, 2)).transpose(1, 2)
+
+
+def _conv(conv: nn.Conv1d, x: torch.Tensor, seq=None) -> torch.Tensor:
+    return conv(x) if seq is None else seq.conv(conv, x)
 
 
 def _dense_w(linear: nn.Linear) -> torch.Tensor:
@@ -61,7 +82,8 @@ class CrossAttention(nn.Module):
     CPU. With a ``tp`` group (``parallel.sharding``: ``to_q`` / ``to_k`` /
     ``to_v`` hold the rank's heads, ``to_out`` their input features) the
     module computes ``heads / tp.size`` heads and sums ``to_out`` over the
-    group."""
+    group. Self-attention with a ``seq`` level runs the ring over the
+    ``seq`` ranks (the key bias is this rank's keys')."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None):
@@ -82,7 +104,7 @@ class CrossAttention(nn.Module):
         return flash_ok((None, self.heads, t, self.dim_head),
                         (None, self.heads, s, self.dim_head), self.use_flash)
 
-    def forward(self, x, context=None, attention_bias=None):
+    def forward(self, x, context=None, attention_bias=None, seq=None):
         tp = self.tp
         if tp is not None:
             x = tp.enter(x)
@@ -96,7 +118,11 @@ class CrossAttention(nn.Module):
 
         q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), \
             split(self.to_v(ctx))
-        if self.uses_flash(t, ctx.shape[1]):
+        if seq is not None and context is None:
+            out = ring_attention(q, k, v, bias_to_keep_mask(attention_bias),
+                                 group=seq.group, sizes=seq.sizes,
+                                 scale=self.dim_head ** -0.5)
+        elif self.uses_flash(t, ctx.shape[1]):
             out = sdpa(q, k, v, bias_to_keep_mask(attention_bias),
                        sm_scale=self.dim_head ** -0.5, use_flash=True)
         else:
@@ -164,11 +190,11 @@ class BasicTransformerBlock(nn.Module):
                 and self.attn1.tp is None)
 
     def forward(self, x, context=None, attention_bias=None,
-                context_bias=None):
+                context_bias=None, seq=None):
         return remat_call(self.remat, self._forward, x, context,
-                          attention_bias, context_bias)
+                          attention_bias, context_bias, seq=seq)
 
-    def _forward(self, x, context, attention_bias, context_bias):
+    def _forward(self, x, context, attention_bias, context_bias, seq=None):
         if self._fused_enabled(attention_bias):
             cdt = self.norm1.weight.dtype
 
@@ -177,7 +203,8 @@ class BasicTransformerBlock(nn.Module):
                         _dense_w(a.to_k), _dense_w(a.to_v),
                         _dense_w(a.to_out), a.to_out.bias)
             x = fused_self_attention(x, *attn(self.norm1, self.attn1),
-                                     heads=self.num_heads, compute_dtype=cdt)
+                                     heads=self.num_heads, compute_dtype=cdt,
+                                     seq=seq)
             if self.has_cross:
                 x = fused_cross_attention(
                     x, context, context_bias, *attn(self.norm2, self.attn2),
@@ -186,7 +213,7 @@ class BasicTransformerBlock(nn.Module):
                 x, self.norm3.weight, self.norm3.bias,
                 _dense_w(self.ff.proj), self.ff.proj.bias,
                 _dense_w(self.ff.out), self.ff.out.bias, compute_dtype=cdt)
-        x = x + self.attn1(self.norm1(x), None, attention_bias)
+        x = x + self.attn1(self.norm1(x), None, attention_bias, seq)
         if self.has_cross:
             x = x + self.attn2(self.norm2(x), context, context_bias)
         ff = self.ff_moe if self.moe_experts else self.ff
@@ -214,11 +241,11 @@ class Transformer1D(nn.Module):
         self.proj_out = nn.Linear(inner, in_channels)
 
     def forward(self, x, context=None, attention_bias=None,
-                context_bias=None):
-        h = self.proj_in(_group_norm(self.norm, x))
+                context_bias=None, seq=None):
+        h = self.proj_in(_group_norm(self.norm, x, seq))
         for i in range(self.num_layers):
             h = getattr(self, f"block_{i}")(h, context, attention_bias,
-                                            context_bias)
+                                            context_bias, seq)
         return self.proj_out(h) + x
 
 
@@ -247,10 +274,10 @@ class ResnetBlock1D(nn.Module):
                 and self.in_channels % self.groups == 0
                 and self.out_channels % self.groups == 0)
 
-    def forward(self, x, temb):
-        return remat_call(self.remat, self._forward, x, temb)
+    def forward(self, x, temb, seq=None):
+        return remat_call(self.remat, self._forward, x, temb, seq=seq)
 
-    def _forward(self, x, temb):
+    def _forward(self, x, temb, seq=None):
         if self._fused_enabled():
             # film = silu(temb) @ wt + bt in float32, outside the kernel
             # (unet1d.py:426)
@@ -264,12 +291,12 @@ class ResnetBlock1D(nn.Module):
                 self.norm2.bias, _conv_w(self.conv2), self.conv2.bias,
                 None if sc is None else _dense_w(sc),
                 None if sc is None else sc.bias, groups=self.groups,
-                eps=self.eps, compute_dtype=self.conv1.weight.dtype)
-        h = self.conv1(F.silu(_group_norm(self.norm1, x)))
+                eps=self.eps, compute_dtype=self.conv1.weight.dtype, seq=seq)
+        h = _conv(self.conv1, F.silu(_group_norm(self.norm1, x, seq)), seq)
         scale, shift = self.time_emb_proj(F.silu(temb))[:, None].chunk(
             2, dim=-1)
-        h = _group_norm(self.norm2, h) * (1 + scale) + shift
-        h = self.conv2(F.silu(h))
+        h = _group_norm(self.norm2, h, seq) * (1 + scale) + shift
+        h = _conv(self.conv2, F.silu(h), seq)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -282,8 +309,8 @@ class Downsample1D(nn.Module):
         super().__init__()
         self.conv = Conv1d(channels, out_channels, 3, stride=2, padding=1)
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, seq=None):
+        return _conv(self.conv, x, seq)
 
 
 class Upsample1D(nn.Module):
@@ -294,7 +321,9 @@ class Upsample1D(nn.Module):
         super().__init__()
         self.conv = Conv1d(channels, out_channels, 3, padding=1)
 
-    def forward(self, x, output_size: Optional[int] = None):
+    def forward(self, x, output_size: Optional[int] = None, seq=None):
+        if seq is not None:     # output_size: the whole skip's length
+            return seq.up().conv(self.conv, seq.upsample(x, output_size))
         t = x.shape[1]
         if output_size is None or output_size == 2 * t:
             x = torch.repeat_interleave(x, 2, dim=1)
@@ -325,15 +354,15 @@ class CrossAttnDownBlock1D(nn.Module):
                            if add_downsample else None)
 
     def forward(self, x, temb, context, context_bias=None,
-                attention_bias=None):
+                attention_bias=None, seq=None):
         outputs = []
         for i in range(self.num_layers):
-            x = getattr(self, f"resnet_{i}")(x, temb)
+            x = getattr(self, f"resnet_{i}")(x, temb, seq)
             x = getattr(self, f"attn_{i}")(x, context, attention_bias,
-                                           context_bias)
+                                           context_bias, seq)
             outputs.append(x)
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = self.downsample(x, seq)
             outputs.append(x)
         return x, outputs
 
@@ -352,13 +381,13 @@ class DownBlock1D(nn.Module):
         self.downsample = (Downsample1D(out_channels, out_channels)
                            if add_downsample else None)
 
-    def forward(self, x, temb):
+    def forward(self, x, temb, seq=None):
         outputs = []
         for i in range(self.num_layers):
-            x = getattr(self, f"resnet_{i}")(x, temb)
+            x = getattr(self, f"resnet_{i}")(x, temb, seq)
             outputs.append(x)
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = self.downsample(x, seq)
             outputs.append(x)
         return x, outputs
 
@@ -381,12 +410,12 @@ class MidBlock1DCrossAttn(nn.Module):
                 in_channels, in_channels, temb_channels, groups=groups))
 
     def forward(self, x, temb, context, context_bias=None,
-                attention_bias=None):
-        x = self.resnet_0(x, temb)
+                attention_bias=None, seq=None):
+        x = self.resnet_0(x, temb, seq)
         for i in range(self.num_layers):
             x = getattr(self, f"attn_{i}")(x, context, attention_bias,
-                                           context_bias)
-            x = getattr(self, f"resnet_{i + 1}")(x, temb)
+                                           context_bias, seq)
+            x = getattr(self, f"resnet_{i + 1}")(x, temb, seq)
         return x
 
 
@@ -419,14 +448,15 @@ class CrossAttnUpBlock1D(nn.Module):
                          if add_upsample else None)
 
     def forward(self, x, res_stack: List[torch.Tensor], temb, context,
-                context_bias=None, attention_bias=None, upsample_size=None):
+                context_bias=None, attention_bias=None, upsample_size=None,
+                seq=None):
         for i in range(self.num_layers):
             x = torch.cat([x, res_stack.pop()], dim=-1)
-            x = getattr(self, f"resnet_{i}")(x, temb)
+            x = getattr(self, f"resnet_{i}")(x, temb, seq)
             x = getattr(self, f"attn_{i}")(x, context, attention_bias,
-                                           context_bias)
+                                           context_bias, seq)
         if self.upsample is not None:
-            x = self.upsample(x, upsample_size)
+            x = self.upsample(x, upsample_size, seq)
         return x
 
 
@@ -446,12 +476,12 @@ class UpBlock1D(nn.Module):
                          if add_upsample else None)
 
     def forward(self, x, res_stack: List[torch.Tensor], temb,
-                upsample_size=None):
+                upsample_size=None, seq=None):
         for i in range(self.num_layers):
             x = torch.cat([x, res_stack.pop()], dim=-1)
-            x = getattr(self, f"resnet_{i}")(x, temb)
+            x = getattr(self, f"resnet_{i}")(x, temb, seq)
         if self.upsample is not None:
-            x = self.upsample(x, upsample_size)
+            x = self.upsample(x, upsample_size, seq)
         return x
 
 
@@ -539,7 +569,10 @@ class UNet1DConditionModel(nn.Module):
         """sample [B, T, C_in]; timestep scalar or [B]; encoder_hidden_states
         [B, S, cross_attention_dim]; masks [B, S] / [B, T] keep (1) or None;
         ``emb`` an injected [B, 4*ch0] time+text embedding;
-        ``embedding_request`` 'time' or 'text' returns only that part."""
+        ``embedding_request`` 'time' or 'text' returns only that part.
+        Inside a sequence-parallel scope (module docstring) ``sample`` and
+        ``attention_mask`` are whole and the result is this rank's frames
+        [B, T_rank, C_out]."""
         dtype = self.conv_in.weight.dtype
         dev = self.conv_in.weight.device
         if encoder_hidden_states is not None:
@@ -565,34 +598,47 @@ class UNet1DConditionModel(nn.Module):
                 return None
             return ((1 - m.float()) * -10000.0)[:, None, :].contiguous()
 
+        n = len(self.block_out_channels)
+        # sequence parallelism: this rank's frames, at every level
+        top = activations.shard(sample.shape[1], n)
+        seq = [None] * n if top is None else [top.plan.level(i)
+                                              for i in range(n)]
+        if top is not None:
+            sample = top.cut(sample)
+            if attention_mask is not None:
+                attention_mask = top.cut(attention_mask)
+
         attn_bias = to_bias(attention_mask)
         ctx_bias = to_bias(encoder_attention_mask)
         ctx = encoder_hidden_states
 
-        sample = self.conv_in(sample.to(dtype))
+        sample = _conv(self.conv_in, sample.to(dtype), seq[0])
         res_stack = [sample]
-        n = len(self.block_out_channels)
         for i in range(n):
             blk = getattr(self, f"down_{i}")
             if i < n - 1:
-                sample, outs = blk(sample, emb, ctx, ctx_bias, attn_bias)
+                sample, outs = blk(sample, emb, ctx, ctx_bias, attn_bias,
+                                   seq=seq[i])
             else:
-                sample, outs = blk(sample, emb)
+                sample, outs = blk(sample, emb, seq=seq[i])
             res_stack.extend(outs)
-        sample = self.mid(sample, emb, ctx, ctx_bias, attn_bias)
+        sample = self.mid(sample, emb, ctx, ctx_bias, attn_bias,
+                          seq=seq[n - 1])
         n_res = self.layers_per_block + 1
         for i in range(n):
-            # force the upsample size to the next skip's length
+            # force the upsample size to the next skip's (whole) length
             upsample_size = (None if i == n - 1
-                             else res_stack[-(n_res + 1)].shape[1])
+                             else res_stack[-(n_res + 1)].shape[1]
+                             if top is None else seq[n - 2 - i].length)
             blk = getattr(self, f"up_{i}")
             if i == 0:
-                sample = blk(sample, res_stack, emb, upsample_size)
+                sample = blk(sample, res_stack, emb, upsample_size,
+                             seq=seq[n - 1])
             else:
                 sample = blk(sample, res_stack, emb, ctx, ctx_bias,
-                             attn_bias, upsample_size)
-        sample = F.silu(_group_norm(self.conv_norm_out, sample))
-        return self.conv_out(sample)
+                             attn_bias, upsample_size, seq=seq[n - 1 - i])
+        sample = F.silu(_group_norm(self.conv_norm_out, sample, seq[0]))
+        return _conv(self.conv_out, sample, seq[0])
 
 
 def set_use_fused(module: nn.Module, flag: bool) -> None:

@@ -32,6 +32,18 @@ SMs idle while each walks the whole K. So each conv runs on tensor cores
 (``_cuda.gemm_plan``) until three blocks sit on each SM, the split
 partials summed in shared memory in a fixed order, and the GN / FiLM /
 SiLU prologue runs branch-free inside the tile loads.
+
+Under sequence parallelism (``seq=``, a ``parallel.activations.SeqLevel``:
+x holds this rank's frames) both routes give this rank's frames of the
+whole block. The plain version takes each GroupNorm's statistics over
+every rank's frames and pads each conv's input with the neighbours' frames
+(zero frames at the global edges). The kernel route: ``norm_stats`` at
+eps 0 gives each rank's (mean, variance), merged over the ranks into the
+whole statistics (``SeqLevel.merge_stats``); x gains its neighbours'
+frames (none at a global edge, where the GEMM's prologue zero-pads as on
+one process) and conv1 runs over them; h1's own frames, their merged
+statistics and a second halo feed conv2, whose residual is x's extended
+frames; the halo rows of each output are dropped.
 """
 from __future__ import annotations
 
@@ -49,7 +61,9 @@ def mm(a: torch.Tensor, w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     return torch.matmul(a.to(cdt).float(), w.to(cdt).float())
 
 
-def _group_norm(h, scale, bias, groups: int, eps: float):
+def _group_norm(h, scale, bias, groups: int, eps: float, seq=None):
+    if seq is not None:
+        return seq.group_norm(h, scale, bias, groups, eps)
     b, t, c = h.shape
     hg = h.reshape(b, t, groups, c // groups)
     mu = hg.mean(dim=(1, 3), keepdim=True)
@@ -58,10 +72,14 @@ def _group_norm(h, scale, bias, groups: int, eps: float):
     return hn * scale.float() + bias.float()
 
 
-def _conv3(h, w, b, cdt):
-    z = torch.zeros_like(h[:, :1])
-    hm = torch.cat([z, h[:, :-1]], dim=1)
-    hp = torch.cat([h[:, 1:], z], dim=1)
+def _conv3(h, w, b, cdt, seq=None):
+    if seq is None:
+        z = torch.zeros_like(h[:, :1])
+        hm = torch.cat([z, h[:, :-1]], dim=1)
+        hp = torch.cat([h[:, 1:], z], dim=1)
+    else:
+        ext, _, _ = seq.halo(h, zeros=True)
+        hm, hp = ext[:, :-2], ext[:, 2:]
     out = mm(hm, w[0], cdt) + mm(h, w[1], cdt) + mm(hp, w[2], cdt)
     return out + b.float()
 
@@ -69,19 +87,19 @@ def _conv3(h, w, b, cdt):
 def fused_resnet_block_plain(x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale,
                              gn2_bias, w2, b2, w_short=None, b_short=None, *,
                              groups: int = 32, eps: float = 1e-5,
-                             compute_dtype=torch.bfloat16):
+                             compute_dtype=torch.bfloat16, seq=None):
     """Plain PyTorch version of K1, same signature as the kernel route."""
     cdt = compute_dtype
     xf = x.float()
     co = w1.shape[-1]
     film = film.float()
-    h = _group_norm(xf, gn1_scale, gn1_bias, groups, eps)
+    h = _group_norm(xf, gn1_scale, gn1_bias, groups, eps, seq)
     h = h * torch.sigmoid(h)
-    h = _conv3(h, w1, b1, cdt)
-    h = _group_norm(h, gn2_scale, gn2_bias, groups, eps)
+    h = _conv3(h, w1, b1, cdt, seq)
+    h = _group_norm(h, gn2_scale, gn2_bias, groups, eps, seq)
     h = h * (1.0 + film[:, None, :co]) + film[:, None, co:]
     h = h * torch.sigmoid(h)
-    h = _conv3(h, w2, b2, cdt)
+    h = _conv3(h, w2, b2, cdt, seq)
     if w_short is not None:
         sc = mm(xf, w_short, cdt) + b_short.float()
     else:
@@ -129,10 +147,11 @@ def _check_vecs(named, n: int, cdt, device) -> None:
 def fused_resnet_block(x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale,
                        gn2_bias, w2, b2, w_short=None, b_short=None, *,
                        groups: int = 32, eps: float = 1e-5,
-                       compute_dtype=torch.bfloat16):
+                       compute_dtype=torch.bfloat16, seq=None):
     """Whole scale_shift ResnetBlock. x: [B, T, Ci]; film: [B, 2*Co]
     (silu + Dense of temb, computed outside); w1: [3, Ci, Co]; w2:
-    [3, Co, Co]; w_short: [Ci, Co] or None (identity).
+    [3, Co, Co]; w_short: [Ci, Co] or None (identity). ``seq``: the
+    sequence-parallel level x's frames are of (module docstring).
 
     CUDA route: x float32 or bfloat16, contiguous; weights in
     ``compute_dtype``, as they are or as views of the modules' parameters
@@ -145,11 +164,11 @@ def fused_resnet_block(x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale,
         return fused_resnet_block_plain(
             x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2, b2,
             w_short, b_short, groups=groups, eps=eps,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, seq=seq)
     if x.device.type != "cuda":
         raise ValueError(f"fused_resnet_block runs on cpu or cuda, not "
                          f"{x.device}")
-    kw = dict(groups=groups, eps=eps, compute_dtype=compute_dtype)
+    kw = dict(groups=groups, eps=eps, compute_dtype=compute_dtype, seq=seq)
     return run_kernels(functools.partial(_kernels, **kw),
                        functools.partial(fused_resnet_block_plain, **kw),
                        x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale,
@@ -157,7 +176,7 @@ def fused_resnet_block(x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale,
 
 
 def _kernels(x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2,
-             b2, w_short, b_short, *, groups, eps, compute_dtype):
+             b2, w_short, b_short, *, groups, eps, compute_dtype, seq=None):
     """The kernel route: check every input, then launch."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, T, Ci], got {tuple(x.shape)}")
@@ -189,6 +208,10 @@ def _kernels(x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2,
         raise ValueError("identity shortcut needs Ci == Co")
 
     fused_resnet_block.launches += 1
+    if seq is not None:
+        return _seq_kernels(x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale,
+                            gn2_bias, w2, b2, w_short, b_short, groups, eps,
+                            seq)
     m = b * t
     stats1 = _cuda.norm_stats(x, b, t, ci, groups, eps)
     h1 = torch.empty((b, t, co), device=dev, dtype=f32)
@@ -205,6 +228,36 @@ def _kernels(x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2,
                norm=_cuda.GROUP_NORM, stats=stats2, norm_w=gn2_scale,
                norm_b=gn2_bias, groups=groups, film=film, silu=True, res=res)
     return out
+
+
+def _seq_kernels(x, film, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
+                 w2, b2, w_short, b_short, groups, eps, seq):
+    """The kernel route on this rank's frames (module docstring)."""
+    b, t, ci = x.shape
+    co = w1.shape[-1]
+    dev, f32 = x.device, torch.float32
+    stats1 = seq.merge_stats(*_cuda.norm_stats(x, b, t, ci, groups, 0.0),
+                             ci // groups, eps)
+    xe, lo, _ = seq.halo(x, zeros=False)
+    te = xe.shape[1]
+    h1e = torch.empty((b, te, co), device=dev, dtype=f32)
+    _cuda.gemm(xe, [w1], [h1e], [b1], M=b * te, N=co, T=te, Ci=ci, taps=3,
+               norm=_cuda.GROUP_NORM, stats=stats1, norm_w=gn1_scale,
+               norm_b=gn1_bias, groups=groups, silu=True)
+    h1 = h1e[:, lo:lo + t].contiguous()
+    stats2 = seq.merge_stats(*_cuda.norm_stats(h1, b, t, co, groups, 0.0),
+                             co // groups, eps)
+    h1e, _, _ = seq.halo(h1, zeros=False)
+    res = xe
+    if w_short is not None:
+        res = torch.empty((b, te, co), device=dev, dtype=f32)
+        _cuda.gemm(xe, [w_short], [res], [b_short], M=b * te, N=co, T=te,
+                   Ci=ci)
+    out = torch.empty((b, te, co), device=dev, dtype=x.dtype)
+    _cuda.gemm(h1e, [w2], [out], [b2], M=b * te, N=co, T=te, Ci=co, taps=3,
+               norm=_cuda.GROUP_NORM, stats=stats2, norm_w=gn2_scale,
+               norm_b=gn2_bias, groups=groups, film=film, silu=True, res=res)
+    return out[:, lo:lo + t].contiguous()
 
 
 fused_resnet_block.launches = 0

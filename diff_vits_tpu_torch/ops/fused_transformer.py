@@ -39,6 +39,13 @@ the work, bound them.
 The attention core (csrc/attention.cu) runs QK^T and PV on tensor cores
 in bf16, 16 queries a warp, its keys split over a cluster where the grid
 is small; float32 (the parity route) keeps exact FMA products.
+
+Under sequence parallelism (``seq=``, a ``parallel.activations.SeqLevel``)
+K2's core is the ring of ``parallel.ring_attention`` over the ``seq``
+ranks (K8 blocks on the card, ``sdpa_plain`` ones on the CPU) in place of
+the attention core; its LayerNorm, projections, Wo and residual stay per
+frame. K3 and K4 need nothing: their queries and rows are this rank's
+frames and the context is whole.
 """
 from __future__ import annotations
 
@@ -87,12 +94,33 @@ def _mha(h_q, src, wq, wk, wv, wo, bo, bias, heads: int, cdt):
     return mm(o, wo, cdt) + bo.float()
 
 
+def _heads(a, heads: int):
+    """[B, T, H*d] -> a [B, H, T, d] view."""
+    b, t, c = a.shape
+    return a.view(b, t, heads, c // heads).transpose(1, 2)
+
+
+def _ring(q, k, v, heads: int, seq):
+    """The ring core on [B, T, H*d] q, k, v: [B, T, H*d] out."""
+    from diff_vits_tpu_torch.parallel.ring_attention import ring_attention
+    b, t, c = q.shape
+    o = ring_attention(_heads(q, heads), _heads(k, heads), _heads(v, heads),
+                       None, group=seq.group, sizes=seq.sizes)
+    return o.transpose(1, 2).reshape(b, t, c)
+
+
 def fused_self_attention_plain(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *,
-                               heads: int, compute_dtype=torch.bfloat16):
+                               heads: int, compute_dtype=torch.bfloat16,
+                               seq=None):
     """Plain PyTorch version of K2."""
     xf = x.float()
     h = _layer_norm(xf, ln_scale, ln_bias)
-    o = _mha(h, h, wq, wk, wv, wo, bo, None, heads, compute_dtype)
+    if seq is None:
+        o = _mha(h, h, wq, wk, wv, wo, bo, None, heads, compute_dtype)
+    else:
+        cdt = compute_dtype
+        q, k, v = (mm(h, w, cdt).to(cdt).float() for w in (wq, wk, wv))
+        o = mm(_ring(q, k, v, heads, seq), wo, cdt) + bo.float()
     return (xf + o).to(x.dtype)
 
 
@@ -155,23 +183,24 @@ def _check_attn(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads, cdt,
 
 
 def fused_self_attention(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *,
-                         heads: int, compute_dtype=torch.bfloat16):
+                         heads: int, compute_dtype=torch.bfloat16, seq=None):
     """x + AttnOut(SDPA(LN(x))). x: [B, T, C]; wq/wk/wv/wo: [C, C] in
     ``compute_dtype``, any strides (``linear.weight.t()`` of an
     ``nn.Linear``), wq/wk/wv the same ones; ln_*, bo float32 or ``compute_dtype``.
-    CUDA route: x and the vectors contiguous."""
+    CUDA route: x and the vectors contiguous. ``seq``: the
+    sequence-parallel level x's frames are of (module docstring)."""
     if not _route(x, "fused_self_attention"):
         return fused_self_attention_plain(
             x, ln_scale, ln_bias, wq, wk, wv, wo, bo, heads=heads,
-            compute_dtype=compute_dtype)
-    kw = dict(heads=heads, compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, seq=seq)
+    kw = dict(heads=heads, compute_dtype=compute_dtype, seq=seq)
     return run_kernels(functools.partial(_self_attention_kernels, **kw),
                        functools.partial(fused_self_attention_plain, **kw),
                        x, ln_scale, ln_bias, wq, wk, wv, wo, bo)
 
 
 def _self_attention_kernels(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *,
-                            heads, compute_dtype):
+                            heads, compute_dtype, seq=None):
     """The kernel route: check every input, then launch."""
     _check_x(x, "fused_self_attention")
     b, t, c = x.shape
@@ -185,7 +214,10 @@ def _self_attention_kernels(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *,
     _cuda.gemm(x, [wq, wk, wv], [q, k, v], [None] * 3, M=m, N=c, T=t, Ci=c,
                norm=_cuda.LAYER_NORM, stats=stats, norm_w=ln_scale,
                norm_b=ln_bias)
-    o = _cuda.attention(q, k, v, None, heads)
+    if seq is None:
+        o = _cuda.attention(q, k, v, None, heads)
+    else:
+        o = _ring(q, k, v, heads, seq)
     out = torch.empty_like(x)
     _cuda.gemm(o, [wo], [out], [bo], M=m, N=c, T=t, Ci=c, res=x)
     return out

@@ -14,7 +14,12 @@ checks live here and not in the tests:
   state sharded as ``parallel.sharding`` says) and returns the whole
   parameters after it; :func:`serve` runs ``BatchSynthesizer(dp=True)``;
   :func:`train_cli` the training command line; :func:`checkpoint_cycle`
-  loads, steps, saves, exports and resumes a (sharded) ``Trainer``.
+  loads, steps, saves, exports and resumes a (sharded) ``Trainer``;
+  :func:`crash_cycle` makes a sharded step raise on one rank and returns
+  what the crash checkpoint holds; :func:`seq_unet` runs a UNet forward
+  and backward inside a sequence-parallel scope; :func:`ring` and
+  :func:`pipeline` run ``parallel.ring_attention`` and
+  ``parallel.pipeline`` with their gradients.
   On one process (no process group) they are the single-process step and
   serving run the ranks are held to. :func:`calls` runs several such
   calls in one set of ranks.
@@ -144,14 +149,16 @@ def shard_info(tr) -> Dict[str, Any]:
 def train_step(cfg, micro: Sequence, device: str = "cpu",
                inject: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]]
                = None, min_size: int = 1 << 16, info: bool = False,
-               trainer: Optional[Callable] = None):
+               trainer: Optional[Callable] = None, fsdp_axis: str = "fsdp",
+               seq_parallel: bool = False):
     """One ``Trainer(cfg)`` step on this rank's rows of the global
     micro-batches ``micro`` (``train.gradient_accumulate_every`` of them);
     returns (the whole parameters after it by name as float32 arrays,
     gathered from every rank's shards; the metrics averaged over the data
     ranks), and with ``info`` also :func:`shard_info`. ``min_size`` is the
     sharding rules' threshold; ``trainer`` is called with the ``Trainer``
-    before the step (to hook it).
+    before the step (to hook it); ``fsdp_axis`` and ``seq_parallel`` are
+    the ``Trainer``'s ZeRO-3 axis and ``sequence_parallel``.
 
     The draws are the single process's: every rank's generator restarts
     from ``train.seed`` (data rank 0's), and each draw of the global
@@ -164,7 +171,8 @@ def train_step(cfg, micro: Sequence, device: str = "cpu",
     from diff_vits_tpu_torch.nn.unet1d import set_use_fused
     from diff_vits_tpu_torch.parallel import mesh
     from diff_vits_tpu_torch.train.trainer import Trainer
-    tr = Trainer(cfg, [], device=device, min_size=min_size)
+    tr = Trainer(cfg, [], device=device, min_size=min_size,
+                 fsdp_axis=fsdp_axis, sequence_parallel=seq_parallel)
     if trainer is not None:
         trainer(tr)
     rows_ = mesh.rows(cfg.train.train_batch_size, tr.data_rank,
@@ -309,3 +317,123 @@ def serve(cfg, state_dict, requests, device: str = "cpu", **kw):
     from diff_vits_tpu_torch.infer.serve import BatchSynthesizer
     syn = BatchSynthesizer(cfg, state_dict, device=device, dp=True, **kw)
     return syn.synthesize_all(requests, seed=0)
+
+
+def crash_cycle(cfg, batches: Sequence, workdir: str, fail_rank: int,
+                device: str = "cpu", min_size: int = 1 << 16
+                ) -> Dict[str, Any]:
+    """A sharded ``Trainer(cfg)`` on this rank: one step on ``batches[0]``
+    (``before``: the whole state after it, as :func:`_numpy_state`), then
+    ``train`` on ``batches[1]``, whose step raises on rank ``fail_rank``
+    before its first collective; the other ranks fail in theirs once that
+    rank has gone. ``error``: the exception ``train`` raised on this rank
+    (``repr``); ``crash``: the crash checkpoint's path the rank wrote."""
+    from diff_vits_tpu_torch.parallel import mesh
+    from diff_vits_tpu_torch.train.trainer import Trainer
+    tr = Trainer(cfg, [], device=device, workdir=workdir, min_size=min_size)
+    rows_ = mesh.rows(cfg.train.train_batch_size, tr.data_rank,
+                      tr.data_ranks)
+    tr.train_step(batch_rows(batches[0], rows_))
+    before = _numpy_state(tr.whole_state())
+    tr.batches = [batch_rows(batches[1], rows_)]
+    written: List[str] = []
+    step_on, save = tr.step_on, tr.save
+
+    def failing(micro):
+        if tr.rank == fail_rank:
+            raise RuntimeError(f"injected failure on rank {tr.rank}")
+        return step_on(micro)
+
+    def recorded(step, sync=True):
+        path = save(step, sync)
+        written.append(path)
+        return path
+    tr.step_on, tr.save = failing, recorded
+    try:
+        tr.train(num_steps=2, prefetch=False)
+        error = None
+    except Exception as e:  # the test reads what each rank raised
+        error = repr(e)
+    return dict(before=before, error=error, crash=written, step=tr.step)
+
+
+def seq_unet(state_dict, kwargs, inputs, weights: np.ndarray,
+             train: bool, mesh_axes: Sequence[str] = ("seq",),
+             mesh_shape: Optional[Sequence[int]] = None,
+             device: str = "cpu") -> Dict[str, np.ndarray]:
+    """``UNet1DConditionModel(**kwargs)`` with ``state_dict`` in train or
+    eval mode, on ``inputs`` (sample, timestep, context, context keep
+    mask) inside ``activations.sequence_parallel`` of the mesh
+    (``mesh_axes``; one process: no scope): ``out`` the whole output
+    (every rank's frames gathered), and the gradients of
+    sum(out * ``weights``) for the parameters (``grads``, summed over the
+    ``seq`` ranks: each holds its frames' share) and the sample
+    (``dx``)."""
+    from diff_vits_tpu_torch.nn.unet1d import UNet1DConditionModel
+    from diff_vits_tpu_torch.parallel import activations, mesh, sharding
+    model = UNet1DConditionModel(device=device, **kwargs)
+    model.load_state_dict(state_dict)
+    model.train(train)
+    x, t, ctx, keep = (torch.as_tensor(np.asarray(a)).to(device)
+                       for a in inputs)
+    x.requires_grad_(True)
+    layout = None
+    if mesh.distributed():
+        layout = sharding.Layout(
+            mesh.make_mesh(mesh_shape, mesh_axes), mesh.rank())
+    with activations.sequence_parallel(layout):
+        y = model(x, t, ctx, keep)
+        levels = len(model.block_out_channels)
+        seq = activations.shard(x.shape[1], levels)
+        w = activations.constrain_seq(torch.as_tensor(weights).to(device),
+                                      align=2 ** (levels - 1))
+        (y * w).sum().backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    dx = x.grad
+    if seq is not None:
+        y = seq.gather(y)
+        grads = {n: seq.all_reduce(g) for n, g in grads.items()}
+        dx = seq.all_reduce(dx)
+    return dict(out=_array(y), dx=_array(dx),
+                grads={n: _array(g) for n, g in grads.items()})
+
+
+def ring(q, k, v, keep, axis: str = "seq") -> Dict[str, Any]:
+    """``make_ring_attention`` over every rank (a mesh of one ``axis``)
+    on the whole q, k, v [B, H, T, d] and keep mask: the output and the
+    gradients of sum(out^2) for q, k and v."""
+    from diff_vits_tpu_torch.parallel import mesh
+    from diff_vits_tpu_torch.parallel.ring_attention import (
+        make_ring_attention)
+    q, k, v = (torch.as_tensor(np.asarray(a)).requires_grad_(True)
+               for a in (q, k, v))
+    fn = make_ring_attention(mesh.make_mesh(None, (axis,)), axis)
+    out = fn(q, k, v, None if keep is None else torch.as_tensor(keep))
+    (out ** 2).sum().backward()
+    return dict(out=_array(out), grads=[_array(a.grad) for a in (q, k, v)])
+
+
+def tanh_layer(p, x):
+    """The layer of JAX's pipeline tests: tanh(x @ w + b)."""
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def pipeline(params, x, n_micro: int, layer: Callable = tanh_layer
+             ) -> Dict[str, Any]:
+    """``make_pipeline(layer, ...)`` over every rank (a ``stage`` mesh)
+    on the whole stacked ``params`` and ``x``: the output and the
+    gradients of sum(out^2) for every parameter and for x; or the
+    ValueError's message it raised."""
+    from diff_vits_tpu_torch.parallel import mesh
+    from diff_vits_tpu_torch.parallel.pipeline import make_pipeline
+    p = {k: torch.as_tensor(np.asarray(v)).requires_grad_(True)
+         for k, v in params.items()}
+    x = torch.as_tensor(np.asarray(x)).requires_grad_(True)
+    fn = make_pipeline(layer, mesh.make_mesh(None, ("stage",)), n_micro)
+    try:
+        out = fn(p, x)
+    except ValueError as e:
+        return dict(error=str(e))
+    (out ** 2).sum().backward()
+    return dict(out=_array(out), dx=_array(x.grad),
+                grads={k: _array(v.grad) for k, v in p.items()})

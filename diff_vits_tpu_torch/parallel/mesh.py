@@ -15,8 +15,11 @@ are explicit (``parallel/sharding.py``):
   r sits at ``np.unravel_index(r, shape)``, as ``create_device_mesh``
   lays out a host's devices. Rows of a global batch go over
   :data:`DATA_AXES` (``data``, and ``fsdp``, ZeRO-3's data-parallel
-  axis); ranks that differ only on ``model``, ``expert`` or ``seq`` take
-  the same rows (:func:`data_index`);
+  axis); ranks that differ only on ``model``, ``expert``, ``seq`` or
+  ``stage`` take the same rows (:func:`data_index`). ``seq`` shards the
+  diffusion UNet's frames inside a ``parallel.activations`` scope (else
+  its ranks are replicas); ``stage`` is ``parallel.pipeline``'s, which
+  ``Trainer`` refuses, as JAX's does;
 * :func:`state_sharding_rules` (and ``parallel/moe.py``'s
   ``expert_sharding_rules``) are JAX's rules as pure functions over flax
   paths and flax-layout shapes (``utils.convert.flax_leaves`` gives them
@@ -48,7 +51,7 @@ import torch
 import torch.distributed as dist
 from torch.overrides import TorchFunctionMode
 
-AXES = ("data", "fsdp", "model", "expert", "seq")
+AXES = ("data", "fsdp", "model", "expert", "seq", "stage")
 DATA_AXES = ("data", "fsdp")
 Spec = Tuple[Optional[str], ...]
 

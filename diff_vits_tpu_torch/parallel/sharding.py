@@ -63,12 +63,14 @@ _GATHER_ORDER = ("fsdp", "seq", "model", "expert", "data")
 class Group:
     """The ranks that differ from this one on the axes ``axes`` only:
     ``size`` of them, this rank at ``index``; ``handle`` is the process
-    group (None for a group of one, whose collectives are the identity)."""
+    group (None for a group of one, whose collectives are the identity);
+    ``members`` their global ranks in the group's order."""
 
     def __init__(self, axes: Tuple[str, ...], handle, size: int,
-                 index: int):
+                 index: int, members: Sequence[int] = ()):
         self.axes, self.handle, self.size, self.index = (axes, handle, size,
                                                          index)
+        self.members = list(members)
 
     def _host(self) -> bool:
         return dist.get_backend(self.handle) == "gloo"
@@ -101,6 +103,31 @@ class Group:
         out = torch.empty_like(t[0])
         dist.reduce_scatter_tensor(out, t.contiguous(), group=self.handle)
         return out
+
+    def shift_many(self, tensors: Sequence[torch.Tensor],
+                   likes: Optional[Sequence[torch.Tensor]] = None,
+                   step: int = 1) -> List[torch.Tensor]:
+        """One hop round the ring of the group: sends ``tensors`` to the
+        rank ``step`` places on (``index + step``) and returns what the rank
+        ``step`` places back sent, each shaped and typed like the matching
+        one of ``likes`` (default ``tensors``; meta tensors will do), on
+        its tensor's device (no gradient). Under gloo through the host."""
+        likes = tensors if likes is None else likes
+        if self.size == 1:
+            return [t.detach().clone() for t in tensors]
+        where = ("cpu" if self._host() else tensors[0].device)
+        dst = self.members[(self.index + step) % self.size]
+        src = self.members[(self.index - step) % self.size]
+        ops, got = [], []
+        for t, like in zip(tensors, likes):
+            send = t.detach().to(where).contiguous()
+            recv = torch.empty(like.shape, dtype=like.dtype, device=where)
+            ops += [dist.P2POp(dist.isend, send, dst, self.handle),
+                    dist.P2POp(dist.irecv, recv, src, self.handle)]
+            got.append(recv)
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return [r.to(t.device) for r, t in zip(got, tensors)]
 
     # Megatron's operators, for the modules
     def enter(self, x: torch.Tensor) -> torch.Tensor:
@@ -165,8 +192,8 @@ class Layout:
         for a in axes:
             index = index * self.mesh[a] + self.coords[a]
         if size == 1 or not dist.is_initialized():
-            return Group(axes, None, 1, 0)
-        handle = None
+            return Group(axes, None, 1, 0, [self.rank])
+        handle, mine = None, []
         world = math.prod(self.mesh.values())
         fixed = [a for a in self.mesh if a not in axes]
         seen = set()
@@ -181,13 +208,13 @@ class Layout:
                               for a in fixed)]
             g = dist.new_group(members)
             if key == tuple(self.coords[a] for a in fixed):
-                handle = g
-        return Group(axes, handle, size, index)
+                handle, mine = g, members
+        return Group(axes, handle, size, index, mine)
 
     def group(self, kind: str) -> Group:
         """The group of ``kind`` (an axis, "dp" or "shard"); a group of one
         for an axis the mesh does not have."""
-        return self.groups.get(kind) or Group((), None, 1, 0)
+        return self.groups.get(kind) or Group((), None, 1, 0, [self.rank])
 
 
 @dataclasses.dataclass
@@ -255,15 +282,21 @@ class Plan:
     parts); ``sites`` lists the modules that run on their shards."""
 
     def __init__(self, model: nn.Module, layout: Layout,
-                 min_size: int = 1 << 16):
+                 min_size: int = 1 << 16, fsdp_axis: str = "fsdp",
+                 seq_parallel: bool = False):
         from diff_vits_tpu_torch.utils.convert import flax_leaves
         self.layout = layout
+        # the ``seq`` ranks compute other frames of the diffusion UNet
+        # (``parallel.activations``): their gradients are then parts of one
+        # sum, summed over ``seq``, and not copies
+        self.seq_parallel = seq_parallel
         mesh = layout.mesh
         params = dict(model.named_parameters())
         walk = flax_leaves(model)
         shapes = {path: tuple(params[n].shape[d] for d in dims)
                   for n, (path, dims) in walk.items()}
-        specs = mesh_lib.state_sharding_rules(mesh, shapes, min_size)
+        specs = mesh_lib.state_sharding_rules(mesh, shapes, min_size,
+                                              fsdp_axis)
         self.leaves: Dict[str, Leaf] = {}
         for n, (path, dims) in walk.items():
             split = {a: dims[i] for i, a in enumerate(specs[path]) if a}
@@ -387,8 +420,10 @@ class Plan:
                      working: Mapping[str, torch.Tensor]) -> None:
         """Every parameter's gradient as one process would have it for the
         rank's shard: the gathered leaves' gradients cut back to their
-        shards (summed over ``fsdp``, sliced over ``model`` / ``expert``),
-        the cut column biases' summed over ``model``, then every gradient
+        shards (summed over ``fsdp``, and over ``seq`` under sequence
+        parallelism; sliced over ``model`` / ``expert``), every other
+        gradient summed over ``seq`` under sequence parallelism, the cut
+        column biases' summed over ``model``, then every gradient
         averaged over the data ranks that hold the same shard. A parameter
         no data rank used keeps no gradient. Every rank must call it."""
         lay = self.layout
@@ -404,29 +439,47 @@ class Plan:
         g = {n: (grads[n] if grads[n] is not None
                  else torch.zeros_like(working.get(n, params[n])))
              for n in live}
-        # model / expert / seq: those ranks hold the same gradient
+        # the axes whose ranks hold other parts of one sum: fsdp (other
+        # rows) and, under sequence parallelism, seq (other frames); a
+        # split leaf's gradient is reduce-scattered over them and merely
+        # sliced over the others (model, expert, and seq otherwise: those
+        # ranks hold the same gradient)
+        summed = ("fsdp", "seq") if self.seq_parallel else ("fsdp",)
         for n in live:
             leaf = self.leaves.get(n)
             if leaf is None or n not in working:
                 continue
             for a in reversed(leaf.gathered()):
-                if a not in mesh_lib.DATA_AXES:
+                if a not in mesh_lib.DATA_AXES and a not in summed:
                     g[n] = block(g[n], leaf.dims[a], lay.coords[a],
                                  lay.mesh[a], leaf.split(a))
-        # fsdp: the ranks took other rows: a reduce-scatter
-        fsdp = lay.group("fsdp")
-        rs = [n for n in live if n in working
-              and "fsdp" in self.leaves[n].gathered()]
-        if fsdp.size > 1 and rs:
-            rows = [torch.cat([block(g[n], self.leaves[n].dims["fsdp"], i,
-                                     fsdp.size).reshape(-1) for n in rs])
-                    for i in range(fsdp.size)]
-            mine = fsdp.reduce_scatter(torch.stack(rows))
+        for a in summed:
+            group = lay.group(a)
+            rs = [n for n in live if n in working
+                  and a in self.leaves[n].gathered()]
+            if group.size == 1 or not rs:
+                continue
+            rows = [torch.cat([block(g[n], self.leaves[n].dims[a], i,
+                                     group.size).reshape(-1) for n in rs])
+                    for i in range(group.size)]
+            mine = group.reduce_scatter(torch.stack(rows))
             off = 0
             for n in rs:
                 shape = params[n].shape
                 k = math.prod(shape)
                 g[n] = mine[off:off + k].view(shape)
+                off += k
+        # under sequence parallelism every other gradient is summed over seq
+        seq = lay.group("seq")
+        if self.seq_parallel and seq.size > 1:
+            rest = [n for n in live if not (n in self.leaves
+                                            and "seq" in self.leaves[n].dims)]
+            flat = seq.all_reduce(torch.cat([g[n].reshape(-1).float()
+                                             for n in rest]))
+            off = 0
+            for n in rest:
+                k = g[n].numel()
+                g[n] = flat[off:off + k].view_as(g[n]).to(g[n].dtype)
                 off += k
         # a cut column bias: each model rank has its part's gradient
         cut = [n for n in live if n in self.biases]
@@ -493,11 +546,14 @@ def swap(model: nn.Module, values: Mapping[int, torch.Tensor]
 
 
 def shard_model(model: nn.Module, layout: Layout,
-                min_size: int = 1 << 16) -> Plan:
-    """The :class:`Plan` of ``model`` over ``layout``, and each split
-    parameter of ``model`` replaced by a parameter holding this rank's
-    shard of its value (every rank must hold the same whole weights)."""
-    plan = Plan(model, layout, min_size)
+                min_size: int = 1 << 16, fsdp_axis: str = "fsdp",
+                seq_parallel: bool = False) -> Plan:
+    """The :class:`Plan` of ``model`` over ``layout`` (ZeRO-3 over
+    ``fsdp_axis``; ``seq_parallel``: the step shards the diffusion UNet's
+    frames over ``seq``), and each split parameter of ``model`` replaced
+    by a parameter holding this rank's shard of its value (every rank must
+    hold the same whole weights)."""
+    plan = Plan(model, layout, min_size, fsdp_axis, seq_parallel)
     if not plan.active:
         return plan
     params = dict(model.named_parameters())

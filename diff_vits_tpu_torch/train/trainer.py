@@ -37,6 +37,13 @@ batch:
   parallel); the ranks that differ only on ``model``, ``expert`` or
   ``seq`` take the same rows. A data rank takes ``train_batch_size /
   data ranks`` rows (the loaders' ``host_id`` / ``num_hosts`` shard);
+* with ``sequence_parallel`` (JAX's ``Trainer`` never asks for it; its
+  callers do, as ``__graft_entry__.py:231`` does) each step runs inside
+  ``parallel.activations.sequence_parallel``: the ``seq`` ranks run the
+  diffusion UNet on their frames and everything else whole, the loss is
+  split as ``DiffVits.forward`` says and every gradient is summed over
+  ``seq``; ``fsdp_axis="seq"`` makes ``seq`` ZeRO-3's axis as well. A
+  ``stage`` axis is refused, as JAX's ``Trainer`` refuses it;
 * the two loss terms that divide by a sum over the whole batch (l_length
   and the KL terms) divide by that sum's mean over the data ranks, and the
   MAS noise is scaled by the global batch's std (``rank_mean``);
@@ -58,8 +65,10 @@ batch:
   waiting at a barrier; ``load`` and ``resume_latest`` read the whole
   state on every rank and keep the rank's shards; a SIGTERM seen by any
   rank stops every rank at the same step (the stop flag is all-reduced
-  each step). A step that raises under sharding leaves no checkpoint: the
-  gather needs every rank, and the others may not have failed.
+  each step). A step that raises under sharding cannot gather (the others
+  may not have failed), so each rank writes its own shards and their
+  layout without a collective (``model-<step>.shards/``); ``load`` and
+  ``resume_latest`` reassemble them into the whole state.
 
 Checkpoints: ``save`` writes the port's own format; ``save_flax`` the JAX
 package's trainer state (``params``, optax's ``opt_state``,
@@ -126,6 +135,7 @@ from diff_vits_tpu_torch.models.diff_vits import (
     DiffVits, eval_mode, synthesize)
 from diff_vits_tpu_torch.nn.remat import check_policy, set_remat
 from diff_vits_tpu_torch.nn.unet1d import set_use_flash
+from diff_vits_tpu_torch.parallel import activations
 from diff_vits_tpu_torch.parallel import mesh as mesh_lib
 from diff_vits_tpu_torch.parallel import sharding
 from diff_vits_tpu_torch.text.symbols import symbols
@@ -255,14 +265,24 @@ class Trainer:
     optimizer step, ``train`` the loop; checkpoints, samples and
     tensorboard events go to ``workdir`` (default a new timestamped folder
     under ``train.logs_folder``). ``min_size``: the fewest elements of a
-    leaf that the sharding rules split (JAX's default)."""
+    leaf that the sharding rules split (JAX's default); ``fsdp_axis``:
+    the axis ZeRO-3 scatters over (``seq`` to pair it with sequence
+    parallelism, as JAX's multi-chip dry run does);
+    ``sequence_parallel``: each step shards the diffusion UNet's frames
+    over the ``seq`` ranks (``parallel.activations``; JAX's ``Trainer``
+    never enters that scope, its callers do); a ``seq`` axis without it
+    holds replicas."""
 
     def __init__(self, cfg: Config, batches: Optional[Iterable[Batch]] = None,
                  *, dataset: Optional[TextMelDataset] = None,
                  device: DeviceLike = None, workdir: Optional[str] = None,
-                 min_size: int = 1 << 16):
+                 min_size: int = 1 << 16, fsdp_axis: str = "fsdp",
+                 sequence_parallel: bool = False):
         self.cfg = cfg
         check_policy(cfg.train.remat_policy)
+        if "stage" in cfg.train.mesh_axes:
+            raise ValueError("Trainer takes no 'stage' axis (JAX's neither): "
+                             "the pipeline is parallel.pipeline's")
         self.mesh = mesh_lib.make_mesh(cfg.train.mesh_shape,
                                        cfg.train.mesh_axes)
         self.rank, self.world = mesh_lib.rank(), mesh_lib.world_size()
@@ -284,7 +304,11 @@ class Trainer:
         self.model.train()
         set_use_flash(self.model, self.device.type == "cuda")
         set_remat(self.model, cfg.train.remat_policy)
-        self.plan = sharding.shard_model(self.model, self.layout, min_size)
+        # the step shards the diffusion UNet's frames over seq when asked
+        self.seq_parallel = (sequence_parallel
+                             and self.layout.group("seq").size > 1)
+        self.plan = sharding.shard_model(self.model, self.layout, min_size,
+                                         fsdp_axis, self.seq_parallel)
         self.names = [n for n, _ in self.model.named_parameters()]
         self.params = list(self.model.parameters())
         self.optimizer = make_optimizer(cfg, self.params)
@@ -359,8 +383,10 @@ class Trainer:
         params = dict(zip(self.names, self.params))
         working = self.plan.working(params) if self.plan.active else {}
         sums: Dict[str, torch.Tensor] = {}
+        scope = self.layout if self.seq_parallel else None
         for mb in inputs:
-            with self.plan.bind(self.model, working):
+            with self.plan.bind(self.model, working), \
+                    activations.sequence_parallel(scope):
                 with self._autocast():
                     loss, (metrics, _, _) = self.model(
                         **mb, generator=self.generator,
@@ -790,12 +816,19 @@ class Trainer:
         ``sync``. Under data parallelism with ``sync`` the file also holds
         every rank's generator state (``generators``, gathered here). A
         sharded state is gathered first (:meth:`whole_state`), so the file
-        is one process's; without ``sync`` (no collective) a sharded state
-        writes nothing."""
+        is one process's. Without ``sync`` (a step raised: no collective)
+        a sharded state is written by every rank alone, its own shards and
+        their layout (``checkpoint.save_shard_checkpoint``; the path of
+        this rank's file), which :meth:`load` reassembles."""
         if not sync and self.plan.active:
-            print(f"no checkpoint at step {step}: a sharded state is "
-                  "gathered by every rank", flush=True)
-            return None
+            state = {"model": self.model.state_dict(),
+                     "optimizer": self.optimizer.state_dict(),
+                     "ema": self.ema,
+                     "generator": self.generator.get_state(),
+                     "py_rng": self._py_rng.getstate()}
+            return ckpt_lib.save_shard_checkpoint(
+                self.logs_folder, step, self.rank, self.world, state,
+                self._shard_layout())
         gens = None
         if sync and self.dp:
             gens = mesh_lib.all_gather_rows(
@@ -816,6 +849,16 @@ class Trainer:
         if sync:
             mesh_lib.barrier()
         return path
+
+    def _shard_layout(self) -> Dict[str, object]:
+        """Where this rank's shards lie: the mesh, its coordinates, the
+        parameters in order and each split one's whole shape, split dims
+        and parts."""
+        return dict(mesh=dict(self.mesh), coords=dict(self.layout.coords),
+                    names=list(self.names),
+                    leaves={n: dict(shape=leaf.shape, dims=dict(leaf.dims),
+                                    parts=leaf.parts)
+                            for n, leaf in self.plan.leaves.items()})
 
     def save_flax(self, step: int) -> Optional[str]:
         """Write the trainer state as the JAX package's ``Trainer.save``
@@ -900,7 +943,9 @@ class Trainer:
         starts afresh, the random streams go on as they are and the EMA
         starts from the params; or a trainer state of the JAX package
         (``params``, ``opt_state``, ``ema_params``: :meth:`save_flax`'s
-        layout), whose random streams are not in the file either. Every
+        layout), whose random streams are not in the file either; or the
+        ``.shards`` directory of a sharded run's crash checkpoint, whose
+        ranks' files are reassembled into the whole state first. Every
         rank reads the whole state and keeps its shards."""
         step, state = ckpt_lib.load_checkpoint(path, map_location=self.device)
         if "model" not in state and "params" in state:

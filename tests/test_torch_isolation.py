@@ -49,6 +49,15 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert bad == []
 
 
+def test_walk_covers_the_sequence_parallel_and_pipeline_modules():
+    """The modules of sequence parallelism and the pipeline are in the
+    walk above."""
+    names = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    assert {"diff_vits_tpu_torch/parallel/activations.py",
+            "diff_vits_tpu_torch/parallel/ring_attention.py",
+            "diff_vits_tpu_torch/parallel/pipeline.py"} <= names
+
+
 def test_walk_covers_the_audio_modules():
     """The vocoder and the audio front end are in the walk above."""
     names = {f.relative_to(ROOT).as_posix() for f in _port_files()}

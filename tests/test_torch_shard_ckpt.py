@@ -15,6 +15,13 @@ tiny configuration of ``test_torch_shard_tp.py`` with EMA on.
 * ``resume_latest`` under sharding resumes the same trajectory: a fresh
   sharded ``Trainer`` resumed from the checkpoint takes the next step to
   the parameters of the run that went straight on, bitwise.
+* On two ``model`` ranks (fused q|k|v split part by part), a step that
+  raises on one rank (``parallel.launch.crash_cycle``: rank 1 before its
+  first collective; the other then fails in its own) re-raises
+  on every rank, rank 1's own error unchanged, and each rank leaves its
+  shards in ``model-1.shards``; ``Trainer.load`` (and ``resume_latest``)
+  of that directory reassembles the whole state the ranks held before the
+  step, bit for bit.
 """
 import os
 
@@ -127,3 +134,38 @@ def test_resume_latest_under_sharding_resumes_the_trajectory(cycle):
         moved = [n for n, a in r["straight"].items()
                  if not np.array_equal(a, r["whole"]["model"][n])]
         assert len(moved) > len(r["straight"]) // 2
+
+
+@pytest.fixture(scope="module")
+def crash(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("shard_crash")
+    _, pcfg = configs(AXES, (1, 2))
+    b0, b1 = (tiny_batch(seed=s, text_lengths=TEXT_LENGTHS,
+                         spec_lengths=SPEC_LENGTHS)[0] for s in range(2))
+    ranks = launch.run_ranks(launch.crash_cycle, 2, pcfg, [b0, b1],
+                             str(tmp), 1, "cpu", 0, timeout=120)
+    return dict(tmp=tmp, cfg=pcfg, ranks=ranks)
+
+
+def test_a_failed_sharded_step_reraises_and_writes_every_rank(crash):
+    folder = os.path.join(crash["tmp"], "model-1.shards")
+    for r, got in enumerate(crash["ranks"]):
+        assert got["step"] == 1
+        assert got["crash"] == [os.path.join(folder, f"rank-{r}-of-2.pt")]
+        assert got["error"] is not None
+    assert crash["ranks"][1]["error"] == \
+        "RuntimeError('injected failure on rank 1')"
+    assert sorted(os.listdir(folder)) == [f"rank-{r}-of-2.pt"
+                                          for r in range(2)]
+
+
+@pytest.mark.parametrize("how", ["load", "resume_latest"])
+def test_crash_shards_load_into_the_state_before_the_step(crash, how):
+    one = Trainer(crash["cfg"], [], device="cpu", workdir=str(crash["tmp"]))
+    if how == "load":
+        one.load(os.path.join(crash["tmp"], "model-1.shards"))
+    else:
+        assert one.resume_latest()
+    assert one.step == 1
+    for r in crash["ranks"]:
+        _assert_same_state(_state_arrays(one), r["before"])
