@@ -12,8 +12,8 @@ model's and data parallelism's numbers as ``DIR/kernels.json``,
 ``DIR/path.json``, ``DIR/train.json``, ``DIR/variant.json``,
 ``DIR/train_cli.json``, ``DIR/ckpt_bridge.json``, ``DIR/bv2.json``,
 ``DIR/remat.json``, ``DIR/moe.json``, ``DIR/dp.json``,
-``DIR/shard.json``, ``DIR/seq_parallel.json``, ``DIR/pipeline.json``
-and ``DIR/walls.json``.
+``DIR/shard.json``, ``DIR/seq_parallel.json``, ``DIR/pipeline.json``,
+``DIR/offpath.json`` and ``DIR/walls.json``.
 
 Phases, each of which fails the run:
 
@@ -266,7 +266,24 @@ Phases, each of which fails the run:
    route on, float32), batch 8 of 400 frames in 4 micro-batches, against
    the sequential stack in one process on the same micro-batches (output
    and gradients within ``TOL``) and on the whole batch (output), K8 12
-   forward and 12 backward launches a stage.
+   forward and 12 backward launches a stage;
+25. offpath (the modules off the main path, ``offpath_cases``): every
+   type ``get_down_block`` and ``get_up_block`` build (11 + 11) at a level
+   of model3's diffusion UNet (256 -> 384, 8 GN groups, 8 heads, temb 512,
+   a 267-frame context of 128), ``DualTransformer1D``, the adaptive
+   norms, the general VITS ``MultiHeadAttention`` and the ``Decoder`` at
+   the TextEncoder's widths over 128 tokens, ``OPERATIONS_ENCODER`` 1-15
+   at hidden 256, ``ConvAttentionLayer``, ``ReferenceEncoder`` (100 mels,
+   gin 256), ``SpeakerEncoder`` 2 x 256, LoRA around a 512-wide Linear
+   and Conv1d, the functional SDPA, the resamplers and the sequence
+   helpers, at B=8 and 400 frames: each module in float32 against the
+   same module and weights on the CPU on its first 2 items (TF32 off;
+   max |card - CPU| / max |CPU| <= 1e-4), in bfloat16 finite; the
+   ``DownBlock`` / ``UpBlock`` / ``CrossAttn*Block`` types and
+   ``DualTransformer1D`` through K1-K4, the counters zeroed before and
+   read after each fused forward (one K1 a resnet; one K2, K3, K4 and two
+   cores a transformer block), within ``TOL`` of their plain route in
+   both dtypes; every other module launches no kernel.
 
 Every phase's wall time is printed (``DIR/walls.json`` with ``--out``).
 
@@ -274,8 +291,8 @@ The launch counts in the kernel table are those of each kernel's own path:
 serving for K1-K4 and the attention core, training for K6, the variant's
 serving for K5 and K7,
 training with the flash route on for K8 (forward and backward); the
-ckpt_bridge, bv2, remat, moe, shard, seq_parallel and pipeline phases
-gate their own counts and print them.
+ckpt_bridge, bv2, remat, moe, shard, seq_parallel, pipeline and offpath
+phases gate their own counts and print them.
 The last line of standard output is one JSON object with the device; the
 line before it the kernel table. Exits non-zero, printing no result, when
 there is no CUDA device or the port's package is not beside this script.
@@ -1254,6 +1271,9 @@ def main(argv=None) -> int:
     pp_ok, pipe = pipeline_phase(torch, dev, card)
     phases.update(pp_ok)
     lap("pipeline")
+    op_ok, offpath = offpath_phase(torch, dev, card)
+    phases.update(op_ok)
+    lap("offpath")
     log(f"training the variant, flash off vs on: median step "
         f"{variant_train['off']['step_s'] * 1e3:.1f} vs "
         f"{variant_train['on']['step_s'] * 1e3:.1f} ms, peak "
@@ -1278,7 +1298,8 @@ def main(argv=None) -> int:
         (out_dir / "bv2.json").write_text(json.dumps(bv2, indent=1))
         for name, numbers in (("remat", remat), ("moe", moe), ("dp", dp),
                               ("shard", shard), ("seq_parallel", seq_par),
-                              ("pipeline", pipe), ("walls", walls)):
+                              ("pipeline", pipe), ("offpath", offpath),
+                              ("walls", walls)):
             (out_dir / f"{name}.json").write_text(json.dumps(
                 numbers, indent=1, default=str))
 
@@ -5275,6 +5296,380 @@ def pipeline_phase(torch, dev, card):
         k8=one["k8"], wall_s=one["wall_s"], peak_GB=one["peak_GB"]),
         whole=dict(k8=whole["k8"], gaps=whole_gaps), ranks_wall_s=wall)
 
+
+
+# the offpath phase: the modules off the main path at the shipped widths
+OFFPATH_B, OFFPATH_T = 8, 400       # batch and frames (the mel crop)
+OFFPATH_CPU_ROWS = 2                # items of each batch run on the CPU too
+OFFPATH_GATE = 1e-4                 # float32 card vs CPU, of max |CPU|
+# a level of model3's diffusion UNet (block_out_channels 128, 256, 384,
+# 512): 256 -> 384 (KUpBlock 384 -> 512), 8 GN groups, 8 heads (48 wide
+# at 384), the temb of 4 x 128 and the context of hidden_channels 128 the
+# denoiser hands its blocks, over a 267-frame prompt
+OFFPATH_UNET = dict(c_in=256, c_out=384, c_k_out=512, temb=512, groups=8,
+                    heads=8, head_dim=48, ctx=128, ctx_frames=267)
+# VitsConfig's TextEncoder widths, over 128 tokens
+OFFPATH_TEXT = dict(hidden=256, filter=256, heads=2, layers=6, kernel=3,
+                    tokens=128)
+OFFPATH_ENC_C = 256                 # OPERATIONS_ENCODER's hidden width
+OFFPATH_MELS, OFFPATH_GIN = 100, 256
+OFFPATH_LORA = 512                  # the UNet's widest Linear / Conv1d
+
+
+class _Fp32:
+    """An argument that stays float32 in the bfloat16 run (the additive
+    key biases, which the UNet hands its blocks in float32)."""
+
+    def __init__(self, t):
+        self.t = t
+
+
+def _fresh(args):
+    """The arguments to call with: every list copied (up blocks pop their
+    skips), ``_Fp32`` unwrapped."""
+    return [list(a) if isinstance(a, list) else
+            a.t if isinstance(a, _Fp32) else a for a in args]
+
+
+def _map_args(args, fn):
+    """``fn(tensor, keep_fp32)`` applied to every tensor argument."""
+    out = []
+    for a in args:
+        if isinstance(a, list):
+            out.append([fn(x, False) for x in a])
+        elif isinstance(a, _Fp32):
+            out.append(_Fp32(fn(a.t, True)))
+        elif hasattr(a, "is_floating_point"):
+            out.append(fn(a, False))
+        else:
+            out.append(a)
+    return out
+
+
+def _leaves(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _leaves(o)]
+    return [] if out is None or isinstance(out, float) else [out]
+
+
+def _out_err(got, ref, rows=None):
+    """Largest max |got - ref| / max |ref| over the output's tensors (the
+    first ``rows`` items of ``got``)."""
+    errs = []
+    for g, r in zip(_leaves(got), _leaves(ref)):
+        g = g if rows is None else g[:rows]
+        errs.append(_rel_err(g.cpu(), r.cpu())[1])
+    return max(errs)
+
+
+def _want_kernels(module):
+    """K1-K4 and core launches of one fused forward of ``module``: one K1
+    a ``ResnetBlock1D``, one K2, K3 and K4 and two cores a
+    ``BasicTransformerBlock``."""
+    from diff_vits_tpu_torch.nn.unet1d import (
+        BasicTransformerBlock, ResnetBlock1D)
+    res = sum(isinstance(m, ResnetBlock1D) for m in module.modules())
+    blocks = sum(isinstance(m, BasicTransformerBlock)
+                 for m in module.modules())
+    return dict(fused_resnet_block=res, fused_self_attention=blocks,
+                fused_cross_attention=blocks, fused_geglu_ff=blocks,
+                attention=2 * blocks)
+
+
+def _offpath_module(torch, dev, name, module, args, routed):
+    """One module (built on the CPU from a seed) on the card: float32
+    against the CPU on the first items; with ``routed`` (K1-K4 inside)
+    the kernel route's launches counted and held against the plain route
+    on the card (``TOL``), else no kernel launch at all; then bfloat16:
+    finite, and for ``routed`` the same launches and ``TOL`` against its
+    plain route. Returns (ok, row)."""
+    import copy
+    from diff_vits_tpu_torch import ops
+    from diff_vits_tpu_torch.nn.unet1d import set_use_fused
+    n = OFFPATH_CPU_ROWS
+    cpu = module.eval()
+    want = _want_kernels(cpu) if routed else {}
+    row = dict(name=name, routed=routed)
+    ok = True
+    with torch.no_grad():
+        ref = cpu(*_fresh(_map_args(args, lambda a, _: a[:n])))
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            gpu = copy.deepcopy(cpu).to(dev, dt)
+            g_args = _map_args(args, lambda a, fp32: a.to(
+                dev, torch.float32 if fp32 else
+                dt if a.is_floating_point() else a.dtype))
+            set_use_fused(gpu, True)
+            gpu(*_fresh(g_args))                 # warm (cuDNN plans)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            out = gpu(*_fresh(g_args))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            finite = all(bool(torch.isfinite(t.float()).all())
+                         for t in _leaves(out))
+            r = dict(ms=ms, launches=counts, finite=finite)
+            good = finite and counts == {k: v for k, v in want.items() if v}
+            if routed:
+                set_use_fused(gpu, False)
+                plain = gpu(*_fresh(g_args))
+                r["kernel_vs_plain"] = _out_err(out, plain)
+                good &= r["kernel_vs_plain"] <= TOL[dname]
+                if dname == "float32":
+                    r["card_vs_cpu"] = _out_err(plain, ref, n)
+            elif dname == "float32":
+                r["card_vs_cpu"] = _out_err(out, ref, n)
+            if "card_vs_cpu" in r:
+                good &= r["card_vs_cpu"] <= OFFPATH_GATE
+            r["ok"] = good
+            ok &= good
+            row[dname] = r
+            del gpu
+    f32, b16 = row["float32"], row["bfloat16"]
+    extra = (f", kernel vs plain {f32['kernel_vs_plain']:.2e} / "
+             f"{b16['kernel_vs_plain']:.2e} (gates {TOL['float32']:g} / "
+             f"{TOL['bfloat16']:g}), launches {f32['launches']} / "
+             f"{b16['launches']} (want {want})" if routed else
+             f", launches {f32['launches'] or 0} / {b16['launches'] or 0}")
+    log(f"offpath {name}: fp32 card vs CPU {f32['card_vs_cpu']:.2e} "
+        f"(gate {OFFPATH_GATE:g}){extra}; bf16 finite {b16['finite']}; "
+        f"{f32['ms']:.2f} / {b16['ms']:.2f} ms fp32 / bf16; "
+        f"{'ok' if ok else 'FAILED'}")
+    return ok, row
+
+
+def offpath_cases(torch, b=OFFPATH_B, t=OFFPATH_T, unet=None, text=None,
+                  enc_c=OFFPATH_ENC_C, mels=OFFPATH_MELS, gin=OFFPATH_GIN,
+                  lora=OFFPATH_LORA):
+    """(name, module, args, routed) of every module the offpath phase
+    runs, built on the CPU from seeds: the 22 factory block types, the
+    ``DualTransformer1D``, the general ``MultiHeadAttention``, the
+    ``Decoder``, ``OPERATIONS_ENCODER`` 1-15, both speaker encoders, LoRA
+    and the norms and functions around them."""
+    from torch import nn
+    from diff_vits_tpu_torch.core import masking
+    from diff_vits_tpu_torch.models.encoders import (
+        ReferenceEncoder, SpeakerEncoder)
+    from diff_vits_tpu_torch.nn import fairseq, layers, lora as L
+    from diff_vits_tpu_torch.nn import unet1d as U
+    from diff_vits_tpu_torch.nn import unet1d_blocks as Z
+    from diff_vits_tpu_torch.nn.embeddings import GaussianFourierProjection
+    from diff_vits_tpu_torch.ops import attention as A
+    u = dict(OFFPATH_UNET, **(unet or {}))
+    tx = dict(OFFPATH_TEXT, **(text or {}))
+    gen = torch.Generator().manual_seed(17)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    def keep(n, lengths):
+        return (torch.arange(n)[None] < torch.tensor(lengths)[:, None]
+                ).float()
+
+    ragged = [t - 37 * i for i in range(b)]          # t .. t - 259
+    ctx_len = [u["ctx_frames"] - 23 * i for i in range(b)]
+    x_in, x_out = r(b, t, u["c_in"]), r(b, t, u["c_out"])
+    temb = r(b, u["temb"])
+    ctx = r(b, u["ctx_frames"], u["ctx"])
+    ctx_bias = _Fp32(((1 - keep(u["ctx_frames"], ctx_len)) * -10000.0
+                      )[:, None])
+    skip_img = r(b, t, 3)
+    fac = dict(resnet_groups=u["groups"], cross_attention_dim=u["ctx"],
+               num_attention_heads=u["heads"],
+               attention_head_dim=u["head_dim"])
+    cases = []
+    for typ in ("DownBlock2D", "ResnetDownsampleBlock2D", "AttnDownBlock2D",
+                "CrossAttnDownBlock2D", "SimpleCrossAttnDownBlock2D",
+                "SkipDownBlock2D", "AttnSkipDownBlock2D",
+                "DownEncoderBlock2D", "AttnDownEncoderBlock2D",
+                "KDownBlock2D", "KCrossAttnDownBlock2D"):
+        torch.manual_seed(len(cases))
+        m = Z.get_down_block(typ, 2, u["c_in"], u["c_out"], u["temb"], True,
+                             **fac)
+        args = {"DownEncoderBlock2D": [x_in],
+                "AttnDownEncoderBlock2D": [x_in],
+                "SkipDownBlock2D": [x_in, temb, skip_img],
+                "AttnSkipDownBlock2D": [x_in, temb, skip_img],
+                "CrossAttnDownBlock2D": [x_in, temb, ctx, ctx_bias],
+                "SimpleCrossAttnDownBlock2D": [x_in, temb, ctx, ctx_bias],
+                "KCrossAttnDownBlock2D": [x_in, temb, ctx, ctx_bias]
+                }.get(typ, [x_in, temb])
+        cases.append((f"down {typ}", m, args, typ in (
+            "DownBlock2D", "CrossAttnDownBlock2D")))
+    stack = [x_in, x_out]
+    for typ in ("UpBlock2D", "ResnetUpsampleBlock2D", "CrossAttnUpBlock2D",
+                "SimpleCrossAttnUpBlock2D", "AttnUpBlock2D", "SkipUpBlock2D",
+                "AttnSkipUpBlock2D", "UpDecoderBlock2D",
+                "AttnUpDecoderBlock2D", "KUpBlock2D", "KCrossAttnUpBlock2D"):
+        torch.manual_seed(len(cases))
+        if typ == "KUpBlock2D":
+            # its last resnet normalises in_channels in out / 32 groups,
+            # which 256 -> 384 does not divide: model3's next level
+            x_k = r(b, t, u["c_k_out"])
+            m = Z.get_up_block(typ, 2, u["c_out"], u["c_k_out"],
+                               u["c_k_out"], u["temb"], True, **fac)
+            cases.append((f"up {typ}", m, [x_k, x_k, temb], False))
+            continue
+        m = Z.get_up_block(typ, 2, u["c_in"], u["c_out"], u["c_out"],
+                           u["temb"], True, **fac)
+        args = {"UpDecoderBlock2D": [x_in, temb],
+                "AttnUpDecoderBlock2D": [x_in, temb],
+                "SkipUpBlock2D": [x_out, stack, temb, skip_img[:, ::2]],
+                "AttnSkipUpBlock2D": [x_out, stack, temb, skip_img[:, ::2]],
+                # in != out: the k-unet's middle block, a skip of out wide
+                "KCrossAttnUpBlock2D": [x_out, x_out, temb, ctx, ctx_bias],
+                "CrossAttnUpBlock2D": [x_out, stack, temb, ctx, ctx_bias],
+                "SimpleCrossAttnUpBlock2D": [x_out, stack, temb, ctx,
+                                             ctx_bias]
+                }.get(typ, [x_out, stack, temb])
+        cases.append((f"up {typ}", m, args, typ in (
+            "UpBlock2D", "CrossAttnUpBlock2D")))
+    torch.manual_seed(100)
+    half = u["ctx_frames"] // 3
+    cases.append(("DualTransformer1D", U.DualTransformer1D(
+        u["c_out"], u["heads"], u["c_out"] // u["heads"],
+        cross_attention_dim=u["ctx"], norm_num_groups=u["groups"],
+        condition_lengths=(half, u["ctx_frames"] - half)), [x_out, ctx],
+        True))
+    cases.append(("AdaLayerNorm", U.AdaLayerNorm(u["c_out"], 1000),
+                  [x_out, torch.arange(b) * 97], False))
+    cases.append(("AdaGroupNorm silu", U.AdaGroupNorm(
+        u["temb"], u["c_out"], u["groups"], act_fn="silu"), [x_out, temb],
+        False))
+    cases.append(("SpatialNorm", U.SpatialNorm(u["c_out"], u["ctx"]),
+                  [x_out, ctx], False))
+    # the general VITS attention and the Decoder at the TextEncoder's widths
+    h, n_tok = tx["hidden"], tx["tokens"]
+    tok_len = [n_tok - 13 * i for i in range(b)]
+    x_t, x_mask = r(b, n_tok, h), keep(n_tok, tok_len)[..., None]
+    enc, enc_mask = r(b, n_tok // 2, h), keep(n_tok // 2, [
+        n_tok // 2 - 5 * i for i in range(b)])[..., None]
+    attn_mask = x_mask[:, None] * x_mask[:, None, None, :, 0]
+    for label, kw, c_arg, mask in (
+            ("MHA per-head window, proximal, block", dict(
+                window_size=4, heads_share=False, proximal_bias=True,
+                block_length=16), None, attn_mask),
+            ("MHA enc-dec", dict(window_size=None), enc,
+             x_mask[:, None] * enc_mask[:, None, None, :, 0])):
+        torch.manual_seed(len(cases))
+
+        class _Call(nn.Module):
+            def __init__(self, m, c_given):
+                super().__init__()
+                self.m, self.c_given = m, c_given
+
+            def forward(self, x, c, mask):
+                return self.m(x, c=c if self.c_given else None,
+                              attn_mask=mask)
+        cases.append((label, _Call(layers.MultiHeadAttention(
+            h, h, tx["heads"], **kw), c_arg is not None),
+            [x_t, x_t if c_arg is None else c_arg, mask], False))
+    torch.manual_seed(200)
+    cases.append(("Decoder", layers.Decoder(
+        h, tx["filter"], tx["heads"], tx["layers"], tx["kernel"],
+        proximal_bias=True), [x_t, x_mask, enc, enc_mask], False))
+    torch.manual_seed(201)
+    cases.append(("FFN gelu causal", layers.FFN(
+        h, h, tx["filter"], tx["kernel"], activation="gelu", causal=True),
+        [x_t, x_mask], False))
+    # OPERATIONS_ENCODER at hidden 256 over the frames
+    x_e, k_e = r(b, t, enc_c), keep(t, ragged)[..., None]
+    for code in range(1, 16):
+        torch.manual_seed(300 + code)
+        m = fairseq.OPERATIONS_ENCODER[code](enc_c, 0.1)
+        if code == 13:
+            with torch.no_grad():
+                m.tao.fill_(3.0)
+        cases.append((f"OPERATIONS_ENCODER[{code}] {type(m).__name__}", m,
+                      [x_e, k_e], False))
+    torch.manual_seed(400)
+
+    class _OutAndProbs(nn.Module):     # the logits hold -inf where masked
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, *a):
+            return self.m(*a)[:2]
+    cases.append(("ConvAttentionLayer", _OutAndProbs(
+        fairseq.ConvAttentionLayer(enc_c, enc_c)), [
+            x_e, r(b, u["ctx_frames"], enc_c),
+            r(b, u["ctx_frames"], enc_c),
+            keep(u["ctx_frames"], ctx_len) > 0], False))
+    mel = r(b, t, mels)
+    torch.manual_seed(401)
+    cases.append(("ReferenceEncoder", ReferenceEncoder(mels, gin,
+                                                       device="cpu"),
+                  [mel], False))
+    torch.manual_seed(402)
+    cases.append(("SpeakerEncoder", SpeakerEncoder(mels, 256, 256, 2,
+                                                   device="cpu"),
+                  [mel], False))
+    # LoRA around the UNet's widest Linear and Conv1d (level 3, 50 frames)
+    x_l = r(b, t // 8, lora)
+    for label, m in (("LoRA Linear", L.LoRACompatibleDense(
+            lora, lora, rank=4, network_alpha=4.0, generator=gen)),
+            ("LoRA Conv1d", L.LoRACompatibleConv(
+                lora, lora, 3, rank=4, network_alpha=4.0, generator=gen))):
+        with torch.no_grad():      # an adapted layer: up no longer zero
+            m.lora.up.weight.normal_(0.0, 0.05, generator=gen)
+        cases.append((label, m, [x_l], False))
+
+    class _Fn(nn.Module):
+        def __init__(self, fn):
+            super().__init__()
+            self.fn = fn
+
+        def forward(self, *a):
+            return self.fn(*a)
+    q4 = r(b, u["heads"], t, u["head_dim"])
+    cases.append(("scaled_dot_product_attention causal + keys", _Fn(
+        lambda q, k, v, m: A.scaled_dot_product_attention(
+            q, k, v, mask=m, causal=True)),
+        [q4, q4.flip(2), q4 * 0.5, keep(t, ragged)[:, None, None] > 0],
+        False))
+    cases.append(("FIR / K resamplers", _Fn(lambda a: (
+        Z.fir_downsample_1d(a), Z.fir_upsample_1d(a), Z.k_downsample_1d(a),
+        Z.k_upsample_1d(a))), [x_out], False))
+    cases.append(("slice_segments / timing signal", _Fn(lambda a, i: (
+        masking.slice_segments(a, i, 32),
+        a + masking.get_timing_signal_1d(a.shape[1], a.shape[2],
+                                         device=a.device))),
+        [x_out, torch.tensor(ragged) - 40], False))
+    torch.manual_seed(500)
+    cases.append(("GaussianFourierProjection", GaussianFourierProjection(
+        256, generator=gen), [torch.rand(b, generator=gen) + 0.01], False))
+    return cases
+
+
+def offpath_phase(torch, dev, card, **widths):
+    """The modules off the main path on the card (``offpath_cases``):
+    every module in float32 against the same module and weights on the
+    CPU on the first :data:`OFFPATH_CPU_ROWS` items (TF32 off; gate
+    :data:`OFFPATH_GATE`), in bfloat16 finite; the factories'
+    ``DownBlock`` / ``UpBlock`` / ``CrossAttn*Block`` types and
+    ``DualTransformer1D`` through K1-K4 (the counters zeroed before and
+    read after each fused forward: one K1 a resnet, one K2, K3, K4 and two
+    cores a transformer block) within ``TOL`` of their plain route in
+    both dtypes, every other module launching no kernel. Returns
+    ({phase: ok}, numbers)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    t0 = time.perf_counter()
+    ok, rows = True, []
+    for name, module, args, routed in offpath_cases(torch, **widths):
+        good, row = _offpath_module(torch, dev, name, module, args, routed)
+        ok &= good
+        rows.append(row)
+    wall = time.perf_counter() - t0
+    worst = max(r["float32"]["card_vs_cpu"] for r in rows)
+    log(f"offpath: {len(rows)} modules, {sum(r['routed'] for r in rows)} "
+        f"through K1-K4; worst fp32 card vs CPU {worst:.2e} (gate "
+        f"{OFFPATH_GATE:g}); {wall:.1f} s wall; card {card}")
+    return {"offpath": ok}, dict(card=card, wall_s=wall, modules=rows,
+                                 gate=OFFPATH_GATE)
 
 if __name__ == "__main__":
     sys.exit(main())

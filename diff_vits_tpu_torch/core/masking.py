@@ -1,12 +1,14 @@
 """Mask and alignment-path utilities, channel-last [B, T, C].
 
-Port of ``diff_vits_tpu/core/masking.py:18-85``: the masks and paths of
-inference and the KL terms of the training loss, and ``intersperse`` of
-the text frontend.
+Port of ``diff_vits_tpu/core/masking.py``: the masks and paths of
+inference, the KL terms of the training loss, ``intersperse`` of the text
+frontend, and the sequence helpers off the main path (the torch-order pad
+list, segment slicing, the causal mask, the sinusoidal timing signal).
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, TypeVar
+import math
+from typing import Callable, List, Optional, Sequence, Tuple, TypeVar
 
 import torch
 import torch.nn.functional as F
@@ -74,3 +76,59 @@ def intersperse(lst: Sequence[T], item: T) -> List[T]:
     result = [item] * (len(lst) * 2 + 1)
     result[1::2] = list(lst)
     return result
+
+
+def convert_pad_shape(pad_shape: Sequence[Sequence[int]]) -> List[int]:
+    """[[before, after] per dim, first dim first] -> ``F.pad``'s flat list
+    (last dim first)."""
+    return [item for sublist in pad_shape[::-1] for item in sublist]
+
+
+def slice_segments(x: torch.Tensor, ids_str: torch.Tensor,
+                   segment_size: int) -> torch.Tensor:
+    """x [B, T, C], ids_str [B] -> [B, segment_size, C], item b's frames
+    ids_str[b] .. ids_str[b] + segment_size - 1. A start past T -
+    segment_size is moved back to T - segment_size, as
+    ``lax.dynamic_slice`` clamps it."""
+    t = x.shape[1]
+    start = ids_str.to(x.device).long().clamp(0, max(t - segment_size, 0))
+    idx = start[:, None] + torch.arange(segment_size, device=x.device)
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
+
+
+def rand_slice_segments(x: torch.Tensor, lengths: torch.Tensor,
+                        segment_size: int,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Random slices of ``segment_size`` frames: item b starts at
+    floor(u * max(lengths[b] - segment_size + 1, 1)), u ~ U[0, 1) drawn
+    from ``generator`` (on x's device). Returns (slices, ids_str)."""
+    b = x.shape[0]
+    ids_str_max = torch.clamp(lengths.to(x.device) - segment_size + 1, min=1)
+    u = torch.rand((b,), generator=generator, device=x.device)
+    ids_str = (u * ids_str_max).to(torch.int32)
+    return slice_segments(x, ids_str, segment_size), ids_str
+
+
+def subsequent_mask(length: int, device=None) -> torch.Tensor:
+    """Lower-triangular causal mask [1, 1, T, T] (float, 1 = keep)."""
+    return torch.tril(torch.ones(length, length, device=device))[None, None]
+
+
+def get_timing_signal_1d(length: int, channels: int,
+                         min_timescale: float = 1.0,
+                         max_timescale: float = 1.0e4,
+                         device=None) -> torch.Tensor:
+    """Sinusoidal timing signal [1, T, C] (sin half, then cos half; an odd
+    channel count gets a zero last channel)."""
+    position = torch.arange(length, dtype=torch.float32, device=device)
+    num_timescales = channels // 2
+    log_timescale_increment = math.log(max_timescale / min_timescale) / max(
+        num_timescales - 1, 1)
+    inv_timescales = min_timescale * torch.exp(
+        torch.arange(num_timescales, dtype=torch.float32, device=device)
+        * -log_timescale_increment)
+    scaled_time = position[:, None] * inv_timescales[None, :]
+    signal = torch.cat([torch.sin(scaled_time), torch.cos(scaled_time)],
+                       dim=1)
+    return F.pad(signal, (0, channels % 2))[None]

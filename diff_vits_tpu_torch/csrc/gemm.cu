@@ -68,11 +68,25 @@
 //     sums.
 // The normalised / activated / shifted A operand and the GEGLU [M, 8C]
 // intermediate never touch device memory.
+//
+// Bounds-checked debug build: compiled with -DDVT_BOUNDS_CHECK
+// (tools/torch_gemm_probe.py --bounds-check builds it under build/), every
+// shared-memory index, cp.async address and global index below is asserted
+// in range on the device, and a failed check ends the launch with a
+// device-side assert naming its line. The normal build leaves the macro
+// undefined: the checks compile to nothing.
 #include <stdint.h>
 
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+
+#ifdef DVT_BOUNDS_CHECK
+#include <cassert>
+#define DVT_CHECK(cond) assert(cond)
+#else
+#define DVT_CHECK(cond) ((void)0)
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -102,6 +116,12 @@ struct GemmArgs {
 constexpr int BM = 64, BK = 32, kThreads = 128;
 // A is loaded one column a thread: column tid % BK, rows tid / BK + kRowStep * i
 constexpr int kRowStep = kThreads / BK, kARows = BM / kRowStep;
+
+// Batch elements of A (rows of the GroupNorm statistics and FiLM terms);
+// used by the bounds checks only.
+__device__ __forceinline__ int n_items(const GemmArgs& p) {
+  return (p.M + p.T - 1) / p.T;
+}
 
 // The conv tap (1, the centre, without taps) and input channel of k.
 __device__ __forceinline__ void split_k(const GemmArgs& p, int k, int& tap,
@@ -150,6 +170,8 @@ __device__ __forceinline__ ACol a_col(const GemmArgs& p, int m_first, int k) {
   split_k(p, c.ok ? k : 0, tap, c.ci);
   c.d = tap - 1;
   c.g = p.norm == kGroupNorm ? c.ci / (p.Ci / p.G) : 0;
+  DVT_CHECK(!c.ok || ((unsigned)c.ci < (unsigned)p.Ci &&
+                      (unsigned)tap < (unsigned)p.taps + (p.taps == 1)));
   c.src = (m_first + c.d) * p.Ci + c.ci;
   c.w = 1.f;
   c.beta = 0.f;
@@ -175,6 +197,7 @@ __device__ __forceinline__ unsigned a_fetch(const GemmArgs& p, const ARows& r,
     const bool ok = c.ok && r.bt[i] >= 0 &&
                     (unsigned)(r.t(i) + c.d) < (unsigned)p.T;
     const int idx = ok ? c.src + i * step : 0;
+    DVT_CHECK(!ok || (unsigned)idx < (unsigned)(p.M * p.Ci));
     raw[i] = ok ? (ABF16 ? __bfloat162float(
                                static_cast<const __nv_bfloat16*>(p.a)[idx])
                          : static_cast<const float*>(p.a)[idx])
@@ -207,14 +230,17 @@ __device__ __forceinline__ void a_loop(const GemmArgs& p, const ARows& r,
     float x = v[i], mu = mu0, rs = rs0, f1 = f10, f2 = f20;
     if (NORM == kLayerNorm) {
       const int row = ok ? m_first + kRowStep * i + c.d : 0;
+      DVT_CHECK((unsigned)row < (unsigned)p.M);
       mu = p.stat_mean[row];
       rs = p.stat_rstd[row];
     } else if (NORM == kGroupNorm && !HOIST) {
       const int bg = ok ? r.b(i) * p.G + c.g : 0;
+      DVT_CHECK((unsigned)bg < (unsigned)(n_items(p) * p.G));
       mu = p.stat_mean[bg];
       rs = p.stat_rstd[bg];
     }
     if (FILM && !HOIST) {
+      DVT_CHECK(!ok || (unsigned)r.b(i) < (unsigned)n_items(p));
       const float* f = p.film + (ok ? r.b(i) : 0) * 2 * p.Ci;
       f1 = 1.f + f[c.ci];
       f2 = f[p.Ci + c.ci];
@@ -234,6 +260,7 @@ __device__ __forceinline__ void a_apply(const GemmArgs& p, const ARows& r,
   const int b0 = r.b(0);
   if ((NORM == kGroupNorm || FILM) && b0 >= 0 && b0 == r.b(kARows - 1)) {
     float mu = 0.f, rs = 1.f, f1 = 1.f, f2 = 0.f;
+    DVT_CHECK(b0 < n_items(p) && (unsigned)c.g < (unsigned)max(p.G, 1));
     if (NORM == kGroupNorm) {
       mu = p.stat_mean[b0 * p.G + c.g];
       rs = p.stat_rstd[b0 * p.G + c.g];
@@ -303,6 +330,7 @@ __device__ __forceinline__ void reduce_and_store(const GemmArgs& p,
   const int rank = (int)cluster.block_rank();
   cluster.sync();  // every partial tile is written and visible
   const int rows = BM / S;
+  DVT_CHECK(rank < S && S <= p.splits && (int)blockIdx.z < p.problems);
   const void* __restrict__ bias = p.bias[blockIdx.z];
   void* __restrict__ out = p.out[blockIdx.z];
   // a thread's four columns are the same in every row it stores
@@ -316,6 +344,7 @@ __device__ __forceinline__ void reduce_and_store(const GemmArgs& p,
   }
   for (int e = threadIdx.x; e < rows * BN / 4; e += kThreads) {
     const int r = rank * rows + (e * 4) / BN;
+    DVT_CHECK(r < BM && c + 3 < BN && (c & 3) == 0);
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f), g = v;
     for (int s = 0; s < S; ++s) {  // rank order: the same sum every launch
       const float* src = cluster.map_shared_rank(cs, s);
@@ -331,6 +360,8 @@ __device__ __forceinline__ void reduce_and_store(const GemmArgs& p,
     if (m >= p.M) continue;
     const float vv[4] = {v.x, v.y, v.z, v.w}, gg[4] = {g.x, g.y, g.z, g.w};
     const long base = (long)m * p.N + n;
+    // a column tile past N stores nothing (every store tests n + j < N)
+    DVT_CHECK(n >= p.N || base + min(p.N - n, 4) <= (long)p.M * p.N);
     float o[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -361,6 +392,7 @@ __device__ __forceinline__ void split_steps(const GemmArgs& p, int split,
   const int steps = (p.K + BK - 1) / BK;
   s0 = (int)((long)split * steps / p.splits);
   s1 = (int)((long)(split + 1) * steps / p.splits);
+  DVT_CHECK(0 <= s0 && s0 <= s1 && s1 <= steps);
 }
 
 // ---------------------------------------------------------------------------
@@ -398,6 +430,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // 16-byte global -> shared copy; bytes past `src_bytes` are zero-filled.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
+  DVT_CHECK((smem_u32(dst) & 15) == 0 &&
+            (reinterpret_cast<uintptr_t>(src) & 15) == 0 &&
+            src_bytes >= 0 && src_bytes <= 16);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes));
@@ -458,6 +493,10 @@ __device__ __forceinline__ void b_fetch(const GemmArgs& p,
         k = k0 + col;
         rem = n < p.N ? min(max(p.K - k, 0), 8) : 0;
       }
+      DVT_CHECK(rem <= 0 || (NFAST ? k < p.K && n + rem <= p.N
+                                   : n < p.N && k + rem <= p.K));
+      DVT_CHECK((nb - 1) * L::b_elems + row * L::b_ld + col + 8 <=
+                nb * L::b_elems);
       const __nv_bfloat16* src =
           rem > 0 ? bmat + (long)k * p.sb_k + (long)n * p.sb_n : bmat;
 #pragma unroll
@@ -482,6 +521,7 @@ __device__ __forceinline__ void b_fetch(const GemmArgs& p,
       }
       const bool ok = k < p.K && n < p.N;
       const long off = (long)k * p.sb_k + (long)n * p.sb_n;
+      DVT_CHECK(row * L::b_ld + col < L::b_elems);
 #pragma unroll
       for (int h = 0; h < nb; ++h)
         bs[h * L::b_elems + row * L::b_ld + col] =
@@ -530,6 +570,9 @@ __global__ void __launch_bounds__(kThreads) gemm_mma_kernel(const GemmArgs p) {
   auto store_a = [&](const ACol& c, unsigned mask, int buf) {
     a_prologue<true>(p, rows, c, m_first, mask, raw);
     __nv_bfloat16* dst = as + buf * L::a_elems + (tid / BK) * kALd + a_k;
+    DVT_CHECK((buf == 0 || buf == 1) &&
+              (tid / BK + kRowStep * (kARows - 1)) * kALd + a_k <
+                  L::a_elems);
 #pragma unroll
     for (int i = 0; i < kARows; ++i)
       dst[kRowStep * i * kALd] = __float2bfloat16(raw[i]);
@@ -541,15 +584,23 @@ __global__ void __launch_bounds__(kThreads) gemm_mma_kernel(const GemmArgs p) {
     for (int ks = 0; ks < BK; ks += 16) {
       uint32_t af[MT][4];
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int i = 0; i < MT; ++i) {
+        DVT_CHECK((wm + i * 16 + (lane & 15)) * kALd + ks + (lane >> 4) * 8 +
+                      8 <= L::a_elems);
         ldmatrix_x4(af[i], at + (wm + i * 16 + (lane & 15)) * kALd + ks +
                                (lane >> 4) * 8);
+      }
 #pragma unroll
       for (int h = 0; h < nb; ++h) {
         const __nv_bfloat16* bh = bt + h * L::b_elems;
 #pragma unroll
         for (int jp = 0; jp < NT / 2; ++jp) {
           uint32_t r[4];
+          DVT_CHECK(NFAST
+              ? (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * L::b_ld + wn +
+                        jp * 16 + (lane >> 4) * 8 + 8 <= L::b_elems
+              : (wn + jp * 16 + (lane & 7) + (lane >> 4) * 8) * L::b_ld +
+                        ks + ((lane >> 3) & 1) * 8 + 8 <= L::b_elems);
           if (NFAST) {
             ldmatrix_x4_trans(
                 r, bh + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * L::b_ld +
@@ -610,6 +661,8 @@ __global__ void __launch_bounds__(kThreads) gemm_mma_kernel(const GemmArgs p) {
     for (int j = 0; j < NT; ++j) {
       const int r = wm + i * 16 + (lane >> 2);
       const int c = wn + j * 8 + (lane & 3) * 2;
+      DVT_CHECK(((nb - 1) * BM + r + 8) * ld_c + c + 2 <=
+                (int)sizeof(smem) / 4);
 #pragma unroll
       for (int h = 0; h < nb; ++h) {
         const float* f = h == 0 ? acc[i][j] : acc2[GEGLU ? i : 0][GEGLU ? j : 0];
@@ -669,6 +722,7 @@ __global__ void __launch_bounds__(kThreads) gemm_fma_kernel(const GemmArgs p) {
     const int k0 = kt * BK;
     const ACol c = a_col(p, m_first, k0 + a_k);
     a_prologue<false>(p, rows, c, m_first, a_load(p, rows, c, raw), raw);
+    DVT_CHECK(a_k * a_ld + tid / BK + kRowStep * (kARows - 1) < BK * a_ld);
 #pragma unroll
     for (int i = 0; i < kARows; ++i)
       As[a_k * a_ld + tid / BK + kRowStep * i] = raw[i];
@@ -678,6 +732,8 @@ __global__ void __launch_bounds__(kThreads) gemm_fma_kernel(const GemmArgs p) {
       const int k = k0 + kk, n = n0 + cc;
       const bool ok = k < p.K && n < p.N;
       const long off = (long)k * p.sb_k + (long)n * p.sb_n;
+      DVT_CHECK(kk < BK && cc < BN &&
+                ((nb - 1) * BK + kk) * b_ld + cc < nb * BK * b_ld);
 #pragma unroll
       for (int h = 0; h < nb; ++h)
         Bs[(h * BK + kk) * b_ld + cc] =
@@ -712,6 +768,7 @@ __global__ void __launch_bounds__(kThreads) gemm_fma_kernel(const GemmArgs p) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int off = (ty * 4 + i) * ld_c + tx + 8 * j;
+      DVT_CHECK(((nb - 1) * BM) * ld_c + off < (int)sizeof(smem) / 4);
       cs[off] = acc[i][j];
       if (GEGLU) cs[BM * ld_c + off] = acc2[GEGLU ? i : 0][GEGLU ? j : 0];
     }

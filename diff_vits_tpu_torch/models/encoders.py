@@ -1,9 +1,13 @@
-"""Text prior encoder, mel posterior encoder and prompt refiner,
-channel-last [B, T, C].
+"""Text prior encoder, mel posterior encoder, prompt refiner and the two
+speaker encoders off the main path, channel-last [B, T, C].
 
-Port of ``TextEncoder``, ``PosteriorEncoder`` and ``PromptEncoder`` of
+Port of ``TextEncoder``, ``PosteriorEncoder``, ``PromptEncoder``,
+``ReferenceEncoder`` and ``SpeakerEncoder`` of
 ``diff_vits_tpu/models/encoders.py``. Dropout is active in ``train()``
-mode only and draws from the ``generator`` the caller passes.
+mode only and draws from the ``generator`` the caller passes. The JAX
+recurrences (a ``lax.scan`` of a ``GRUCell``, ``nn.RNN`` of
+``OptimizedLSTMCell``s) are ``torch.nn.GRU`` / ``LSTM`` here;
+``utils.convert`` packs the flax cells' per-gate denses into them.
 """
 from __future__ import annotations
 
@@ -118,3 +122,65 @@ class PromptEncoder(nn.Module):
         if self.layer_norm is not None:
             x = self.layer_norm(x) * keep
         return x
+
+
+class ReferenceEncoder(nn.Module):
+    """GST-style reference encoder (encoders.py:139): six 3x3 stride-2
+    convs (32, 32, 64, 64, 128, 128 channels, padding 1, ReLU) over the
+    [time, mel] plane, the [B, T', F', C] features flattened per frame
+    (F' x C, channels fastest, as flax's NHWC reshape), a 128-unit GRU over
+    the frames from a zero state, and its last state projected to
+    ``gin_channels``."""
+
+    FILTERS = (32, 32, 64, 64, 128, 128)
+
+    def __init__(self, spec_channels: int, gin_channels: int = 0, *,
+                 device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        f, c_in = spec_channels, 1
+        for i, ch in enumerate(self.FILTERS):
+            self.add_module(f"conv_{i}", nn.Conv2d(c_in, ch, 3, stride=2,
+                                                   padding=1))
+            c_in, f = ch, (f - 1) // 2 + 1
+        self.gru = nn.GRU(f * c_in, 128, batch_first=True)
+        self.proj = nn.Linear(128, gin_channels)
+        self.to(device=resolve_device(device), dtype=dtype)
+
+    def forward(self, inputs):
+        """inputs [B, Ty, n_mels] -> [B, gin_channels]."""
+        x = inputs[:, None]                     # [B, 1, Ty, n_mels]
+        for i in range(len(self.FILTERS)):
+            x = torch.relu(getattr(self, f"conv_{i}")(x))
+        b, c, t, f = x.shape
+        x = x.permute(0, 2, 3, 1).reshape(b, t, f * c)
+        _, h = self.gru(x)
+        return self.proj(h[0])
+
+
+class SpeakerEncoder(nn.Module):
+    """LSTM d-vector speaker encoder (encoders.py:169): ``model_num_layers``
+    stacked LSTMs (``lstm_i``, zero initial states), ReLU(Linear) of the
+    last frame's output, L2-normalised. ``mel_n_channels`` is the input
+    width, which flax reads from the data."""
+
+    def __init__(self, mel_n_channels: int, model_hidden_size: int = 256,
+                 model_embedding_size: int = 256, model_num_layers: int = 2,
+                 *, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_layers = model_num_layers
+        for i in range(model_num_layers):
+            self.add_module(f"lstm_{i}", nn.LSTM(
+                mel_n_channels if i == 0 else model_hidden_size,
+                model_hidden_size, batch_first=True))
+        self.linear = nn.Linear(model_hidden_size, model_embedding_size)
+        self.to(device=resolve_device(device), dtype=dtype)
+
+    def forward(self, mels):
+        """mels [B, T, n_mels] -> [B, model_embedding_size], unit norm."""
+        h = mels
+        for i in range(self.num_layers):
+            h, _ = getattr(self, f"lstm_{i}")(h)
+        emb = torch.relu(self.linear(h[:, -1]))
+        return emb / torch.linalg.vector_norm(emb, dim=1, keepdim=True)

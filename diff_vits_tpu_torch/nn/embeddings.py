@@ -1,12 +1,14 @@
 """Timestep and text-pooling embeddings of the diffusion UNet.
 
-Port of ``diff_vits_tpu/nn/embeddings.py:17-148``: the sinusoidal timestep
-embedding, its MLP, class-token attention pooling and ``TextTimeEmbedding``
-(also the VITS speaker encoder over the prompt mel).
+Port of ``diff_vits_tpu/nn/embeddings.py``: the sinusoidal timestep
+embedding, the Gaussian Fourier projection, the timestep MLP, class-token
+attention pooling and ``TextTimeEmbedding`` (also the VITS speaker
+encoder over the prompt mel).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +33,32 @@ def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
     if embedding_dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb
+
+
+class GaussianFourierProjection(nn.Module):
+    """Gaussian Fourier features of a continuous noise level
+    (embeddings.py:37): [sin, cos] of 2 pi x w (of log x by default). The
+    projection ``weight`` is drawn once at init and never trained: it is a
+    parameter with ``requires_grad=False``, so it stays in the state dict
+    (JAX: a param under ``stop_gradient``)."""
+
+    def __init__(self, embedding_size: int = 256, scale: float = 1.0,
+                 log: bool = True, flip_sin_to_cos: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.log, self.flip_sin_to_cos = log, flip_sin_to_cos
+        self.weight = nn.Parameter(
+            torch.randn(embedding_size, generator=generator) * scale,
+            requires_grad=False)
+
+    def forward(self, x):
+        if self.log:
+            x = torch.log(x)
+        x_proj = x[:, None] * self.weight.detach()[None, :] * (2.0 * math.pi)
+        parts = [torch.sin(x_proj), torch.cos(x_proj)]
+        if self.flip_sin_to_cos:
+            parts = parts[::-1]
+        return torch.cat(parts, dim=-1)
 
 
 class Timesteps(nn.Module):

@@ -1,11 +1,14 @@
 """Core layers of the port, channel-last [B, T, C].
 
-Port of the main-path parts of ``diff_vits_tpu/nn/layers.py``: the
-channel ``LayerNorm`` (:25-33), ``DDSConv`` (:62-88), ``WN`` (:141-190),
-the relative-position ``MultiHeadAttention`` in its banded form with its
-route through kernel K5 (:232-410), ``FFN`` (:413-443) and the VITS
-``Encoder`` (:446-487), with dropout where the JAX modules have it. Masks
-are float [B, T, 1] (1 = keep), as in the JAX package.
+Port of ``diff_vits_tpu/nn/layers.py``: the channel ``LayerNorm``
+(:25-33), ``ConvReluNorm`` (:36), ``DDSConv`` (:62-88), the HiFi-GAN
+``ResBlock1`` / ``ResBlock2`` (:91, :121), ``WN`` (:141-190), the
+relative-position ``MultiHeadAttention`` with its route through kernel K5
+and its general form (:232-410), ``FFN`` (:413-443), the VITS ``Encoder``
+(:446-487) and the causal ``Decoder`` (:490), with dropout where the JAX
+modules have it. Masks are float [B, T, 1] (1 = keep), as in the JAX
+package. Convs with SAME padding pad as flax does: (k - 1) * dilation in
+all, the odd one on the right.
 
 Dropout is active only in ``train()`` mode, and every mask is drawn from
 the ``torch.Generator`` the caller passes down (never the global stream);
@@ -23,7 +26,8 @@ from torch import nn
 
 from diff_vits_tpu_torch.nn.remat import remat_call
 from diff_vits_tpu_torch.ops.rel_attention import (
-    fused_rel_self_attention, fused_rel_self_attention_plain)
+    abs_to_band, band_embeddings, band_to_abs, fused_rel_self_attention,
+    fused_rel_self_attention_plain)
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
@@ -69,6 +73,35 @@ class LayerNorm(nn.Module):
         return self.ln(x)
 
 
+class ConvReluNorm(nn.Module):
+    """(conv k SAME -> LayerNorm -> ReLU -> dropout) x n, then a residual
+    Linear projection that starts at zero (layers.py:36)."""
+
+    def __init__(self, in_channels: int, hidden_channels: int,
+                 out_channels: int, kernel_size: int, n_layers: int,
+                 p_dropout: float = 0.0):
+        super().__init__()
+        self.n_layers, self.p_dropout = n_layers, p_dropout
+        for i in range(n_layers):
+            self.add_module(f"conv_{i}", Conv1d(
+                in_channels if i == 0 else hidden_channels, hidden_channels,
+                kernel_size, padding="same"))
+            self.add_module(f"norm_{i}", nn.LayerNorm(hidden_channels,
+                                                      eps=1e-5))
+        self.proj = nn.Linear(hidden_channels, out_channels)
+        nn.init.zeros_(self.proj.weight)
+        nn.init.zeros_(self.proj.bias)
+
+    def forward(self, x, x_mask, *,
+                generator: Optional[torch.Generator] = None):
+        x_org = x
+        for i in range(self.n_layers):
+            x = getattr(self, f"conv_{i}")(x * x_mask)
+            x = torch.relu(getattr(self, f"norm_{i}")(x))
+            x = dropout(x, self.p_dropout, self.training, generator)
+        return (x_org + self.proj(x)) * x_mask
+
+
 class DDSConv(nn.Module):
     """Dilated depth-separable conv stack (layers.py:62-88): per layer a
     depthwise k-wide conv of dilation k^i (groups = C), LayerNorm, exact
@@ -99,6 +132,54 @@ class DDSConv(nn.Module):
                 getattr(self, f"conv_1x1_{i}")(y)))
             x = x + dropout(y, self.p_dropout, self.training, generator)
         return x * x_mask
+
+
+class ResBlock1(nn.Module):
+    """HiFi-GAN residual block (layers.py:91): per dilation d, leaky ReLU
+    0.1 -> k conv of dilation d -> leaky ReLU 0.1 -> k conv, + residual;
+    the optional mask before each conv and at the end."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilation: Tuple[int, ...] = (1, 3, 5)):
+        super().__init__()
+        self.n = len(dilation)
+        for i, d in enumerate(dilation):
+            self.add_module(f"conv1_{i}", Conv1d(
+                channels, channels, kernel_size, dilation=d, padding="same"))
+            self.add_module(f"conv2_{i}", Conv1d(
+                channels, channels, kernel_size, padding="same"))
+
+    def forward(self, x, x_mask=None):
+        for i in range(self.n):
+            xt = F.leaky_relu(x, 0.1)
+            if x_mask is not None:
+                xt = xt * x_mask
+            xt = F.leaky_relu(getattr(self, f"conv1_{i}")(xt), 0.1)
+            if x_mask is not None:
+                xt = xt * x_mask
+            x = getattr(self, f"conv2_{i}")(xt) + x
+        return x * x_mask if x_mask is not None else x
+
+
+class ResBlock2(nn.Module):
+    """HiFi-GAN residual block (layers.py:121): per dilation d, leaky ReLU
+    0.1 -> k conv of dilation d, + residual."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilation: Tuple[int, ...] = (1, 3)):
+        super().__init__()
+        self.n = len(dilation)
+        for i, d in enumerate(dilation):
+            self.add_module(f"conv_{i}", Conv1d(
+                channels, channels, kernel_size, dilation=d, padding="same"))
+
+    def forward(self, x, x_mask=None):
+        for i in range(self.n):
+            xt = F.leaky_relu(x, 0.1)
+            if x_mask is not None:
+                xt = xt * x_mask
+            x = getattr(self, f"conv_{i}")(xt) + x
+        return x * x_mask if x_mask is not None else x
 
 
 class WN(nn.Module):
@@ -151,34 +232,58 @@ class WN(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Relative-position multi-head self-attention (VITS), banded form with
-    a head-shared window of relative keys and values; masked scores are
-    replaced by -1e4 (layers.py:285-410).
+    """Relative-position multi-head attention (VITS): a window of relative
+    keys and values shared by the heads (``heads_share``) or one a head,
+    masked scores replaced by -1e4 (layers.py:285-410).
 
-    Routing (``use_fused``, the JAX module's switch, layers.py:291-319):
-    on a CUDA tensor in eval mode, when autograd records nothing for the
-    call, ``True`` (the default) sends it through kernel K5
-    (``ops.fused_rel_self_attention``) at every batch and length: K5 beat
-    the plain route at every serving shape measured on the H100 (B 1 and
-    8, T 128 and 601; PERF.md), where JAX keeps its kernel opt-in.
-    ``False``, training mode, a recorded forward (K5 has no backward) and
-    the CPU take the plain banded formulation, with dropout on the
-    probabilities in training."""
+    Production form (a window, heads_share, no proximal bias, no block
+    band, self-attention masked by per-item ``lengths``; what the
+    ``Encoder`` runs). Routing (``use_fused``, the JAX module's switch,
+    layers.py:291-319): on a CUDA tensor in eval mode, when autograd
+    records nothing for the call, ``True`` (the default) sends it through
+    kernel K5 (``ops.fused_rel_self_attention``) at every batch and
+    length: K5 beat the plain route at every serving shape measured on the
+    H100 (B 1 and 8, T 128 and 601; PERF.md), where JAX keeps its kernel
+    opt-in. ``False``, training mode, a recorded forward (K5 has no
+    backward) and the CPU take the plain banded formulation, with dropout
+    on the probabilities in training.
+
+    General form, the plain route always (as JAX's gate, layers.py:311-315,
+    sends it to XLA): keys and values from ``c`` (enc-dec attention), an
+    ``attn_mask`` [B, 1 or H, T, S] (0 = discard), ``window_size=None`` (no
+    relative terms), ``heads_share=False`` (tables [H, 2w+1, k]),
+    ``proximal_bias`` (-log1p|i - j| on the scores), ``block_length`` (keys
+    within that distance kept; applied with ``attn_mask`` only, as in JAX)
+    and ``proximal_init`` (``conv_k`` starts as a copy of ``conv_q``)."""
 
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 window_size: int = 4, p_dropout: float = 0.0,
-                 use_fused: bool = True):
+                 window_size: Optional[int] = 4, p_dropout: float = 0.0,
+                 use_fused: bool = True, heads_share: bool = True,
+                 block_length: Optional[int] = None,
+                 proximal_bias: bool = False, proximal_init: bool = False):
         super().__init__()
-        self.n_heads, self.window_size = n_heads, window_size
+        self.channels, self.n_heads = channels, n_heads
+        self.window_size, self.heads_share = window_size, heads_share
+        self.block_length, self.proximal_bias = block_length, proximal_bias
         self.p_dropout, self.use_fused = p_dropout, use_fused
         self.k_channels = channels // n_heads
         self.conv_q = nn.Linear(channels, channels)
         self.conv_k = nn.Linear(channels, channels)
         self.conv_v = nn.Linear(channels, channels)
         self.conv_o = nn.Linear(channels, out_channels)
-        shape = (1, 2 * window_size + 1, self.k_channels)
-        self.emb_rel_k = nn.Parameter(torch.zeros(shape))
-        self.emb_rel_v = nn.Parameter(torch.zeros(shape))
+        if proximal_init:
+            with torch.no_grad():
+                self.conv_k.weight.copy_(self.conv_q.weight)
+                self.conv_k.bias.copy_(self.conv_q.bias)
+        if window_size is not None:
+            shape = (1 if heads_share else n_heads, 2 * window_size + 1,
+                     self.k_channels)
+            self.emb_rel_k = nn.Parameter(torch.zeros(shape))
+            self.emb_rel_v = nn.Parameter(torch.zeros(shape))
+
+    def _production(self) -> bool:
+        return (self.window_size is not None and self.heads_share
+                and not self.proximal_bias and self.block_length is None)
 
     def _fused_enabled(self, x: torch.Tensor) -> bool:
         recorded = torch.is_grad_enabled() and (
@@ -187,9 +292,23 @@ class MultiHeadAttention(nn.Module):
                 and x.device.type == "cuda" and not recorded)
 
     def forward(self, x, lengths: Optional[torch.Tensor] = None, *,
+                c: Optional[torch.Tensor] = None,
+                attn_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
         """x [B, T, C]; ``lengths`` [B] the kept prefix of each item (None:
-        nothing masked)."""
+        nothing masked); or the general form's ``c`` [B, S, C] and
+        ``attn_mask`` [B, 1 or H, T, S] (a given ``lengths`` stands for
+        the outer product of its keep masks)."""
+        p_drop = None
+        if self.training and self.p_dropout > 0.0:
+            def p_drop(p):
+                return dropout(p, self.p_dropout, True, generator)
+        if c is not None or attn_mask is not None or not self._production():
+            if attn_mask is None and lengths is not None:
+                keep = (torch.arange(x.shape[1], device=x.device)[None]
+                        < lengths.to(x.device)[:, None]).to(x.dtype)
+                attn_mask = keep[:, None, :, None] * keep[:, None, None, :]
+            return self._general(x, x if c is None else c, attn_mask, p_drop)
         args = (x, lengths, self.conv_q.weight.t(), self.conv_q.bias,
                 self.conv_k.weight.t(), self.conv_k.bias,
                 self.conv_v.weight.t(), self.conv_v.bias,
@@ -199,29 +318,73 @@ class MultiHeadAttention(nn.Module):
                   compute_dtype=self.conv_q.weight.dtype)
         if self._fused_enabled(x):
             return fused_rel_self_attention(*args, **kw)
-        p_drop = None
-        if self.training and self.p_dropout > 0.0:
-            def p_drop(p):
-                return dropout(p, self.p_dropout, True, generator)
         return fused_rel_self_attention_plain(*args, p_drop=p_drop, **kw)
+
+    def _general(self, x, c, attn_mask, p_drop):
+        b, t_t, _ = x.shape
+        t_s, d = c.shape[1], self.k_channels
+
+        def split(a):
+            return a.reshape(b, -1, self.n_heads, d).transpose(1, 2)
+
+        qh = split(self.conv_q(x)) / math.sqrt(d)
+        kh, vh = split(self.conv_k(c)), split(self.conv_v(c))
+        scores = torch.matmul(qh, kh.transpose(-1, -2))
+        rel = "g" if self.heads_share else "h"
+        if self.window_size is not None:
+            if t_s != t_t:
+                raise ValueError("relative attention only for "
+                                 "self-attention")
+            key_band = band_embeddings(self.emb_rel_k, t_s, self.window_size)
+            scores = scores + band_to_abs(torch.einsum(
+                f"bhtd,{rel}md->bhtm", qh, key_band.to(qh.dtype)))
+        if self.proximal_bias:
+            r = torch.arange(t_s, dtype=torch.float32, device=x.device)
+            scores = scores + (-torch.log1p(
+                (r[None, :] - r[:, None]).abs()))[None, None].to(scores.dtype)
+        if attn_mask is not None:
+            scores = scores.masked_fill(attn_mask == 0, -1e4)
+            if self.block_length is not None:
+                band = torch.ones(t_t, t_s, device=x.device).triu(
+                    -self.block_length).tril(self.block_length)
+                scores = scores.masked_fill(band == 0, -1e4)
+        p = torch.softmax(scores, dim=-1)
+        if p_drop is not None:
+            p = p_drop(p)
+        out = torch.matmul(p, vh)
+        if self.window_size is not None:
+            value_band = band_embeddings(self.emb_rel_v, t_s,
+                                         self.window_size)
+            out = out + torch.einsum(
+                f"bhtm,{rel}md->bhtd", abs_to_band(p, min(self.window_size,
+                                                          t_s - 1)),
+                value_band.to(p.dtype))
+        out = out.transpose(1, 2).reshape(b, t_t, self.channels)
+        return self.conv_o(out)
 
 
 class FFN(nn.Module):
-    """Conv feed-forward with SAME padding and ReLU (layers.py:413)."""
+    """Conv feed-forward (layers.py:413): SAME padding, or ``causal`` (k - 1
+    frames on the left); ReLU, or ``activation="gelu"``, which is
+    x * sigmoid(1.702 x) (layers.py:436-437), not the exact GELU."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  filter_channels: int, kernel_size: int,
-                 p_dropout: float = 0.0):
+                 p_dropout: float = 0.0, activation: Optional[str] = None,
+                 causal: bool = False):
         super().__init__()
-        self.p_dropout = p_dropout
-        self.pad = ((kernel_size - 1) // 2, kernel_size // 2)
+        self.p_dropout, self.activation = p_dropout, activation
+        self.pad = ((kernel_size - 1, 0) if causal
+                    else ((kernel_size - 1) // 2, kernel_size // 2))
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size)
         self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size)
 
     def forward(self, x, x_mask, *,
                 generator: Optional[torch.Generator] = None):
         x = self.conv_1(F.pad(x * x_mask, (0, 0) + self.pad))
-        x = dropout(torch.relu(x), self.p_dropout, self.training, generator)
+        x = x * torch.sigmoid(1.702 * x) if self.activation == "gelu" \
+            else torch.relu(x)
+        x = dropout(x, self.p_dropout, self.training, generator)
         x = self.conv_2(F.pad(x * x_mask, (0, 0) + self.pad))
         return x * x_mask
 
@@ -273,3 +436,51 @@ class Encoder(nn.Module):
         y = getattr(self, f"ffn_{i}")(x, x_mask, generator=generator)
         y = dropout(y, self.p_dropout, self.training, generator)
         return getattr(self, f"norm2_{i}")(x + y)
+
+
+class Decoder(nn.Module):
+    """Causal post-LN transformer decoder with enc-dec attention
+    (layers.py:490): per layer, causal self-attention (no relative window;
+    ``proximal_bias`` / ``proximal_init`` as given), attention over the
+    encoder states ``h`` masked by both masks, and a causal FFN."""
+
+    def __init__(self, hidden_channels: int, filter_channels: int,
+                 n_heads: int, n_layers: int, kernel_size: int = 1,
+                 p_dropout: float = 0.0, proximal_bias: bool = False,
+                 proximal_init: bool = True):
+        super().__init__()
+        self.n_layers, self.p_dropout = n_layers, p_dropout
+        h = hidden_channels
+        for i in range(n_layers):
+            self.add_module(f"self_attn_{i}", MultiHeadAttention(
+                h, h, n_heads, window_size=None, p_dropout=p_dropout,
+                proximal_bias=proximal_bias, proximal_init=proximal_init))
+            self.add_module(f"norm0_{i}", nn.LayerNorm(h, eps=1e-5))
+            self.add_module(f"encdec_attn_{i}", MultiHeadAttention(
+                h, h, n_heads, window_size=None, p_dropout=p_dropout))
+            self.add_module(f"norm1_{i}", nn.LayerNorm(h, eps=1e-5))
+            self.add_module(f"ffn_{i}", FFN(h, h, filter_channels,
+                                            kernel_size, p_dropout,
+                                            causal=True))
+            self.add_module(f"norm2_{i}", nn.LayerNorm(h, eps=1e-5))
+
+    def forward(self, x, x_mask, h, h_mask, *,
+                generator: Optional[torch.Generator] = None):
+        """x [B, T, C], x_mask [B, T, 1]; h [B, S, C], h_mask [B, S, 1]."""
+        t = x.shape[1]
+        self_mask = torch.ones(t, t, device=x.device).tril()[None, None]
+        encdec_mask = x_mask[:, None, :, :] * h_mask[:, None, None, :, 0]
+        x = x * x_mask
+
+        def residual(y):
+            return dropout(y, self.p_dropout, self.training, generator)
+        for i in range(self.n_layers):
+            y = getattr(self, f"self_attn_{i}")(
+                x, attn_mask=self_mask, generator=generator)
+            x = getattr(self, f"norm0_{i}")(x + residual(y))
+            y = getattr(self, f"encdec_attn_{i}")(
+                x, c=h, attn_mask=encdec_mask, generator=generator)
+            x = getattr(self, f"norm1_{i}")(x + residual(y))
+            y = getattr(self, f"ffn_{i}")(x, x_mask, generator=generator)
+            x = getattr(self, f"norm2_{i}")(x + residual(y))
+        return x * x_mask

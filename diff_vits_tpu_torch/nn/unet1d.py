@@ -1,12 +1,14 @@
 """Conditional 1-D UNet denoiser, channel-last [B, T, C].
 
-Port of the main-path parts of ``diff_vits_tpu/nn/unet1d.py``: the
-attention and feed-forward blocks, ``ResnetBlock1D`` (scale_shift FiLM),
-down/up sampling, the five block types the model uses and
-``UNet1DConditionModel`` with its ``emb=`` and ``embedding_request`` paths
-(:700-849). Submodules carry the flax names (``down_0.resnet_1``,
-``attn_0.block_0.attn2``, ...) so ``utils/convert.py`` maps the JAX
-package's parameters mechanically.
+Port of ``diff_vits_tpu/nn/unet1d.py``: the attention and feed-forward
+blocks, the adaptive norms (``AdaLayerNorm``, ``AdaGroupNorm``,
+``SpatialNorm``, :225-299), ``Transformer1D`` and ``DualTransformer1D``
+(:302-373), ``ResnetBlock1D`` (scale_shift FiLM), down/up sampling, the
+five block types the model uses and ``UNet1DConditionModel`` with its
+``emb=`` and ``embedding_request`` paths (:700-849). The other block
+types are in ``nn/unet1d_blocks``. Submodules carry the flax names
+(``down_0.resnet_1``, ``attn_0.block_0.attn2``, ...) so
+``utils/convert.py`` maps the JAX package's parameters mechanically.
 
 Routing: in eval mode, ``ResnetBlock1D`` and ``BasicTransformerBlock``
 send every call that passes the JAX package's shape gates (:157-168,
@@ -247,6 +249,112 @@ class Transformer1D(nn.Module):
             h = getattr(self, f"block_{i}")(h, context, attention_bias,
                                             context_bias, seq)
         return self.proj_out(h) + x
+
+
+def _mish(x):
+    return x * torch.tanh(F.softplus(x))
+
+
+class AdaLayerNorm(nn.Module):
+    """LayerNorm without affine, modulated by an embedded timestep
+    (unet1d.py:225): emb -> SiLU -> Linear(2C) -> x * (1 + scale) + shift.
+    A scalar timestep gives one scale / shift; a batch [B] one an item,
+    broadcast over time."""
+
+    def __init__(self, embedding_dim: int, num_embeddings: int):
+        super().__init__()
+        self.emb = nn.Embedding(num_embeddings, embedding_dim)
+        self.linear = nn.Linear(embedding_dim, 2 * embedding_dim)
+        self.norm = nn.LayerNorm(embedding_dim, eps=1e-5,
+                                 elementwise_affine=False)
+
+    def forward(self, x, timestep):
+        scale, shift = self.linear(F.silu(self.emb(timestep))).chunk(2, -1)
+        if scale.ndim == 2:
+            scale, shift = scale[:, None], shift[:, None]
+        return self.norm(x) * (1 + scale) + shift
+
+
+# AdaGroupNorm's activations (unet1d.py:266-267: flax's nn.gelu is the
+# tanh approximation)
+_ADA_ACT = {"silu": F.silu, "swish": F.silu, "mish": _mish,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}
+
+
+class AdaGroupNorm(nn.Module):
+    """GroupNorm without affine, modulated by a conditioning embedding
+    (unet1d.py:250): [act ->] Linear(2 out_dim) -> x * (1 + scale) + shift,
+    one scale / shift an item."""
+
+    def __init__(self, embedding_dim: int, out_dim: int, num_groups: int,
+                 act_fn: Optional[str] = None, eps: float = 1e-5):
+        super().__init__()
+        self.num_groups, self.eps, self.act_fn = num_groups, eps, act_fn
+        self.linear = nn.Linear(embedding_dim, 2 * out_dim)
+
+    def forward(self, x, emb):
+        if self.act_fn is not None:
+            emb = _ADA_ACT[self.act_fn](emb)
+        scale, shift = self.linear(emb).chunk(2, -1)
+        h = F.group_norm(x.transpose(1, 2), self.num_groups,
+                         eps=self.eps).transpose(1, 2)
+        return h * (1 + scale[:, None]) + shift[:, None]
+
+
+class SpatialNorm(nn.Module):
+    """GroupNorm (32 groups, eps 1e-6, affine) of f modulated by a latent
+    zq nearest-resized to f's length (unet1d.py:280): norm(f) *
+    conv_y(zq) + conv_b(zq), the 1x1 convs as Linear."""
+
+    def __init__(self, f_channels: int, zq_channels: int):
+        super().__init__()
+        self.norm_layer = nn.GroupNorm(32, f_channels, eps=1e-6)
+        self.conv_y = nn.Linear(zq_channels, f_channels)
+        self.conv_b = nn.Linear(zq_channels, f_channels)
+
+    def forward(self, f, zq):
+        """f [B, T, C_f], zq [B, S, C_zq]."""
+        t, s = f.shape[1], zq.shape[1]
+        zq = zq[:, (torch.arange(t, device=f.device) * s) // t]
+        return _group_norm(self.norm_layer, f) * self.conv_y(zq) \
+            + self.conv_b(zq)
+
+
+class DualTransformer1D(nn.Module):
+    """Two ``Transformer1D``s over the two parts of a context split at
+    ``condition_lengths`` (unet1d.py:337): condition i goes through
+    transformer ``transformer_index_for_condition[i]``, and the two
+    residual deltas are mixed by ``mix_ratio``. Each transformer takes its
+    fused route as ``Transformer1D`` does (K2-K4 on the card)."""
+
+    def __init__(self, in_channels: int, num_heads: int, head_dim: int,
+                 num_layers: int = 1,
+                 cross_attention_dim: Optional[int] = None,
+                 norm_num_groups: int = 32, mix_ratio: float = 0.5,
+                 condition_lengths: Sequence[int] = (77, 257),
+                 transformer_index_for_condition: Sequence[int] = (1, 0)):
+        super().__init__()
+        self.mix_ratio = mix_ratio
+        self.condition_lengths = tuple(condition_lengths)
+        self.index = tuple(transformer_index_for_condition)
+        # only the transformers a condition uses hold parameters, as in
+        # the flax tree
+        for i in sorted(set(self.index)):
+            self.add_module(f"transformer_{i}", Transformer1D(
+                in_channels, num_heads, head_dim, num_layers,
+                cross_attention_dim, norm_num_groups))
+
+    def forward(self, x, context):
+        deltas, start = [], 0
+        for i in range(2):
+            # contiguous: K3 takes the context as a dense [B, S, C]
+            cond = context[:, start:start + self.condition_lengths[i]]
+            enc = getattr(self, f"transformer_{self.index[i]}")(
+                x, cond.contiguous())
+            deltas.append(enc - x)
+            start += self.condition_lengths[i]
+        return (deltas[0] * self.mix_ratio
+                + deltas[1] * (1.0 - self.mix_ratio)) + x
 
 
 class ResnetBlock1D(nn.Module):

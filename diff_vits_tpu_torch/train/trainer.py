@@ -122,7 +122,8 @@ import subprocess
 import threading
 import time
 from datetime import datetime
-from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Union
+from typing import (Dict, Iterable, Iterator, List, Mapping, Optional,
+                    Sequence, Union)
 
 import numpy as np
 import torch
@@ -185,6 +186,24 @@ def clip_by_global_norm_scheduled(grads: Sequence[torch.Tensor], step: int,
     torch._foreach_mul_(grads, torch.clamp(max_norm / (g_norm + 1e-6),
                                            max=1.0))
     return g_norm
+
+
+def clip_grad_value(grads, clip_value: Optional[float],
+                    norm_type: float = 2.0):
+    """Element-wise value clip (trainer.py:55): (``grads`` with every
+    entry clamped to [-clip_value, clip_value], or unchanged for None; the
+    pre-clip p-norm over every leaf, float32). ``grads`` is a mapping or a
+    sequence of tensors; the result has its structure, new tensors."""
+    leaves = list(grads.values()) if isinstance(grads, Mapping) \
+        else list(grads)
+    total = sum(torch.sum(g.abs().float() ** norm_type)
+                for g in leaves) ** (1.0 / norm_type)
+
+    def clip(g):
+        return g if clip_value is None else g.clamp(-clip_value, clip_value)
+    if isinstance(grads, Mapping):
+        return {k: clip(g) for k, g in grads.items()}, total
+    return [clip(g) for g in leaves], total
 
 
 _MELS = ("spec", "refer1", "refer2")

@@ -250,3 +250,22 @@ def test_walk_covers_the_checkpoint_bridge_and_phoneme_vae_modules():
     src = (ROOT / "diff_vits_tpu_torch" / "utils" / "transplant.py"
            ).read_text()
     assert "def diff_vits_params_from_config" in src
+
+
+def test_walk_covers_the_modules_off_the_main_path():
+    """The block zoo, LoRA and the functional SDPA are in the walk above,
+    and every module this slice extended (masking, embeddings, layers,
+    fairseq, the UNet's norms, the encoders, the converter, the trainer)
+    still is."""
+    names = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    assert {"diff_vits_tpu_torch/nn/unet1d_blocks.py",
+            "diff_vits_tpu_torch/nn/lora.py",
+            "diff_vits_tpu_torch/ops/attention.py",
+            "diff_vits_tpu_torch/core/masking.py",
+            "diff_vits_tpu_torch/nn/embeddings.py",
+            "diff_vits_tpu_torch/nn/layers.py",
+            "diff_vits_tpu_torch/nn/fairseq.py",
+            "diff_vits_tpu_torch/nn/unet1d.py",
+            "diff_vits_tpu_torch/models/encoders.py",
+            "diff_vits_tpu_torch/utils/convert.py",
+            "diff_vits_tpu_torch/train/trainer.py"} <= names

@@ -3,6 +3,7 @@
 on one CUDA card.
 
     python3 tools/torch_gemm_probe.py [--out FILE] [--same-process]
+                                      [--bounds-check]
 
 Builds copies of csrc/gemm.cu with parts of the kernel compiled out (C
 macros inserted into a copy under build/gemm_probe/; the package's own
@@ -32,10 +33,17 @@ no network.
 
 ``--same-process`` runs the copies as they once failed with an
 "unspecified launch failure": first ``base`` alone in its own process,
-then every copy, ``base`` first, loaded one after another into one process;
-after each copy the process synchronises and names the first copy whose
-launches fault (a fault ends the process's CUDA context, so nothing after
-it is timed).
+then the first eight copies, ``base`` first, loaded one after another into
+one process, then all ten the same way; after each copy the process
+synchronises and names the first copy whose launches fault (a fault ends
+the process's CUDA context, so nothing after it is timed).
+
+``--bounds-check`` builds every copy with ``-DDVT_BOUNDS_CHECK`` (gemm.cu's
+device-side asserts on its shared-memory, cp.async and global indices)
+into ``build/gemm_probe_bounds/`` instead, and prints how many assert call
+sites the base copy's device code holds (``cuobjdump -sass``; the normal
+build holds none). A failed check is a FAULT naming the assert's line.
+Times of that build are not the kernel's.
 """
 import argparse
 import ctypes
@@ -47,6 +55,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "diff_vits_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "gemm_probe"
+BOUNDS_OUT = ROOT / "build" / "gemm_probe_bounds"
 
 SUBS = [
     ("  switch (p.norm * 4 + (p.film != nullptr) * 2 + (p.silu != 0)) {",
@@ -102,15 +111,16 @@ def patched_source() -> str:
     return s
 
 
-def build_variants(cuda) -> None:
-    OUT.mkdir(parents=True, exist_ok=True)
-    src = OUT / "gemm.cu"
+def build_variants(cuda, out: Path, extra=()) -> None:
+    out.mkdir(parents=True, exist_ok=True)
+    src = out / "gemm.cu"
     src.write_text(patched_source())
-    (OUT / "common.cuh").write_text((SRC / "common.cuh").read_text())
+    (out / "common.cuh").write_text((SRC / "common.cuh").read_text())
     procs = {name: subprocess.Popen(
-        [cuda._nvcc(), *cuda.NVCC_FLAGS, *[f"-D{m}" for m in macros], "-o",
-         str(OUT / f"{name}.so"), str(src)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+        [cuda._nvcc(), *cuda.NVCC_FLAGS, *extra,
+         *[f"-D{m}" for m in macros], "-o", str(out / f"{name}.so"),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
         for name, macros in VARIANTS.items()}
     for name, proc in procs.items():
         log, _ = proc.communicate()
@@ -183,17 +193,31 @@ def cases(torch, cuda, dev):
     return out
 
 
-def run_variants(names) -> None:
-    """Time the copies ``names`` one after another in this process; print
-    one RESULT line per copy, or FAULT naming the copy whose launches
-    failed (and stop: the CUDA context is gone)."""
+def assert_sites(cuda, lib: Path):
+    """Mentions of the device assert handler in ``lib``'s device code
+    (``cuobjdump -elf`` and ``-sass``: its symbol and calls), or None
+    without cuobjdump."""
+    tool = Path(cuda._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    text = "".join(subprocess.run([str(tool), flag, str(lib)],
+                                  capture_output=True, text=True).stdout
+                   for flag in ("-elf", "-sass"))
+    return text.lower().count("assertfail")
+
+
+def run_variants(names, out: Path) -> None:
+    """Time the copies ``names`` (libraries under ``out``) one after
+    another in this process; print one RESULT line per copy, or FAULT
+    naming the copy whose launches failed (and stop: the CUDA context is
+    gone)."""
     import torch
     sys.path.insert(0, str(ROOT))
     from diff_vits_tpu_torch.ops import _cuda
     _cuda.build()
     plan = _cuda.gemm_plan
     for name in names:
-        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
+        lib = ctypes.CDLL(str(out / f"{name}.so"))
         lib.dvt_gemm.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.dvt_gemm.restype = ctypes.c_int
         _cuda._libs["gemm.cu"] = lib
@@ -224,31 +248,39 @@ def _results(stdout):
     return res, fault
 
 
-def same_process() -> dict:
-    """``base`` alone in a process, then every copy in one process."""
+def same_process(lib_dir: Path) -> dict:
+    """``base`` alone in a process, then the first eight copies in one
+    process, then all ten in one process."""
     out = {}
     for what, names in (("base alone", ["base"]),
+                        ("eight copies, one process", list(VARIANTS)[:8]),
                         ("all copies, one process", list(VARIANTS))):
         proc = subprocess.run([sys.executable, __file__, "--variants",
-                               ",".join(names)], capture_output=True,
-                              text=True, timeout=600)
+                               ",".join(names), str(lib_dir)],
+                              capture_output=True, text=True, timeout=600)
         res, fault = _results(proc.stdout)
+        # a device-side assert prints its file, line and condition on
+        # stderr
         out[what] = dict(rc=proc.returncode, ran=list(res), fault=fault,
-                         stderr=proc.stderr[-1500:] if proc.returncode
-                         else "")
+                         stderr=proc.stderr[-1500:]
+                         if proc.returncode or fault else "")
         print(f"{what}: rc {proc.returncode}, copies run cleanly "
               f"{list(res)}, fault {fault}", flush=True)
     return out
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--variants":
-        run_variants(sys.argv[2].split(","))
+    if len(sys.argv) == 4 and sys.argv[1] == "--variants":
+        run_variants(sys.argv[2].split(","), Path(sys.argv[3]))
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write the table as JSON")
     ap.add_argument("--same-process", action="store_true",
-                    help="base alone, then every copy in one process")
+                    help="base alone, then eight and then all ten copies "
+                         "in one process")
+    ap.add_argument("--bounds-check", action="store_true",
+                    help="build the copies with -DDVT_BOUNDS_CHECK into "
+                         "build/gemm_probe_bounds/")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -257,21 +289,33 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from diff_vits_tpu_torch.ops import _cuda
     _cuda.build()
-    build_variants(_cuda)
+    lib_dir = BOUNDS_OUT if args.bounds_check else OUT
+    build_variants(_cuda, lib_dir,
+                   ("-DDVT_BOUNDS_CHECK",) if args.bounds_check else ())
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}")
+    sites = None
+    if args.bounds_check:
+        sites = dict(bounds_build=assert_sites(_cuda, lib_dir / "base.so"),
+                     normal_build=assert_sites(
+                         _cuda, _cuda.build_dir() / f"gemm-{_cuda._digest()}"
+                         ".so"))
+        print(f"device assert call sites: {sites}", flush=True)
     if args.same_process:
-        out = same_process()
+        out = same_process(lib_dir)
         if args.out:
             args.out.parent.mkdir(parents=True, exist_ok=True)
-            args.out.write_text(json.dumps(dict(card=card, **out), indent=1))
+            args.out.write_text(json.dumps(dict(
+                card=card, bounds_check=args.bounds_check,
+                assert_sites=sites, **out), indent=1))
         return 0
     table = {}
     for name in VARIANTS:
-        proc = subprocess.run([sys.executable, __file__, "--variants", name],
-                              capture_output=True, text=True, timeout=300)
+        proc = subprocess.run([sys.executable, __file__, "--variants", name,
+                               str(lib_dir)], capture_output=True, text=True,
+                              timeout=300)
         res, fault = _results(proc.stdout)
         if proc.returncode or name not in res:
             print(f"{name}: rc {proc.returncode}, fault {fault}\n"
