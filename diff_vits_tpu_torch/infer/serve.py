@@ -43,7 +43,8 @@ Manifest: one utterance per line, tab-separated:
 Usage:
   python -m diff_vits_tpu_torch.infer.serve --manifest utts.tsv \
       -c config.json -m logs/tts/<run>/model-<step>.ckpt --batch_size 8 \
-      [--mel_buckets 400,800,1600] [--vocoder_ckpt vocos.bin]
+      [--mel_buckets 400,800,1600] [--vocoder_ckpt vocos.bin] \
+      [--trace_out spans.json]
   torchrun --nproc_per_node N -m diff_vits_tpu_torch.infer.serve --dp \
       --manifest utts.tsv -c config.json -m model.ckpt --batch_size 8
 """
@@ -58,6 +59,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from diff_vits_tpu_torch.core import trace
 from diff_vits_tpu_torch.core.config import Config
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
 from diff_vits_tpu_torch.data import audio as audio_lib
@@ -172,10 +174,11 @@ class BatchSynthesizer:
             return np.stack([pad_to(np.asarray(r[k]), t_bucket)
                              for r in full]).astype(np.int64)
 
-        arrays = (ids(1), np.array([len(r[1]) for r in full], np.int64),
-                  np.stack([refer(r[4]) for r in full]),
-                  np.full(self.batch_size, s, np.int64), ids(2), ids(3))
-        return [torch.from_numpy(a).to(self.device) for a in arrays]
+        with trace.span("dvt.front.pad"):
+            arrays = (ids(1), np.array([len(r[1]) for r in full], np.int64),
+                      np.stack([refer(r[4]) for r in full]),
+                      np.full(self.batch_size, s, np.int64), ids(2), ids(3))
+            return [torch.from_numpy(a).to(self.device) for a in arrays]
 
     @property
     def rows(self) -> slice:
@@ -208,22 +211,24 @@ class BatchSynthesizer:
         # realised count can exceed this one (the unet and conv predictors
         # are deterministic)
         headroom = 1.1 if self.cfg.vits.duration_predictor == "sdp" else 1.0
-        for t_bucket, group in sorted(by_text.items()):
-            for off in range(0, len(group), self.batch_size):
-                chunk = group[off:off + self.batch_size]
-                gen = torch.Generator().manual_seed(
-                    seed * 2 ** 31 + t_bucket + off)
-                lens = self._gather(self._run_rows(
-                    self.model.vits.predict_lengths,
-                    [r for _, r in chunk], t_bucket, gen,
-                    length_scale=self.length_scale)).float().cpu().numpy()
-                for j, (i, r) in enumerate(chunk):
-                    n = int(np.ceil(headroom * lens[j]))
-                    if n > top:
-                        print(f"warning: {r[0]} predicted {n} frames > "
-                              f"largest mel bucket {top}; clamping",
-                              flush=True)
-                    assign[i] = pick_bucket(min(n, top), self.mel_buckets)
+        with trace.span("dvt.front.duration_pass"):
+            for t_bucket, group in sorted(by_text.items()):
+                for off in range(0, len(group), self.batch_size):
+                    chunk = group[off:off + self.batch_size]
+                    gen = torch.Generator().manual_seed(
+                        seed * 2 ** 31 + t_bucket + off)
+                    lens = self._gather(self._run_rows(
+                        self.model.vits.predict_lengths,
+                        [r for _, r in chunk], t_bucket, gen,
+                        length_scale=self.length_scale)).float().cpu().numpy()
+                    for j, (i, r) in enumerate(chunk):
+                        n = int(np.ceil(headroom * lens[j]))
+                        if n > top:
+                            print(f"warning: {r[0]} predicted {n} frames > "
+                                  f"largest mel bucket {top}; clamping",
+                                  flush=True)
+                        assign[i] = pick_bucket(min(n, top),
+                                                self.mel_buckets)
         return assign
 
     def _prep_text(self, text: str, lang: str):
@@ -257,18 +262,27 @@ class BatchSynthesizer:
                        seed: int = 0) -> List[Tuple]:
         """[(utt_id, mel [T, n_mels] float32)] in request order, or
         [(utt_id, mel, wav [T * hop] float32)] with a vocoder. A request
-        is a manifest row or a tokenised ``Request``."""
-        requests = self._tokenise(requests)
-        by_text: Dict[int, list] = {}
-        for i, r in enumerate(requests):
-            by_text.setdefault(pick_bucket(len(r[1]), self.text_buckets),
-                               []).append((i, r))
+        is a manifest row or a tokenised ``Request``. One ``dvt.job`` span
+        of the port's tracer (``core.trace``)."""
+        with trace.span("dvt.job", requests=len(requests)):
+            return self._synthesize_all(requests, seed)
+
+    def _synthesize_all(self, requests, seed: int) -> List[Tuple]:
+        with trace.span("dvt.front.tokenise"):
+            requests = self._tokenise(requests)
+        with trace.span("dvt.front.bucket"):
+            by_text: Dict[int, list] = {}
+            for i, r in enumerate(requests):
+                by_text.setdefault(pick_bucket(len(r[1]), self.text_buckets),
+                                   []).append((i, r))
         mel_assign = self._predict_mel_buckets(by_text, seed)
-        by_shape: Dict[Tuple[int, int], list] = {}
-        for t_bucket, group in by_text.items():
-            for i, r in group:
-                m_bucket = mel_assign.get(i, self.mel_buckets[0])
-                by_shape.setdefault((t_bucket, m_bucket), []).append((i, r))
+        with trace.span("dvt.front.bucket"):
+            by_shape: Dict[Tuple[int, int], list] = {}
+            for t_bucket, group in by_text.items():
+                for i, r in group:
+                    m_bucket = mel_assign.get(i, self.mel_buckets[0])
+                    by_shape.setdefault((t_bucket, m_bucket), []).append(
+                        (i, r))
 
         out: List[Optional[Tuple]] = [None] * len(requests)
         hop = self.cfg.data.hop_length
@@ -292,22 +306,33 @@ class BatchSynthesizer:
                 wav = None
                 if self.vocoder is not None:
                     # the whole bucket batch at its static shape
-                    with torch.inference_mode():
-                        wav = self._gather(
-                            self.vocoder(mel.float())).cpu().numpy()
-                mel = self._gather(mel.float()).cpu().numpy()
-                lens = self._gather(out_lengths).cpu().numpy()
-                for j, (i, r) in enumerate(chunk):
-                    n = int(lens[j])
-                    if sdp and n >= m_bucket and m_bucket != \
-                            self.mel_buckets[-1]:
-                        print(f"warning: {r[0]} filled its mel bucket "
-                              f"{m_bucket} (the duration drawn in "
-                              f"synthesize passed the duration pass's "
-                              f"headroom); its mel is cut at {m_bucket} "
-                              f"frames", flush=True)
-                    out[i] = (r[0], mel[j, :n]) if wav is None else (
-                        r[0], mel[j, :n], wav[j, :min(n * hop, wav.shape[1])])
+                    with trace.span("dvt.vocoder"), torch.inference_mode():
+                        wav = self.vocoder(mel.float())
+                with trace.span("dvt.front.gather"):
+                    if wav is not None:
+                        wav = self._gather(wav).cpu().numpy()
+                    mel = self._gather(mel.float()).cpu().numpy()
+                    lens = self._gather(out_lengths).cpu().numpy()
+                    for j, (i, r) in enumerate(chunk):
+                        n = int(lens[j])
+                        if sdp and n >= m_bucket and m_bucket != \
+                                self.mel_buckets[-1]:
+                            print(f"warning: {r[0]} filled its mel bucket "
+                                  f"{m_bucket} (the duration drawn in "
+                                  f"synthesize passed the duration pass's "
+                                  f"headroom); its mel is cut at {m_bucket} "
+                                  f"frames", flush=True)
+                        out[i] = (r[0], mel[j, :n]) if wav is None else (
+                            r[0], mel[j, :n],
+                            wav[j, :min(n * hop, wav.shape[1])])
+                # rows launched, and the requests among them (the rest
+                # repeat the last); frames held and returned
+                trace.count("serve.calls")
+                trace.count("serve.rows", self.batch_size)
+                trace.count("serve.rows_real", len(chunk))
+                trace.count("serve.frames_held", self.batch_size * m_bucket)
+                trace.count("serve.frames_out",
+                            int(lens[:len(chunk)].sum()))
         return [o for o in out if o is not None]
 
 
@@ -346,6 +371,10 @@ def main(argv=None):
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card, the rank's "
                         "own under torchrun)")
+    p.add_argument("--trace_out", type=str, default=None,
+                   help="write the port's spans and counters of the run "
+                        "(core.trace) to this path as Chrome-trace JSON "
+                        "(rank 0's)")
     args = p.parse_args(argv)
     if args.dp:
         mesh_lib.init_distributed(device=args.device)
@@ -369,7 +398,14 @@ def main(argv=None):
         mel_buckets=ints(args.mel_buckets), vocoder=vocoder,
         dtype=DTYPES[args.dtype], device=device, dp=args.dp)
     rows = read_manifest(args.manifest)
+    if args.trace_out:
+        trace.enable(events=device.type == "cuda")
     results = syn.synthesize_all(rows, seed=args.seed)
+    if args.trace_out:
+        collected = trace.collect()
+        trace.disable()
+        if mesh_lib.rank() == 0:
+            trace.export(args.trace_out, collected)
     if mesh_lib.rank() != 0:
         return
     os.makedirs(args.out_dir, exist_ok=True)

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from diff_vits_tpu_torch.core import masking
+from diff_vits_tpu_torch.core import masking, trace
 from diff_vits_tpu_torch.core.config import Config
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
 from diff_vits_tpu_torch.diffusion.dpm_solver import (
@@ -31,6 +31,7 @@ from diff_vits_tpu_torch.diffusion.schedule import (
     GaussianDiffusion, linear_beta_schedule)
 from diff_vits_tpu_torch.diffusion.uni_pc import sample_unipc
 from diff_vits_tpu_torch.models.diffusion_encoder import DiffusionEncoder
+from diff_vits_tpu_torch.models.duration import draw_normal
 from diff_vits_tpu_torch.models.vits import VITS
 from diff_vits_tpu_torch.parallel import activations
 
@@ -172,20 +173,23 @@ def synthesize(model: DiffVits, text, text_lengths, refer, refer_lengths,
     duration, prior, initial and DDPM step noise otherwise. Runs on
     ``device`` (the card unless given), which must hold the model, in eval
     mode whatever the model's mode (no dropout, the kernel routes), as JAX
-    samples deterministically; the model's mode is restored after."""
+    samples deterministically; the model's mode is restored after. One
+    ``dvt.synthesize`` span of the port's tracer (``core.trace``)."""
     if sample_method not in SAMPLE_METHODS:
         raise ValueError(f"unknown sample_method {sample_method}")
-    with eval_mode(model):
-        device = resolve_device(device)
-        if _model_device(model).type != device.type:
-            raise ValueError(f"model is on {_model_device(model)}, "
-                             f"synthesize asked for {device}")
+    device = resolve_device(device)
+    if _model_device(model).type != device.type:
+        raise ValueError(f"model is on {_model_device(model)}, "
+                         f"synthesize asked for {device}")
 
-        def dev(t):
-            return torch.as_tensor(t).to(_model_device(model))
+    def dev(t):
+        return torch.as_tensor(t).to(_model_device(model))
 
-        text, text_lengths, refer, refer_lengths, tone, language = map(
-            dev, (text, text_lengths, refer, refer_lengths, tone, language))
+    text, text_lengths, refer, refer_lengths, tone, language = map(
+        dev, (text, text_lengths, refer, refer_lengths, tone, language))
+    with trace.span("dvt.synthesize", batch=text.shape[0],
+                    text_bucket=text.shape[1], mel_bucket=max_len), \
+            eval_mode(model):
         content, out_lengths = model.vits.infer(
             text, text_lengths, refer, refer_lengths, tone, language,
             noise_scale=noise_scale, length_scale=length_scale, max_len=max_len,
@@ -198,9 +202,7 @@ def synthesize(model: DiffVits, text, text_lengths, refer, refer_lengths,
         if init_noise is not None:
             x = dev(init_noise).float()
         else:
-            gen_dev = generator.device if generator is not None else "cpu"
-            x = dev(torch.randn((b, t_y, c_mel), generator=generator,
-                                device=gen_dev, dtype=torch.float32))
+            x = draw_normal((b, t_y, c_mel), _model_device(model), generator)
 
         dm = model.diff_model
         prompt_h, prompt_keep = dm.encode_prompt(refer, refer_lengths)

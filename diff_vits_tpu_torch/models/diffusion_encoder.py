@@ -14,7 +14,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from diff_vits_tpu_torch.core import masking
+from diff_vits_tpu_torch import ops
+from diff_vits_tpu_torch.core import masking, trace
 from diff_vits_tpu_torch.core.config import DiffusionEncoderConfig
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
 from diff_vits_tpu_torch.models.encoders import PromptEncoder
@@ -68,10 +69,13 @@ class DiffusionEncoder(nn.Module):
         return prompt_h, prompt_keep
 
     def denoise(self, x, t, cond, prompt_h, prompt_keep, *, emb=None):
-        """One UNet x0 prediction given pre-encoded prompt keys."""
-        h = torch.cat([x, cond.to(x.dtype)], dim=-1)
-        return self.unet(h, t, prompt_h, encoder_attention_mask=prompt_keep,
-                         emb=emb)
+        """One UNet x0 prediction given pre-encoded prompt keys. One
+        ``dvt.denoise`` span of the port's tracer (``core.trace``), with
+        the change of ``ops.launch_counts()`` over the call."""
+        with trace.span("dvt.denoise", delta=ops.launch_counts):
+            h = torch.cat([x, cond.to(x.dtype)], dim=-1)
+            return self.unet(h, t, prompt_h,
+                             encoder_attention_mask=prompt_keep, emb=emb)
 
     def embed_time(self, timesteps):
         """Timestep-MLP embeddings [N, 4*ch0] for the solver's times."""

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diff_vits_tpu_torch.core import masking
+from diff_vits_tpu_torch.core import masking, trace
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
 from diff_vits_tpu_torch.nn.flows import ConvFlow, ElementwiseAffine, Flip, Log
 from diff_vits_tpu_torch.nn.layers import Conv1d, DDSConv, dropout
@@ -96,13 +96,20 @@ class DurationPredictor(nn.Module):
         return self.proj(x * x_mask) * x_mask
 
 
-def draw_normal(shape, like: torch.Tensor,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
-    """A standard normal draw from ``generator`` (its device; the global
-    CPU stream without one), moved to ``like``'s device and dtype."""
-    dev = generator.device if generator is not None else "cpu"
-    return torch.randn(shape, generator=generator, device=dev,
-                       dtype=torch.float32).to(like)
+def draw_normal(shape, like, generator: Optional[torch.Generator]
+                ) -> torch.Tensor:
+    """A float32 standard normal draw from ``generator`` (its device; the
+    global CPU stream without one), moved to ``like``: a tensor, whose
+    device and dtype it takes, or a device. One ``dvt.noise`` span of the
+    port's tracer (``core.trace``); elements drawn on the host for another
+    device count as ``noise.host_elements``."""
+    dev = generator.device if generator is not None else torch.device("cpu")
+    with trace.span("dvt.noise", elements=math.prod(shape), device=dev):
+        out = torch.randn(shape, generator=generator, device=dev,
+                          dtype=torch.float32).to(like)
+    if dev.type == "cpu" and out.device.type != "cpu":
+        trace.count("noise.host_elements", out.numel())
+    return out
 
 
 class StochasticDurationPredictor(nn.Module):

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from diff_vits_tpu_torch.core import masking
+from diff_vits_tpu_torch.core import masking, trace
 from diff_vits_tpu_torch.core.config import VitsConfig
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
 from diff_vits_tpu_torch.models.duration import (
@@ -237,28 +237,30 @@ class VITS(nn.Module):
         ``generator`` next (unused when noise_scale is 0). The spec flow,
         when configured, runs in reverse on the prior sample; the phoneme
         VAE's prosody, when configured, is added after it (its prior noise
-        drawn from ``generator`` last, also unused at noise_scale 0)."""
-        g, x_h, m_p, logs_p, x_mask, w_ceil, out_lengths = \
-            self._predict_durations(x, x_lengths, y, y_lengths, tone,
-                                    language, length_scale, dur_noise,
-                                    generator)
-        t_y = max_len if max_len is not None else x.shape[1] * 16
-        out_lengths = torch.clamp(out_lengths, max=t_y)
-        y_mask = masking.sequence_mask(out_lengths, t_y).to(x_mask.dtype)
-        attn = masking.generate_path(
-            w_ceil, y_mask[:, :, None] * x_mask[:, None, :, 0])
-        m_p_e = torch.matmul(attn, m_p)
-        z_p = m_p_e
-        if noise_scale != 0.0:
-            logs_p_e = torch.matmul(attn, logs_p)
-            noise = draw_normal(m_p_e.shape, m_p_e, generator)
-            z_p = m_p_e + noise * torch.exp(logs_p_e) * noise_scale
-        if self.flow is not None:
-            y_keep = y_mask[..., None]
-            z_p = self.flow(z_p, y_keep, g=g, reverse=True) * y_keep
-        if self.phoneme_vae is not None:
-            z_p = z_p + self.phoneme_vae.infer(
-                attn, x_h, x_mask, g=g, noise_scale=noise_scale,
-                generator=generator)
-        content = self.o_proj(z_p, out_lengths, g=g)
-        return content, out_lengths
+        drawn from ``generator`` last, also unused at noise_scale 0). One
+        ``dvt.prior`` span of the port's tracer (``core.trace``)."""
+        with trace.span("dvt.prior"):
+            g, x_h, m_p, logs_p, x_mask, w_ceil, out_lengths = \
+                self._predict_durations(x, x_lengths, y, y_lengths, tone,
+                                        language, length_scale, dur_noise,
+                                        generator)
+            t_y = max_len if max_len is not None else x.shape[1] * 16
+            out_lengths = torch.clamp(out_lengths, max=t_y)
+            y_mask = masking.sequence_mask(out_lengths, t_y).to(x_mask.dtype)
+            attn = masking.generate_path(
+                w_ceil, y_mask[:, :, None] * x_mask[:, None, :, 0])
+            m_p_e = torch.matmul(attn, m_p)
+            z_p = m_p_e
+            if noise_scale != 0.0:
+                logs_p_e = torch.matmul(attn, logs_p)
+                noise = draw_normal(m_p_e.shape, m_p_e, generator)
+                z_p = m_p_e + noise * torch.exp(logs_p_e) * noise_scale
+            if self.flow is not None:
+                y_keep = y_mask[..., None]
+                z_p = self.flow(z_p, y_keep, g=g, reverse=True) * y_keep
+            if self.phoneme_vae is not None:
+                z_p = z_p + self.phoneme_vae.infer(
+                    attn, x_h, x_mask, g=g, noise_scale=noise_scale,
+                    generator=generator)
+            content = self.o_proj(z_p, out_lengths, g=g)
+            return content, out_lengths

@@ -20,7 +20,7 @@ ranks falls back to all of them on ``data``, as in JAX.
 Usage:
   python -m diff_vits_tpu_torch.train.cli -c config.json --workdir runs/a \
       [--resume auto|<checkpoint>] [--steps N] [--log_every 100] \
-      [--device cpu]
+      [--device cpu] [--trace_out spans.json]
   torchrun --nproc_per_node N -m diff_vits_tpu_torch.train.cli \
       -c configs/multi_chip_dp.json --workdir runs/dp [--resume auto]
   # a config with "mesh_shape": [2, 2], "mesh_axes": ["fsdp", "model"]
@@ -32,6 +32,7 @@ from __future__ import annotations
 import argparse
 import os
 
+from diff_vits_tpu_torch.core import trace
 from diff_vits_tpu_torch.core.config import Config, load_config
 
 
@@ -52,6 +53,11 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the CUDA card; "
                              "raises when there is none)")
+    parser.add_argument("--trace_out", type=str, default=None,
+                        help="write the port's spans and counters of the "
+                             "training loop (core.trace; every span is held "
+                             "in memory until the end) to this path as "
+                             "Chrome-trace JSON (rank 0's)")
     args = parser.parse_args(argv)
 
     from diff_vits_tpu_torch.parallel.mesh import init_distributed
@@ -64,7 +70,14 @@ def main(argv=None):
         trainer.resume_latest()
     elif args.resume:
         trainer.load(args.resume)
+    if args.trace_out:
+        trace.enable(events=trainer.device.type == "cuda")
     trainer.train(num_steps=args.steps, log_every=args.log_every)
+    if args.trace_out:
+        collected = trace.collect()
+        trace.disable()
+        if trainer.rank == 0:
+            trace.export(args.trace_out, collected)
     return trainer
 
 

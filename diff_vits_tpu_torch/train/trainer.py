@@ -128,6 +128,7 @@ from typing import (Dict, Iterable, Iterator, List, Mapping, Optional,
 import numpy as np
 import torch
 
+from diff_vits_tpu_torch.core import trace
 from diff_vits_tpu_torch.core.config import Config
 from diff_vits_tpu_torch.core.device import DeviceLike, resolve_device
 from diff_vits_tpu_torch.data.batch import Batch
@@ -379,19 +380,25 @@ class Trainer:
         """One optimizer step on ``batch`` (``accum`` micro-batches when
         gradient accumulation is on). Returns the metrics as device
         scalars, the loss terms averaged over the micro-batches and the
-        pre-clip gradient norm as ``loss/grad``."""
+        pre-clip gradient norm as ``loss/grad``. One ``dvt.train.step``
+        span of the port's tracer (``core.trace``)."""
         micro = [batch] if isinstance(batch, Batch) else list(batch)
         if len(micro) != self.accum:
             raise ValueError(f"train_step takes {self.accum} micro-batches, "
                              f"got {len(micro)}")
-        return self.step_on([batch_to_device(mb, self.device)
-                             for mb in micro])
+        with trace.span("dvt.train.step", step=self.step + 1):
+            return self.step_on([batch_to_device(mb, self.device)
+                                 for mb in micro])
 
     def step_on(self, micro: Sequence[Dict[str, torch.Tensor]]
                 ) -> Dict[str, torch.Tensor]:
         """:meth:`train_step` on micro-batches already on the device (the
         fields of :func:`batch_to_device`); the coin flip between refer1
-        and refer2 is drawn here, once per micro-batch."""
+        and refer2 is drawn here, once per micro-batch. Spans of the port's
+        tracer: ``dvt.train.forward`` and ``dvt.train.backward`` a
+        micro-batch, ``dvt.train.metrics`` (the sum of its metrics) and
+        ``dvt.train.optimizer`` (the ranks' gradient reduction, the clip,
+        AdamW and the EMA)."""
         mas_noise_scale = max(self.cfg.train.mas_noise_scale_initial
                               - self.cfg.train.noise_scale_delta * self.step,
                               0.0)
@@ -406,28 +413,31 @@ class Trainer:
         for mb in inputs:
             with self.plan.bind(self.model, working), \
                     activations.sequence_parallel(scope):
-                with self._autocast():
+                with trace.span("dvt.train.forward"), self._autocast():
                     loss, (metrics, _, _) = self.model(
                         **mb, generator=self.generator,
                         mas_noise_scale=mas_noise_scale,
                         rank_mean=rank_mean)
-                (loss / len(inputs)).backward()
-            for k, v in metrics.items():
-                sums[k] = sums.get(k, 0.0) + v.detach().float()
+                with trace.span("dvt.train.backward"):
+                    (loss / len(inputs)).backward()
+            with trace.span("dvt.train.metrics"):
+                for k, v in metrics.items():
+                    sums[k] = sums.get(k, 0.0) + v.detach().float()
         metrics = {k: v / len(inputs) for k, v in sums.items()}
-        if self.dp:
-            self.plan.reduce_grads(params, working)
-        del working
-        grads = [p.grad for p in self.params if p.grad is not None]
-        metrics["loss/grad"] = clip_by_global_norm_scheduled(
-            grads, self.step, self.cfg,
-            self.plan.grad_norm(params) if self.plan.active else None)
-        self.optimizer.step()
-        if self.ema is not None:
-            d = self.cfg.train.ema_decay
-            with torch.no_grad():
-                torch._foreach_mul_(self.ema, d)
-                torch._foreach_add_(self.ema, self.params, alpha=1.0 - d)
+        with trace.span("dvt.train.optimizer"):
+            if self.dp:
+                self.plan.reduce_grads(params, working)
+            del working
+            grads = [p.grad for p in self.params if p.grad is not None]
+            metrics["loss/grad"] = clip_by_global_norm_scheduled(
+                grads, self.step, self.cfg,
+                self.plan.grad_norm(params) if self.plan.active else None)
+            self.optimizer.step()
+            if self.ema is not None:
+                d = self.cfg.train.ema_decay
+                with torch.no_grad():
+                    torch._foreach_mul_(self.ema, d)
+                    torch._foreach_add_(self.ema, self.params, alpha=1.0 - d)
         self.step += 1
         return metrics
 
@@ -497,11 +507,13 @@ class Trainer:
 
     def global_metrics(self, metrics: Dict[str, torch.Tensor]
                         ) -> Dict[str, float]:
-        """``metrics`` averaged over the ranks, as floats (a host sync)."""
-        names = sorted(metrics)
-        vals = torch.stack([metrics[k].float() for k in names])
-        vals = self._mean_over_ranks(vals) if self.dp else vals
-        return dict(zip(names, vals.tolist()))
+        """``metrics`` averaged over the ranks, as floats (a host sync): a
+        ``dvt.train.metrics`` span of the port's tracer."""
+        with trace.span("dvt.train.metrics"):
+            names = sorted(metrics)
+            vals = torch.stack([metrics[k].float() for k in names])
+            vals = self._mean_over_ranks(vals) if self.dp else vals
+            return dict(zip(names, vals.tolist()))
 
     def _any_rank(self, flag: bool) -> bool:
         """Whether ``flag`` is true on any rank (every rank must ask)."""
@@ -639,19 +651,22 @@ class Trainer:
                     micro = next(batches)
                 except StopIteration:
                     break
-                try:
-                    metrics = self.step_on(micro)
-                except Exception:
-                    # a checkpoint of what is left, never hiding the error;
-                    # no barrier: the other ranks may not have failed
+                with trace.span("dvt.train.step", step=self.step + 1):
                     try:
-                        self.save(self.step, sync=False)
-                    except Exception as save_err:
-                        print(f"crash checkpoint failed: {save_err}",
-                              flush=True)
-                    raise
+                        metrics = self.step_on(micro)
+                    except Exception:
+                        # a checkpoint of what is left, never hiding the
+                        # error; no barrier: the other ranks may not have
+                        # failed
+                        try:
+                            self.save(self.step, sync=False)
+                        except Exception as save_err:
+                            print(f"crash checkpoint failed: {save_err}",
+                                  flush=True)
+                        raise
+                    if self.step % log_every == 0:
+                        logged = self.global_metrics(metrics)
                 if self.step % log_every == 0:
-                    logged = self.global_metrics(metrics)
                     if not math.isfinite(logged["loss/all"]):
                         self.save(self.step)
                         raise FloatingPointError(

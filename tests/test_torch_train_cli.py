@@ -83,8 +83,13 @@ def test_preprocess_then_train_then_resume(run_config, capsys):
     assert {"eval/mel_l1", "eval/mel_corr", "eval/diff_fixed_t"} <= set(
         trainer.last_eval_metrics)
 
-    trainer = cli.main([*args, "--resume", "auto", "--steps", "6"])
+    spans = tmp / "spans.json"
+    trainer = cli.main([*args, "--resume", "auto", "--steps", "6",
+                        "--trace_out", str(spans)])
     out = capsys.readouterr().out
+    events = json.loads(spans.read_text())["traceEvents"]
+    assert [e["args"]["step"] for e in events
+            if e["name"] == "dvt.train.step"] == [5, 6]
     assert f"resumed from {os.path.join(workdir, 'model-4.ckpt')} at step 4" \
         in out
     assert trainer.step == 6 and "step 6 " in out
