@@ -50,7 +50,6 @@ import numpy as np
 import torch
 
 from benchmark.reference import draws, plain_math
-from benchmark.reference.model import synthesize as ref_synthesize
 from benchmark.reference.quant import fp8_products
 
 
@@ -111,13 +110,15 @@ def frame_counts(logw: torch.Tensor, lengths: torch.Tensor,
     return w_ceil, total
 
 
-def judge_serving(samples: List[Dict], ref, vocos, mix: Dict, hop: int,
-                  refer_frames: int, device, control: bool = False
+def judge_serving(reference, samples: List[Dict], ref, vocos, mix: Dict,
+                  hop: int, refer_frames: int, device, control: bool = False
                   ) -> Dict[str, float]:
-    """The numbers over ``samples``: dicts with the request (``req``), its
-    call record (``call``: ``seed``, ``batch``, ``max_len``,
-    ``t_bucket``, ``logw``), its ``row`` and the program's trimmed
-    ``mel`` and ``wav``. ``control``: the reference in float8 products
+    """The numbers of the model ``ref`` and the vocoder ``vocos`` of the
+    plain reference ``reference`` (``references.resolve``; its
+    ``synthesize`` runs them) over ``samples``: dicts with the request
+    (``req``), its call record (``call``: ``seed``, ``batch``,
+    ``max_len``, ``t_bucket``, ``logw``), its ``row`` and the program's
+    trimmed ``mel`` and ``wav``. ``control``: the reference in float8 products
     stands in for the program (its own durations, mel and waveform, TF32
     on for its vocoder)."""
     acc = {"logw": [0.0, 0, 0.0], "mel": [0.0, 0.0, 0.0],
@@ -144,9 +145,9 @@ def judge_serving(samples: List[Dict], ref, vocos, mix: Dict, hop: int,
         def run(counts=(None, None)):
             gen = torch.Generator().manual_seed(call["seed"])
             with draws.rows(rows, call["batch"]), plain_math():
-                return ref_synthesize(ref, *inputs, generator=gen,
-                                      w_ceil=counts[0],
-                                      out_lengths=counts[1], **kw)
+                return reference.synthesize(ref, *inputs, generator=gen,
+                                            w_ceil=counts[0],
+                                            out_lengths=counts[1], **kw)
         if control:
             with fp8_products(ref):
                 mel_c, n_c, logw_c = run()
@@ -242,23 +243,24 @@ def leaf_norms(tensors) -> List[float]:
         [torch.linalg.vector_norm(x.float()) for x in tensors]).cpu()]
 
 
-def reference_steps(ref, run_cfg: Dict, batches, block_rows: int, device,
-                    control: bool = False, rows: Optional[int] = None,
+def reference_steps(reference, ref, run_cfg: Dict, batches, block_rows: int,
+                    device, control: bool = False, rows: Optional[int] = None,
                     paths: Optional[List[torch.Tensor]] = None) -> Dict:
-    """The reference's first ``len(batches)`` optimizer steps from the
-    program's initial weights, as ``Trainer.step_on`` takes them: the MAS
-    noise's anneal, the refer1 / refer2 coin, the step's draws from a
-    generator on ``device`` seeded as the Trainer's, the loss over the
-    whole batch (run ``block_rows`` rows at a time, the MAS noise scaled by
-    the whole batch's standard deviation from a first pass), the global
-    norm clip and AdamW (weight decay 1e-4). ``control``: the products
-    in float8; ``rows``: only each batch's first ``rows`` rows (a planted
-    fault: the rest of the batch left out). Returns each step's loss, and by leaf the first gradient
-    as AdamW got it and the parameters' change."""
+    """The first ``len(batches)`` optimizer steps of the model ``ref`` of
+    the plain reference ``reference`` (whose ``Config`` reads ``run_cfg``)
+    from the program's initial weights, as ``Trainer.step_on`` takes them:
+    the MAS noise's anneal, the refer1 / refer2 coin, the step's draws
+    from a generator on ``device`` seeded as the Trainer's, the loss over
+    the whole batch (run ``block_rows`` rows at a time, the MAS noise
+    scaled by the whole batch's standard deviation from a first pass), the
+    global norm clip and AdamW (weight decay 1e-4). ``control``: the
+    products in float8; ``rows``: only each batch's first ``rows`` rows (a
+    planted fault: the rest of the batch left out). Returns each step's
+    loss, and by leaf the first gradient as AdamW got it and the
+    parameters' change."""
     import random
 
-    from benchmark.reference.config import Config
-    tc = Config.from_dict(run_cfg).train
+    tc = reference.Config.from_dict(run_cfg).train
     ref.train()
     params = list(ref.parameters())
     p0 = [p.detach().clone() for p in params]
@@ -332,15 +334,16 @@ def reference_steps(ref, run_cfg: Dict, batches, block_rows: int, device,
     return out
 
 
-def mas_mismatch(mas, device) -> float:
+def mas_mismatch(reference, mas, device) -> float:
     """The largest share, over the steps, of alignment entries where the
-    program's MAS path differs from the reference's MAS over the same
-    scores and mask (an exact comparison: the path is discrete)."""
-    from benchmark.reference.layers import maximum_path
+    program's MAS path differs from the reference's MAS
+    (``reference.maximum_path``) over the same scores and mask (an exact
+    comparison: the path is discrete)."""
     worst = 0.0
     for neg_cent, mask, path in mas:
         with torch.no_grad():
-            mine = maximum_path(neg_cent.to(device), mask.to(device))
+            mine = reference.maximum_path(neg_cent.to(device),
+                                          mask.to(device))
         worst = max(worst, float((mine.cpu() != path).float().mean()))
     return worst
 

@@ -28,7 +28,8 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, default=1.0)
     args = p.parse_args(argv)
     bench.environment()
-    cell, _, cfg, mix = bench.cell_of(bench.manifest(), args.workload)
+    cell, _, cfg, reference, mix = bench.cell_of(bench.manifest(),
+                                                 args.workload)
     import torch
     torch.set_num_threads(bench.HOST_THREADS)
     if not torch.cuda.is_available():
@@ -39,7 +40,7 @@ def main(argv=None) -> int:
     else:
         from benchmark import train as driver
     for seed in args.seeds:
-        out = driver.run(cfg, mix, seed, args.seconds, False,
+        out = driver.run(reference, cfg, mix, seed, args.seconds, False,
                          torch.device("cuda", 0), time.perf_counter(),
                          control=True)
         print(json.dumps({"seed": seed, "program": out["numbers"],

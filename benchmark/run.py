@@ -4,12 +4,14 @@
         --trace <0|1>
 
 Everything is found by name: the cell in ``BENCHMARK.json``'s
-``workloads``, its configuration's file (``configs``), its traffic mix in
-``benchmark/traffic/<traffic>.json``, the limits of its check in
-``benchmark/limits/<cell>.json`` and, with ``--trace 1``, each per-layer
-metric's reader in ``benchmark/metrics/<metric>.py``. The last line of
-standard output is the result, one JSON object; the numbers the check
-compared, each beside its limit, are the last lines of standard error.
+``workloads``, its configuration's file (``configs``), the plain
+reference and work count that file names (``benchmark.references``), its
+traffic mix in ``benchmark/traffic/<traffic>.json``, the limits of its
+check in ``benchmark/limits/<cell>.json`` and, with ``--trace 1``, each
+per-layer metric's reader in ``benchmark/metrics/<metric>.py``. The last
+line of standard output is the result, one JSON object; the numbers the
+check compared, each beside its limit, are the last lines of standard
+error.
 """
 from __future__ import annotations
 
@@ -53,13 +55,16 @@ def manifest() -> dict:
 
 
 def cell_of(bench: dict, name: str):
-    """(cell, its configuration entry, the configuration, the mix)."""
-    from benchmark import traffic
+    """(cell, its configuration entry, the configuration, its reference,
+    the mix). Raises ``references.BadReference`` where the configuration
+    names a reference that cannot be used."""
+    from benchmark import references, traffic
     cell = next(w for w in bench["workloads"] if w["name"] == name)
     conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
     with open(ROOT / conf["file"]) as f:
         cfg = json.load(f)
-    return cell, conf, cfg, traffic.load(cell["traffic"])
+    return (cell, conf, cfg, references.resolve(cfg),
+            traffic.load(cell["traffic"]))
 
 
 def metrics_of(bench: dict, cell: dict, traced: bool):
@@ -95,7 +100,12 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     environment()
     bench = manifest()
-    cell, _, cfg, mix = cell_of(bench, args.workload)
+    from benchmark.references import BadReference
+    try:
+        cell, _, cfg, reference, mix = cell_of(bench, args.workload)
+    except BadReference as e:
+        print(e, file=sys.stderr)
+        return 2
 
     import torch
     torch.set_num_threads(HOST_THREADS)
@@ -111,8 +121,8 @@ def main(argv=None) -> int:
         from benchmark import serve as driver
     else:
         from benchmark import train as driver
-    out = driver.run(cfg, mix, args.seed, args.seconds, bool(args.trace),
-                     device, T0)
+    out = driver.run(reference, cfg, mix, args.seed, args.seconds,
+                     bool(args.trace), device, T0)
     found = forbidden_modules()
     if found:
         print(f"loaded in this process: {', '.join(found)}", file=sys.stderr)

@@ -26,8 +26,6 @@ import numpy as np
 import torch
 
 from benchmark import check, trace, traffic, work
-from benchmark.reference import model as ref_model
-from benchmark.reference.vocos import Vocos as RefVocos
 from benchmark.weights import make_state_dict
 
 
@@ -73,20 +71,21 @@ class Recorder:
             return inner_pl(x, x_lengths, y, *args, **kw)
         model.vits.predict_lengths = predict_lengths
 
-    def ops(self, cfg, start: int, pre_start: int, voc_start: int,
+    def ops(self, count, cfg, start: int, pre_start: int, voc_start: int,
             steps: int) -> List[work.Op]:
-        """The work of the calls recorded since the given counts."""
+        """The work of the calls recorded since the given counts, by the
+        reference's work count ``count`` (``references.Reference.work``)."""
         ops = []
         for c in self.calls[start:]:
-            ops += work.synthesize(cfg, c["batch"], c["t_bucket"],
-                                   c["max_len"], c["s_prompt"], 2, steps)
+            ops += count.synthesize(cfg, c["batch"], c["t_bucket"],
+                                    c["max_len"], c["s_prompt"], 2, steps)
         for b, t_x, s in self.prepass[pre_start:]:
-            ops += work.predict_lengths(cfg, b, t_x, s, 2)
+            ops += count.predict_lengths(cfg, b, t_x, s, 2)
         for b, t in self.vocoder_calls[voc_start:]:
-            ops += work.vocoder(b, t, 4)
+            ops += count.vocoder(b, t, 4)
         return ops
 
-    def useful_flops(self, cfg, start: int, voc_start: int,
+    def useful_flops(self, count, cfg, start: int, voc_start: int,
                      steps: int) -> float:
         """Model operations of the requests served by the calls recorded
         since ``start``: each real row (not a repeat filling the batch) at
@@ -99,8 +98,9 @@ class Recorder:
             lengths = c["lengths"].cpu().numpy()
             frames = c["frames"].cpu().numpy()
             for i in range(_real_rows(c["text"].cpu().numpy())):
-                total += _row_flops(cfg, int(lengths[i]), int(frames[i]),
-                                    c["s_prompt"], steps, vocoder)
+                total += _row_flops(count, cfg, int(lengths[i]),
+                                    int(frames[i]), c["s_prompt"], steps,
+                                    vocoder)
         return total
 
     def marks(self):
@@ -174,29 +174,30 @@ def _job_seed(seed: int, j: int) -> int:
     return (seed * 7919 + j) % 2 ** 31
 
 
-def run(cfg_dict: Dict, mix: Dict, seed: int, seconds: float, traced: bool,
-        device: torch.device, t0: float, control: bool = False) -> Dict:
-    """One serving run from process start ``t0``: the end-to-end metrics,
-    what the traced run read (``ctx``), the numbers the check compares,
-    requests attempted and failed, and the window's peak memory.
-    ``control``: also the control's numbers on the same sample
-    (``benchmark.control``)."""
+def run(reference, cfg_dict: Dict, mix: Dict, seed: int, seconds: float,
+        traced: bool, device: torch.device, t0: float,
+        control: bool = False) -> Dict:
+    """One serving run from process start ``t0`` of the configuration
+    ``cfg_dict``, checked against its plain reference ``reference``
+    (``references.resolve``): the end-to-end metrics, what the traced run
+    read (``ctx``), the numbers the check compares, requests attempted and
+    failed, and the window's peak memory. ``control``: also the control's
+    numbers on the same sample (``benchmark.control``)."""
     from diff_vits_tpu_torch.core.config import Config
     from diff_vits_tpu_torch.infer import serve as serve_mod
     from diff_vits_tpu_torch.models.vocoder import Vocos
     from diff_vits_tpu_torch.text.symbols import symbols
-    from benchmark.reference.config import Config as RefConfig
 
     marks_s = [("imports", time.perf_counter() - t0)]
     cfg = Config.from_dict(cfg_dict)
-    rcfg = RefConfig.from_dict(cfg_dict)
+    rcfg = reference.Config.from_dict(cfg_dict)
     n_vocab = cfg_dict["n_vocab"]
     if n_vocab != len(symbols):
         raise ValueError(f"n_vocab {n_vocab} is not the port's {len(symbols)}")
     dtype = getattr(torch, mix["dtype"])
     with torch.device("meta"):
-        meta = ref_model.DiffVits(rcfg, n_vocab)
-        meta_voc = RefVocos(cfg.data.n_mel_channels)
+        meta = reference.DiffVits(rcfg, n_vocab)
+        meta_voc = reference.Vocos(cfg.data.n_mel_channels)
     sd = make_state_dict(meta, seed, device, dtype)
     trace.sync(device)
     marks_s.append(("weights", time.perf_counter() - t0))
@@ -260,8 +261,8 @@ def run(cfg_dict: Dict, mix: Dict, seed: int, seconds: float, traced: bool,
             break
     if traced:
         wall = time.perf_counter() - t_start
-        ctx["mfu"] = (rec.useful_flops(rcfg, marks[0], marks[2],
-                                       mix["steps"]), wall)
+        ctx["mfu"] = (rec.useful_flops(reference.work, rcfg, marks[0],
+                                       marks[2], mix["steps"]), wall)
         spans.on = True
         done.append(job(len(done) + 1))
         spans.on = False
@@ -269,7 +270,8 @@ def run(cfg_dict: Dict, mix: Dict, seed: int, seconds: float, traced: bool,
         res, ctx["profile"] = trace.profile(
             lambda: job(len(done) + 1), device)
         done.append(res)
-        ctx["profile_ops"] = rec.ops(rcfg, *marks, mix["steps"])
+        ctx["profile_ops"] = rec.ops(reference.work, rcfg, *marks,
+                                     mix["steps"])
     window_s = time.perf_counter() - t_start
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
@@ -296,19 +298,19 @@ def run(cfg_dict: Dict, mix: Dict, seed: int, seconds: float, traced: bool,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    ref = ref_model.DiffVits(rcfg, n_vocab).to(device)
+    ref = reference.DiffVits(rcfg, n_vocab).to(device)
     ref.load_state_dict({k: v.float() for k, v in make_state_dict(
         ref, seed, device, dtype).items()})
     ref.eval()
-    rvoc = RefVocos(cfg.data.n_mel_channels).to(device).eval()
+    rvoc = reference.Vocos(cfg.data.n_mel_channels).to(device).eval()
     rvoc.load_state_dict(make_state_dict(rvoc, seed + 1, device,
                                          torch.float32))
-    numbers = check.judge_serving(samples, ref, rvoc, mix, hop,
+    numbers = check.judge_serving(reference, samples, ref, rvoc, mix, hop,
                                   mix["prompt_frames"], device)
     if control:
         ctx["control"] = check.judge_serving(
-            samples, ref, rvoc, mix, hop, mix["prompt_frames"], device,
-            control=True)
+            reference, samples, ref, rvoc, mix, hop, mix["prompt_frames"],
+            device, control=True)
     return dict(end_to_end=end_to_end, ctx=ctx, numbers=numbers,
                 attempted=sum(len(jobs[i]) for i, _ in done),
                 failed=sum(len(jobs[i]) - len(res) for i, res in done),
@@ -316,11 +318,11 @@ def run(cfg_dict: Dict, mix: Dict, seed: int, seconds: float, traced: bool,
 
 
 @functools.lru_cache(maxsize=None)
-def _row_flops(cfg, t_x: int, t_y: int, s_prompt: int, steps: int,
+def _row_flops(count, cfg, t_x: int, t_y: int, s_prompt: int, steps: int,
                vocoder: bool) -> float:
-    ops = work.synthesize(cfg, 1, t_x, t_y, s_prompt, 2, steps)
+    ops = count.synthesize(cfg, 1, t_x, t_y, s_prompt, 2, steps)
     if vocoder:
-        ops += work.vocoder(1, t_y, 4)
+        ops += count.vocoder(1, t_y, 4)
     return work.total_flops(ops)
 
 

@@ -6,6 +6,11 @@ limits (``benchmark/limits/<cell>.json``): the program passes them; the
 control (the reference in float8 products in the program's place) and
 each planted fault fail them. At the cells' own sizes the same readings
 come from ``python3 -m benchmark.control`` on the card.
+
+``model3-conv`` is an architecture that the frozen reference refuses
+(the conv duration predictor), brought in as files only: its
+configuration names its own reference (``conv_reference``), which the
+harness resolves like any other.
 """
 import json
 from pathlib import Path
@@ -13,7 +18,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from benchmark import check, serve, train, traffic
+from benchmark import check, references, serve, train, traffic
+from benchmark.tests import conv_reference
 
 ROOT = Path(__file__).resolve().parents[2]
 TINY_VITS = dict(inter_channels=16, hidden_channels=32, filter_channels=32,
@@ -29,11 +35,24 @@ def limits(cell):
 
 
 def tiny_config(name):
-    cfg = json.loads((ROOT / "benchmark" / "configs" / f"{name}.json")
-                     .read_text())
+    """A configuration file's contents at tiny widths; ``model3-conv``:
+    model3 with the conv duration predictor and its own reference."""
+    conv = name == "model3-conv"
+    cfg = json.loads((ROOT / "benchmark" / "configs"
+                      / f"{'model3' if conv else name}.json").read_text())
     cfg["vits"].update(TINY_VITS)
     cfg["diffusion_encoder"].update(TINY_DIFF)
+    if conv:
+        cfg["vits"]["duration_predictor"] = "conv"
+        cfg["reference"] = conv_reference.NAME
     return cfg
+
+
+def run_serve(config, mix, seed, monkeypatch, control=False):
+    conv_reference.install(monkeypatch)
+    cfg = tiny_config(config)
+    return serve.run(references.resolve(cfg), cfg, tiny_serve_mix(mix), seed,
+                     0.5, False, CPU, 0.0, control=control)
 
 
 def tiny_serve_mix(name):
@@ -54,13 +73,14 @@ def tiny_train_mix():
 
 
 SERVE = [("model3-serve-b64", "model3", "serve-sentences"),
-         ("sdpflow-serve-long", "sdpflow", "serve-paragraphs")]
+         ("sdpflow-serve-long", "sdpflow", "serve-paragraphs"),
+         ("model3-serve-b64", "model3-conv", "serve-sentences")]
 
 
 @pytest.mark.parametrize("cell,config,mix", SERVE)
-def test_serving_program_passes_and_control_fails(cell, config, mix):
-    out = serve.run(tiny_config(config), tiny_serve_mix(mix), 2 ** 31 + 3,
-                    0.5, False, CPU, 0.0, control=True)
+def test_serving_program_passes_and_control_fails(cell, config, mix,
+                                                  monkeypatch):
+    out = run_serve(config, mix, 2 ** 31 + 3, monkeypatch, control=True)
     assert check.verdict(out["numbers"], limits(cell)), out["numbers"]
     assert not check.verdict(out["ctx"]["control"], limits(cell))
 
@@ -75,14 +95,14 @@ def test_serving_fails_an_answer_altered_where_it_is_made(cell, config, mix,
         mel, lengths = inner(*args, **kwargs)
         return mel + 0.3 * mel.std(), lengths
     monkeypatch.setattr(serve_mod, "synthesize", altered)
-    out = serve.run(tiny_config(config), tiny_serve_mix(mix), 2 ** 31 + 4,
-                    0.5, False, CPU, 0.0)
+    out = run_serve(config, mix, 2 ** 31 + 4, monkeypatch)
     assert not check.verdict(out["numbers"], limits(cell))
 
 
 def run_train(control=False):
-    return train.run(tiny_config("model3"), tiny_train_mix(), 2 ** 31 + 8,
-                     0.5, False, CPU, 0.0, control=control)
+    cfg = tiny_config("model3")
+    return train.run(references.resolve(cfg), cfg, tiny_train_mix(),
+                     2 ** 31 + 8, 0.5, False, CPU, 0.0, control=control)
 
 
 def test_training_program_passes_and_control_and_half_batch_fail():

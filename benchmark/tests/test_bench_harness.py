@@ -5,17 +5,19 @@ the run on the card (marked ``gpu``; skips without one).
     python -m pytest benchmark/tests -q
 """
 import ast
+import importlib.util
 import json
 import math
 import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
 import pytest
 
-from benchmark import trace, traffic
+from benchmark import references, trace, traffic
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -57,6 +59,139 @@ def test_every_cell_finds_its_files():
         assert limits and all(v >= 0 for v in limits.values())
     for m in BENCH["per_layer"]:
         assert (ROOT / "benchmark" / "metrics" / f"{m['name']}.py").is_file()
+    frozen = ROOT / "benchmark" / "reference"
+    for c in BENCH["configs"]:
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        ref = references.resolve(cfg)
+        assert all(getattr(ref, n) is not None for n in references.NAMES)
+        assert all(callable(getattr(ref.work, n)) for n in references.WORK)
+        origin = Path(importlib.util.find_spec(ref.name).origin).resolve()
+        assert origin.is_relative_to(frozen), (c["name"], origin)
+
+
+def _config(name):
+    conf = next(c for c in BENCH["configs"] if c["name"] == name)
+    return json.loads((ROOT / conf["file"]).read_text())
+
+
+@pytest.mark.parametrize("name", ["model3", "sdpflow"])
+def test_the_cells_keep_the_frozen_reference(name):
+    """A configuration that names no reference gets the very objects the
+    harness imported before references were named."""
+    from benchmark import work
+    from benchmark.reference import config, layers, model, vocos
+    ref = references.resolve(_config(name))
+    assert ref.Config is config.Config and ref.DiffVits is model.DiffVits
+    assert ref.synthesize is model.synthesize and ref.Vocos is vocos.Vocos
+    assert ref.maximum_path is layers.maximum_path and ref.work is work
+
+
+def _grid(cell):
+    """(config, mix, call shapes) of a cell: every batch, text bucket, mel
+    bucket and prompt length its traffic's calls take."""
+    w = next(w for w in BENCH["workloads"] if w["name"] == cell)
+    mix = traffic.load(w["traffic"])
+    shapes = [(b, t, m, mix["prompt_frames"])
+              for b in sorted({1, 3, mix["batch_size"]})
+              for t in mix["text_buckets"] for m in mix["mel_buckets"]]
+    return _config(w["config"]), mix, shapes
+
+
+@pytest.mark.parametrize("cell", ["model3-serve-b64", "sdpflow-serve-long"])
+def test_the_serving_work_is_counted_as_before(cell):
+    """``Recorder.ops`` and ``_row_flops`` through the resolved work count
+    give the ``benchmark.work`` lists and totals, over the cell's call
+    shapes."""
+    from benchmark import serve, work
+    cfg_dict, mix, shapes = _grid(cell)
+    ref = references.resolve(cfg_dict)
+    rcfg = ref.Config.from_dict(cfg_dict)
+    steps = mix["steps"]
+    rec = types.SimpleNamespace(
+        calls=[{"batch": b, "t_bucket": t, "max_len": m, "s_prompt": s}
+               for b, t, m, s in shapes],
+        prepass=[(b, t, s) for b, t, _, s in shapes],
+        vocoder_calls=[(b, m) for b, _, m, _ in shapes])
+    want = []
+    for b, t, m, s in shapes:
+        want += work.synthesize(rcfg, b, t, m, s, 2, steps)
+    for b, t, _, s in shapes:
+        want += work.predict_lengths(rcfg, b, t, s, 2)
+    for b, _, m, _ in shapes:
+        want += work.vocoder(b, m, 4)
+    assert serve.Recorder.ops(rec, ref.work, rcfg, 0, 0, 0, steps) == want
+    for _, t, m, s in shapes:
+        assert serve._row_flops(ref.work, rcfg, t, m, s, steps, True) == \
+            work.total_flops(work.synthesize(rcfg, 1, t, m, s, 2, steps)
+                             + work.vocoder(1, m, 4))
+
+
+@pytest.mark.parametrize("name", ["model3", "sdpflow"])
+def test_the_training_work_is_counted_as_before(name):
+    from benchmark import train, work
+    cfg_dict = _config(name)
+    ref = references.resolve(cfg_dict)
+    mix = traffic.load("train-crops")
+    run_cfg = train.config(cfg_dict, mix, 2 ** 31 + 1)
+    rcfg = ref.Config.from_dict(run_cfg)
+    assert train.step_ops(ref, rcfg, mix) == work.train_forward(
+        rcfg, mix["batch_size"], mix["text_buffer"], mix["mel_crop"],
+        mix["prompt_frames"], 2)
+
+
+def _module(monkeypatch, name, **attrs):
+    mod = types.ModuleType(name)
+    vars(mod).update(attrs)
+    monkeypatch.setitem(sys.modules, name, mod)
+
+
+@pytest.mark.parametrize("name,why", [
+    ("benchmark.reference.nowhere", "does not import"),
+    ("benchmark.work", "is not benchmark.reference"),
+    ("benchmark.referencex", "is not benchmark.reference"),
+    ("benchmark.reference..model", "is not benchmark.reference"),
+    (3, "is not benchmark.reference"),
+    ("benchmark.reference.draws", "lacks Config, DiffVits"),
+    ("benchmark.reference.test_only_partial", "lacks work.train_forward"),
+    ("benchmark.reference.test_only_unhashable", "lacks a hashable work"),
+])
+def test_a_reference_that_cannot_be_used_is_refused(name, why, monkeypatch):
+    from benchmark import work
+    from benchmark.reference import model
+    whole = dict(Config=object, DiffVits=object, synthesize=model.synthesize,
+                 Vocos=object, maximum_path=len)
+    _module(monkeypatch, "benchmark.reference.test_only_partial",
+            work=type("Partial", (), {n: staticmethod(getattr(work, n))
+                                      for n in references.WORK[:3]}),
+            **whole)
+    _module(monkeypatch, "benchmark.reference.test_only_unhashable",
+            work=types.SimpleNamespace(**{n: getattr(work, n)
+                                          for n in references.WORK}),
+            **whole)
+    with pytest.raises(references.BadReference, match=why):
+        references.resolve({"reference": name})
+
+
+@pytest.mark.parametrize("name", ["benchmark.reference.nowhere", "os.path"])
+def test_a_run_naming_a_reference_it_cannot_use_ends_before_set_up(
+        name, tmp_path):
+    """The run ends before it looks for a card (so also here, where a card
+    would have ended it), nonzero and with no result line."""
+    cfg = _config("model3")
+    cfg["reference"] = name
+    (tmp_path / "c.json").write_text(json.dumps(cfg))
+    cell = BENCH["workloads"][0]
+    bench = dict(BENCH, configs=[dict(c, file=str(tmp_path / "c.json"))
+                                 for c in BENCH["configs"]])
+    code = ("import sys, json; from benchmark import run; "
+            f"run.manifest = lambda: json.loads({json.dumps(bench)!r}); "
+            f"sys.exit(run.main(['--workload', '{cell['name']}', '--seed', "
+            "'1', '--seconds', '1']))")
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode != 0
+    assert not p.stdout.strip()
+    assert f"reference {name!r}" in p.stderr and "needs" not in p.stderr
 
 
 def _reports(cell):

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import check, train
+from benchmark import check, references, train
 from benchmark.reference import config as rconf, plain_math
 from benchmark.reference.model import DiffVits as RefDiffVits
 from benchmark.reference.model import synthesize as ref_synthesize
@@ -129,7 +129,8 @@ def test_training_steps_match_the_port(kind):
     trainer.model.load_state_dict(p0)
     ref.load_state_dict(p0)
     prog = train.first_steps(trainer, batches, p0, 3)
-    refs = check.reference_steps(ref, run_cfg, batches, 2, "cpu")
+    refs = check.reference_steps(references.resolve(run_cfg), ref, run_cfg,
+                                 batches, 2, "cpu")
     numbers = check.judge_training(prog, refs)
     assert numbers["loss_gap"] < 1e-5
     assert numbers["grad_gap"] < 1e-4

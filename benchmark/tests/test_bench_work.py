@@ -2,23 +2,30 @@
 products at tiny widths, and the readers' shares against a synthetic
 trace.
 
+Each configuration of ``BENCHMARK.json`` is counted by the work count of
+the reference it names (``benchmark.references``) against that same
+reference, and so is ``model3-conv``, an architecture brought in as files
+(``conv_reference``): a new reference's count is held to it here.
+
 ``torch.utils.flop_counter`` counts the backward of a grouped convolution
 (the stochastic duration predictor's depthwise convs) as if the input's
 gradient were an ungrouped product; the work arithmetic counts it at the
-forward's size, so the training backward is compared on the UNet
-predictor's model, which has no grouped convolution.
+forward's size, so the training backward is compared only on models that
+have no grouped convolution.
 """
 import importlib.util
+import json
 from pathlib import Path
 
 import pytest
 import torch
+from torch import nn
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark import work
+from benchmark import references, work
 from benchmark.reference import config as rconf
-from benchmark.reference.model import DiffVits, synthesize
 from benchmark.reference.vocos import Vocos
+from benchmark.tests import conv_reference
 from benchmark.weights import make_state_dict
 
 TINY_VITS = dict(inter_channels=16, hidden_channels=32, filter_channels=32,
@@ -26,15 +33,30 @@ TINY_VITS = dict(inter_channels=16, hidden_channels=32, filter_channels=32,
 TINY_DIFF = dict(hidden_channels=16, block_out_channels=(16, 16, 32, 32),
                  n_prompt_layers=2)
 B, T, S, TY = 2, 21, 30, 50
+ROOT = Path(__file__).resolve().parents[2]
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+CONFIGS = [c["name"] for c in BENCH["configs"]] + ["model3-conv"]
 
 
-def tiny(kind):
-    vits = dict(TINY_VITS, duration_predictor=kind, use_flow=kind == "sdp")
-    cfg = rconf.Config.from_dict({"vits": vits,
-                                  "diffusion_encoder": TINY_DIFF})
-    m = DiffVits(cfg, 108)
+def tiny(name, monkeypatch):
+    """(reference, its config, its model with weights) of a configuration
+    at tiny widths; ``model3-conv``: model3 with the conv duration
+    predictor, naming its own reference."""
+    conv_reference.install(monkeypatch)
+    conv = name == "model3-conv"
+    file = next(c["file"] for c in BENCH["configs"]
+                if c["name"] == ("model3" if conv else name))
+    cfg_dict = json.loads((ROOT / file).read_text())
+    cfg_dict["vits"].update(TINY_VITS)
+    cfg_dict["diffusion_encoder"].update(TINY_DIFF)
+    if conv:
+        cfg_dict["vits"]["duration_predictor"] = "conv"
+        cfg_dict["reference"] = conv_reference.NAME
+    ref = references.resolve(cfg_dict)
+    cfg = ref.Config.from_dict(cfg_dict)
+    m = ref.DiffVits(cfg, 108)
     m.load_state_dict(make_state_dict(m, 1, "cpu", torch.float32))
-    return cfg, m
+    return ref, cfg, m
 
 
 def inputs():
@@ -51,19 +73,19 @@ def counted(fn):
     return fc.get_total_flops(), out
 
 
-@pytest.mark.parametrize("kind", ["unet", "sdp"])
-def test_synthesize_flops(kind):
-    cfg, m = tiny(kind)
+@pytest.mark.parametrize("name", CONFIGS)
+def test_synthesize_flops(name, monkeypatch):
+    ref, cfg, m = tiny(name, monkeypatch)
     m.eval()
-    n, _ = counted(lambda: synthesize(
+    n, _ = counted(lambda: ref.synthesize(
         m, *inputs(), generator=torch.Generator().manual_seed(1),
         max_len=TY, noise_scale=0.667, length_scale=1.0, steps=4))
-    assert n == work.total_flops(work.synthesize(cfg, B, T, TY, S, 2, 4))
+    assert n == work.total_flops(ref.work.synthesize(cfg, B, T, TY, S, 2, 4))
 
 
-@pytest.mark.parametrize("kind", ["unet", "sdp"])
-def test_training_flops(kind):
-    cfg, m = tiny(kind)
+@pytest.mark.parametrize("name", CONFIGS)
+def test_training_flops(name, monkeypatch):
+    ref, cfg, m = tiny(name, monkeypatch)
     m.train()
     text, tl, refer, rl, tone, lang = inputs()
     spec, sl = torch.randn(B, TY, 100), torch.tensor([TY, 40])
@@ -72,9 +94,10 @@ def test_training_flops(kind):
         generator=torch.Generator().manual_seed(2), mas_noise_scale=0.01,
         mas_std=torch.tensor(1.0), n_text=tl.sum(), n_frames=sl.sum(),
         b_total=B))
-    ops = work.train_forward(cfg, B, T, TY, S, 2)
+    ops = ref.work.train_forward(cfg, B, T, TY, S, 2)
     assert fwd == work.total_flops(ops)
-    if kind == "unet":
+    if not any(isinstance(mod, nn.Conv1d) and mod.groups > 1
+               for mod in m.modules()):
         bwd, _ = counted(lambda: terms["loss/all"].backward())
         assert bwd == work.train_flops(ops) - work.total_flops(ops)
         assert work.total_flops(work.train_ops(ops)) == work.train_flops(ops)
@@ -106,10 +129,10 @@ def _reader(name):
 
 
 @pytest.mark.parametrize("kind", ["serve", "train"])
-def test_shares_cannot_pass_100(kind):
+def test_shares_cannot_pass_100(kind, monkeypatch):
     """A synthetic trace in which every op runs at its floor, back to back:
     the roofline share and the mfu read 100%, and any slower trace less."""
-    cfg, _ = tiny("unet")
+    _, cfg, _ = tiny("model3", monkeypatch)
     ops = work.synthesize(cfg, B, T, TY, S, 2, 4)
     floor = work.roofline_s(ops)
     flops = work.total_flops(ops)

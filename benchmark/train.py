@@ -21,7 +21,6 @@ from typing import Dict
 import torch
 
 from benchmark import check, trace, traffic, work
-from benchmark.reference import model as ref_model
 from benchmark.weights import make_state_dict
 
 
@@ -70,8 +69,17 @@ def first_steps(trainer, batches, p0, n: int) -> Dict:
     return out
 
 
-def run(cfg_dict: Dict, mix: Dict, seed: int, seconds: float, traced: bool,
-        device: torch.device, t0: float, control: bool = False) -> Dict:
+def step_ops(reference, rcfg, mix: Dict):
+    """A step's forward products by the reference's work count, at the
+    mix's batch and crops (bf16 operands)."""
+    return reference.work.train_forward(
+        rcfg, mix["batch_size"], mix["text_buffer"], mix["mel_crop"],
+        mix["prompt_frames"], 2)
+
+
+def run(reference, cfg_dict: Dict, mix: Dict, seed: int, seconds: float,
+        traced: bool, device: torch.device, t0: float,
+        control: bool = False) -> Dict:
     """One training run from process start ``t0``; as ``serve.run``.
     ``control``: also the numbers of the control and of the planted
     fault that leaves half of each batch out (``benchmark.control``)."""
@@ -79,10 +87,10 @@ def run(cfg_dict: Dict, mix: Dict, seed: int, seconds: float, traced: bool,
     from diff_vits_tpu_torch.data.batch import Batch
     from diff_vits_tpu_torch.text.symbols import symbols
     from diff_vits_tpu_torch.train.trainer import Trainer
-    from benchmark.reference.config import Config as RefConfig
 
     run_cfg = config(cfg_dict, mix, seed)
-    cfg, rcfg = Config.from_dict(run_cfg), RefConfig.from_dict(run_cfg)
+    cfg = Config.from_dict(run_cfg)
+    rcfg = reference.Config.from_dict(run_cfg)
     n_vocab = run_cfg["n_vocab"]
     if n_vocab != len(symbols):
         raise ValueError(f"n_vocab {n_vocab} is not the port's {len(symbols)}")
@@ -95,7 +103,7 @@ def run(cfg_dict: Dict, mix: Dict, seed: int, seconds: float, traced: bool,
                       workdir=os.path.join(tempfile.gettempdir(), "bench"))
     t_trainer = time.perf_counter() - t0
     with torch.device("meta"):
-        meta = ref_model.DiffVits(rcfg, n_vocab)
+        meta = reference.DiffVits(rcfg, n_vocab)
     p0 = make_state_dict(meta, seed, device, torch.float32)
     trainer.model.load_state_dict(p0)
     if trainer.ema is not None:
@@ -116,8 +124,7 @@ def run(cfg_dict: Dict, mix: Dict, seed: int, seconds: float, traced: bool,
         spans.hook(trainer.model, "forward")
         spans.wrap(trainer, "train_step", "step")
     ctx: Dict = {"spans": spans}
-    step_ops = work.train_forward(rcfg, mix["batch_size"], mix["text_buffer"],
-                                  mix["mel_crop"], mix["prompt_frames"], 2)
+    ops = step_ops(reference, rcfg, mix)
     k = n_check
 
     def step():
@@ -138,14 +145,14 @@ def run(cfg_dict: Dict, mix: Dict, seed: int, seconds: float, traced: bool,
     trace.sync(device)
     wall = time.perf_counter() - t_start
     if traced:
-        ctx["mfu"] = (n * work.train_flops(step_ops), wall)
+        ctx["mfu"] = (n * work.train_flops(ops), wall)
         spans.on = True
         for _ in range(3):
             step()
         spans.on = False
         _, ctx["profile"] = trace.profile(lambda: [step() for _ in range(3)],
                                           device)
-        ctx["profile_ops"] = 3 * work.train_ops(step_ops)
+        ctx["profile_ops"] = 3 * work.train_ops(ops)
     window_s = time.perf_counter() - t_start
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
@@ -159,14 +166,14 @@ def run(cfg_dict: Dict, mix: Dict, seed: int, seconds: float, traced: bool,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    ref = ref_model.DiffVits(rcfg, n_vocab).to(device)
+    ref = reference.DiffVits(rcfg, n_vocab).to(device)
     ref.load_state_dict(make_state_dict(ref, seed, device, torch.float32))
     first = [batches[i] for i in range(n_check)]
     state = make_state_dict(ref, seed, device, torch.float32)
 
     def steps(**kw):
         ref.load_state_dict(state)
-        return check.reference_steps(ref, run_cfg, first,
+        return check.reference_steps(reference, ref, run_cfg, first,
                                      mix["check_block_rows"], device, **kw)
     paths = [path for _, _, path in prog["mas"]]
     if [len(p) for p in paths] != [len(b.text) for b in first]:
@@ -175,7 +182,8 @@ def run(cfg_dict: Dict, mix: Dict, seed: int, seconds: float, traced: bool,
                                  "mas_mismatch"), math.inf)
     else:
         numbers = check.judge_training(prog, steps(paths=paths), names)
-        numbers["mas_mismatch"] = check.mas_mismatch(prog["mas"], device)
+        numbers["mas_mismatch"] = check.mas_mismatch(reference, prog["mas"],
+                                                     device)
     if control:
         fp8 = steps(control=True)
         half = steps(rows=mix["batch_size"] // 2)
