@@ -25,10 +25,13 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Expand per-token frame counts into a hard monotonic alignment.
 
     duration: [B, Tx]; mask: [B, Ty, Tx]. Returns path [B, Ty, Tx] with
-    path[b, y, x] = 1 iff frame y belongs to token x.
+    path[b, y, x] = 1 iff frame y belongs to token x. The frame positions
+    are counted in float32 whatever the dtype of ``duration``: in bfloat16
+    a running sum or a frame index past 256 rounds, which would put frames
+    on the wrong token.
     """
     t_y = mask.shape[1]
-    cum = torch.cumsum(duration, dim=-1)
+    cum = torch.cumsum(duration.float(), dim=-1)
     frame = torch.arange(t_y, device=cum.device, dtype=cum.dtype)
     below = frame[None, :, None] < cum[:, None, :]
     below_prev = F.pad(below[:, :, :-1], (1, 0))

@@ -31,7 +31,7 @@ import json
 import os
 import threading
 import time
-from typing import Callable, Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Union
 
 import torch
 from torch.autograd import profiler as _profiler
@@ -138,8 +138,11 @@ def span(name: str, delta: Optional[Callable[[], Mapping[str, int]]] = None,
     return _Span(name, delta, attrs)
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` while the tracer is on."""
+def count(name: str, n: Union[int, torch.Tensor] = 1) -> None:
+    """Add ``n`` to the counter ``name`` while the tracer is on. ``n`` may
+    be a one-element tensor (a count the device holds): it is added on its
+    device and read as an int in ``collect()``, so that counting does not
+    synchronise."""
     if _on:
         with _lock:
             _counters[name] += n
@@ -150,14 +153,16 @@ def collect() -> Dict[str, object]:
     cleared here: ``{"spans": [...], "counters": {...}}``. A span is a
     dict of ``name``, ``id``, ``parent``, ``job``, ``tid``, ``start_ns``,
     ``end_ns``, ``host_ms`` and ``device_ms`` (between its CUDA events, or
-    None without them) and ``attrs``. Synchronises the card first when a
-    span holds events."""
+    None without them) and ``attrs``; the counters as ints. Synchronises
+    the card first when a span holds events (and reading a count the card
+    holds waits for it)."""
     global _spans, _counters
     with _lock:
         spans, counters = _spans, dict(_counters)
         _spans, _counters = [], collections.Counter()
     if any(s.marks is not None for s in spans):
         torch.cuda.synchronize()
+    counters = {k: int(v) for k, v in counters.items()}
     out = []
     for s in spans:
         out.append(dict(

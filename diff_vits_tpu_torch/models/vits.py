@@ -238,7 +238,10 @@ class VITS(nn.Module):
         when configured, runs in reverse on the prior sample; the phoneme
         VAE's prosody, when configured, is added after it (its prior noise
         drawn from ``generator`` last, also unused at noise_scale 0). One
-        ``dvt.prior`` span of the port's tracer (``core.trace``)."""
+        ``dvt.prior`` span of the port's tracer (``core.trace``), with the
+        spec flow's ``dvt.flow`` and the VAE's ``dvt.ph_vae`` inside, and
+        the VAE's counters ``ph_vae.tokens_real`` (the text's real tokens)
+        and ``ph_vae.tokens_held`` (batch x text bucket)."""
         with trace.span("dvt.prior"):
             g, x_h, m_p, logs_p, x_mask, w_ceil, out_lengths = \
                 self._predict_durations(x, x_lengths, y, y_lengths, tone,
@@ -257,10 +260,17 @@ class VITS(nn.Module):
                 z_p = m_p_e + noise * torch.exp(logs_p_e) * noise_scale
             if self.flow is not None:
                 y_keep = y_mask[..., None]
-                z_p = self.flow(z_p, y_keep, g=g, reverse=True) * y_keep
+                with trace.span("dvt.flow", batch=z_p.shape[0], frames=t_y):
+                    z_p = self.flow(z_p, y_keep, g=g, reverse=True) * y_keep
             if self.phoneme_vae is not None:
-                z_p = z_p + self.phoneme_vae.infer(
-                    attn, x_h, x_mask, g=g, noise_scale=noise_scale,
-                    generator=generator)
+                b, t_x = x_mask.shape[0], x_mask.shape[1]
+                with trace.span("dvt.ph_vae", batch=b, text_bucket=t_x):
+                    if trace.enabled():
+                        # the real tokens are counted on the card
+                        trace.count("ph_vae.tokens_real", (x_mask > 0).sum())
+                        trace.count("ph_vae.tokens_held", b * t_x)
+                    z_p = z_p + self.phoneme_vae.infer(
+                        attn, x_h, x_mask, g=g, noise_scale=noise_scale,
+                        generator=generator)
             content = self.o_proj(z_p, out_lengths, g=g)
             return content, out_lengths

@@ -106,6 +106,19 @@ def test_sequence_mask_and_generate_path_match_jax():
         np.asarray(jmask.generate_path(jnp.asarray(dur), jnp.asarray(mask))))
 
 
+def test_generate_path_of_bfloat16_durations_past_256_frames():
+    """Durations held in bfloat16 (the serving dtype) whose running sum
+    passes 256 frames: every frame on the token the float32 durations
+    put it on, and each token given its own count."""
+    g = torch.Generator().manual_seed(0)
+    dur = torch.randint(1, 9, (2, 300), generator=g).float()
+    mask = torch.ones(2, int(dur.sum(-1).max()), 300)
+    path = tmask.generate_path(dur.to(torch.bfloat16),
+                               mask.to(torch.bfloat16))
+    assert torch.equal(path.float(), tmask.generate_path(dur, mask))
+    assert torch.equal(path.float().sum(dim=1), dur)
+
+
 def test_timestep_embedding_matches_jax():
     t = np.array([0.0, 1.0, 37.5, 999.0], np.float32)
     for dim, flip, shift in [(16, True, 0.0), (7, False, 1.0)]:

@@ -22,7 +22,11 @@ entering ``dvt.denoise`` to its return, and its device time between the
 span's events) in the spans' job and in the profiled job, ``noise_idle_ms``
 (device idle inside ``dvt.noise`` a ``dvt.synthesize``) and
 ``front_idle_ms`` (inside ``dvt.front.*`` a job) in the profiled job,
-``row_fill`` and the counters' frame fill, idle seconds by span, the share
+``row_fill`` and the counters' frame fill, ``ph_vae_host_ms`` /
+``ph_vae_dev_ms`` and ``flow_host_ms`` / ``flow_dev_ms`` (the phoneme
+VAE's ``dvt.ph_vae`` and the spec flow's ``dvt.flow``, a call, where the
+configuration has them) and ``ph_vae_fill`` (the VAE's real tokens over
+batch x text bucket), idle seconds by span, the share
 of the gaps' idle under spans below ``dvt.job``, the launches a UNet call
 and the on-cost. ``--trace_out`` exports the spans' job as Chrome-trace
 JSON.
@@ -148,9 +152,9 @@ def read(jobs, idle, cost):
     for key, got in zip(("spans_job", "profiled_job"), jobs):
         den = [s for s in got["spans"] if s["name"] == "dvt.denoise"]
         out[key] = {
-            "denoise_host_ms": _mean([s["host_ms"] for s in den]),
-            "denoise_dev_ms": _mean([s["device_ms"] for s in den]),
-            "denoise_calls": len(den),
+            **_per_call(got["spans"], "dvt.denoise", "denoise"),
+            **_per_call(got["spans"], "dvt.ph_vae", "ph_vae"),
+            **_per_call(got["spans"], "dvt.flow", "flow"),
             "launches_a_denoise": den[-1]["attrs"].get("delta") if den
             else None,
             "host_ms_by_span": _by_name(got["spans"], "host_ms"),
@@ -170,6 +174,9 @@ def read(jobs, idle, cost):
         / sum(x["serve.rows"] for x in c),
         frame_fill_counted=100.0 * sum(x["serve.frames_out"] for x in c)
         / sum(x["serve.frames_held"] for x in c),
+        ph_vae_fill=100.0 * sum(x["ph_vae.tokens_real"] for x in c)
+        / sum(x["ph_vae.tokens_held"] for x in c)
+        if all("ph_vae.tokens_held" in x for x in c) else None,
         idle_s_by_span=dict(sorted(idle.items(), key=lambda kv: -kv[1])),
         gap_idle_s=total,
         below_job_share=(total - idle.get("dvt.job", 0.0)
@@ -183,6 +190,14 @@ def read(jobs, idle, cost):
         out["cost"] = {"runs": cost, "on_minus_off_ms_a_job": 1e3 * extra,
                        "us_a_span": 1e6 * extra / on[0]["spans"]}
     return out
+
+
+def _per_call(spans, name, key):
+    """A span's mean host and device ms a call, and its calls."""
+    got = [s for s in spans if s["name"] == name]
+    return {f"{key}_host_ms": _mean([s["host_ms"] for s in got]),
+            f"{key}_dev_ms": _mean([s["device_ms"] for s in got]),
+            f"{key}_calls": len(got)}
 
 
 def _by_name(spans, key):
